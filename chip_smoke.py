@@ -6,15 +6,21 @@
 
 Phases (each raises on failure, and the script then exits non-zero):
 
-A. Build the three CUDA kernels from ``tempo_tpu_torch/csrc`` (one nvcc
+A. Build the five CUDA sources of ``tempo_tpu_torch/csrc`` (one nvcc
    per source, in parallel) and print the build seconds.
 B. Hold each kernel against its plain PyTorch version on the card, in
-   float32, at the shapes the main path gives it: the merge join
+   float32, at the shapes the main paths give it: the merge join
    bitwise, range stats bitwise for ``count``/``clipped`` and within
    1e-5 elsewhere (``stddev`` as the variance; also on a forward window with bounds small enough to
    clip both ways), the EMA ladder bitwise.  Print kernel, plain and
    library times (``torch.searchsorted`` for the join's last-row index,
-   timed here only as a yardstick; the port never calls it).
+   timed here only as a yardstick; the port never calls it).  Then the
+   second slice's kernels, all bitwise: the valid-index scans on the
+   masks of the 1-second interpolation grid of the right frame,
+   ``last_valid_scan`` on its packed ``wx`` column, and ``resample_ema``
+   at its packed shape, on seconds shifted before 1970, and on rows
+   long enough to take the global-scratch ladder (``torch.cummax`` of
+   the candidate lanes is the last-valid-index yardstick).
 C. The main path at full scale, as a user calls it: pandas frames shaped
    like the reference quickstart's HHAR phone<->watch join (13,062,475
    rows a side, 1024 series) -> ``TSDF`` -> ``asofJoin`` ->
@@ -26,6 +32,15 @@ C. The main path at full scale, as a user calls it: pandas frames shaped
 D. ``entry.forward_step`` at [1024, 8192], its counters read the same
    way, ``clipped`` zero, its range stats (20 rows behind, 8 ahead) and
    EMA held against the plain versions on the same card tensors.
+E. The resample / interpolate path at the same scale on the right
+   (watch) frame, 5% null ``wx``: ``resample("1 second", "mean")
+   .interpolate(method="linear")``, ``resampleEMA("1 minute", "wx")``
+   and the public op ``ops.last_valid_scan`` on the packed column, the
+   counters zeroed before and read after; each of the four kernels must
+   have launched.  Then, on 8 users, all five fills (and the
+   ``TSDF.interpolate`` form of the linear one) and ``resampleEMA`` on
+   the card (float32) against ``device="cpu"`` (float64): timestamps,
+   keys and flags equal, values within 1e-4.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -48,6 +63,10 @@ HERE = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 NS = 1_000_000_000
+# the kernels each main path must launch: phases C and D, phase E
+SLICE1_KERNELS = ("asof_merge", "range_stats", "ema_ladder")
+SLICE2_KERNELS = ("last_valid_index", "first_valid_index",
+                  "last_valid_scan", "resample_ema")
 
 
 def log(msg: str) -> None:
@@ -297,6 +316,128 @@ def phase_b(pd, left, right, dev, d_args):
     return rows
 
 
+def check_bitwise(got, want, what: str) -> None:
+    """Raise unless two tensors (floats as their bits) are equal."""
+    g, w = got, want
+    if g.is_floating_point():
+        bits = {4: torch.int32, 8: torch.int64}[g.element_size()]
+        g, w = g.view(bits), w.view(bits)
+    if g.dtype != w.dtype or not torch.equal(g, w):
+        raise AssertionError(f"{what}: kernel differs from its plain version")
+
+
+def phase_b_slice2(right, dev):
+    """The second slice's kernels against their plain versions; returns
+    their rows of the result line (``launches`` filled in by phase E)."""
+    from tempo_tpu_torch import TSDF, interpol, packing
+    from tempo_tpu_torch import resample as rs
+    from tempo_tpu_torch.ops import bucket, cuda_lib, scan
+
+    rows = {}
+    rt = TSDF(right, "event_ts", ["user"], device=dev)
+
+    # -- valid-index scans on the 1 s interpolation grid's masks -------
+    sampled = rt._with_df(rs.aggregate(rt, "1 second", "mean"))
+    real, _, _, _, valid, _ = interpol.dense_grid(sampled, 1, ["wx"])
+    grid = torch.from_numpy(real).to(dev)
+    col = torch.from_numpy(valid.reshape(-1, valid.shape[-1])).to(dev)
+    K, G = grid.shape
+    for mask, what in ((grid, "grid mask"), (col, "wx mask")):
+        check_bitwise(scan.last_valid_index_scan_cuda(mask),
+                      scan.last_valid_index_scan_plain(mask),
+                      f"last_valid_index on the {what}")
+        check_bitwise(scan.first_valid_index_scan_cuda(mask),
+                      scan.first_valid_index_scan_plain(mask),
+                      f"first_valid_index on the {what}")
+    lanes = torch.arange(G, dtype=torch.int32, device=dev).expand(K, G)
+    cand = torch.where(grid, lanes, -1)
+    check_bitwise(torch.cummax(cand, dim=1).values,
+                  scan.last_valid_index_scan_cuda(grid), "torch.cummax")
+    b, by = bound_ms(K * G * 5, K * G * 2)
+    for name, fn, plain, lib_fn in (
+            ("last_valid_index", scan.last_valid_index_scan_cuda,
+             scan.last_valid_index_scan_plain,
+             lambda: torch.cummax(cand, dim=1)),
+            ("first_valid_index", scan.first_valid_index_scan_cuda,
+             scan.first_valid_index_scan_plain, None)):
+        rows[name] = dict(
+            name=name, route="cuda",
+            source="tempo_tpu_torch/csrc/index_scan.cu",
+            replaces="tempo_tpu/ops/pallas_kernels.py:"
+                     + ("143" if name.startswith("last") else "152"),
+            max_abs_err=0.0,
+            ms=time_ms(lambda: fn(grid)),
+            plain_ms=time_ms(lambda: plain(grid), reps=3),
+            bound_ms=b, bound_by=by,
+            library_ms=None if lib_fn is None else time_ms(lib_fn),
+            shape=f"[{K}, {G}] bool")
+    log(f"B index scans: bitwise equal to plain on the grid mask [{K}, {G}] "
+        f"({int(real.sum())} real slots) and the wx mask {list(col.shape)}; "
+        f"last {rows['last_valid_index']['ms']:.4f} ms, first "
+        f"{rows['first_valid_index']['ms']:.4f} ms, torch.cummax "
+        f"{rows['last_valid_index']['library_ms']:.4f} ms")
+    del grid, col, cand, lanes, sampled
+
+    # -- forward fill on the packed wx column --------------------------
+    x, v = rt.packed_numeric("wx")
+    Kx, L = x.shape
+    got, want = scan.last_valid_scan_cuda(x, v), scan.last_valid_scan_plain(x, v)
+    check_bitwise(got[0], want[0], "last_valid_scan values")
+    check_bitwise(got[1], want[1], "last_valid_scan has-valid")
+    b, by = bound_ms(Kx * L * 10, Kx * L * 2)
+    rows["last_valid_scan"] = dict(
+        name="last_valid_scan", route="cuda",
+        source="tempo_tpu_torch/csrc/index_scan.cu",
+        replaces="tempo_tpu/ops/pallas_kernels.py:121", max_abs_err=0.0,
+        ms=time_ms(lambda: scan.last_valid_scan_cuda(x, v)),
+        plain_ms=time_ms(lambda: scan.last_valid_scan_plain(x, v), reps=3),
+        bound_ms=b, bound_by=by, library_ms=None, shape=f"[{Kx}, {L}]")
+    log(f"B last_valid_scan: bitwise equal to plain at [{Kx}, {L}]; kernel "
+        f"{rows['last_valid_scan']['ms']:.4f} ms")
+
+    # -- fused resample + EMA at the packed shape ----------------------
+    real = rt.packed_mask()
+    secs64 = rt.packed_ts() // packing.NS_PER_S
+    secs = torch.from_numpy(secs64.astype(np.int32)).to(dev)
+    # seconds before 1970 (floor division matters), pads left at 0
+    neg = torch.from_numpy(
+        np.where(real, secs64 - 1_500_000_007, 0).astype(np.int32)).to(dev)
+    # rows joined f at a time, past the ladder's shared memory (16 B a
+    # lane), take its global-scratch form
+    f = 1 << math.ceil(math.log2((cuda_lib.lib().tempo_ema_smem_limit()
+                                  // 16 + 1) / L))
+    k_long = Kx // f * f
+
+    def long(t):
+        return t[:k_long].reshape(k_long // f, f * L)
+
+    cases = [(secs, x, v, 60, None, "HHAR shape"),
+             (neg, x, v, 60, 1.5, "negative seconds, scale 1.5"),
+             (long(secs), long(x), long(v), 7, None,
+              f"global-scratch form [{k_long // f}, {f * L}], step 7")]
+    for s_, x_, v_, step, scale, what in cases:
+        got = bucket.resample_ema_cuda(s_, x_, v_, step, 0.2, scale)
+        want = bucket.resample_ema_plain(s_, x_, v_, step, 0.2, scale)
+        check_bitwise(got[0], want[0], f"resample_ema res ({what})")
+        check_bitwise(got[1], want[1], f"resample_ema ema ({what})")
+    levels = math.ceil(math.log2(max(L, 2)))
+    b, by = bound_ms(Kx * L * 17, Kx * L * (3 * levels + 6))
+    rows["resample_ema"] = dict(
+        name="resample_ema", route="cuda",
+        source="tempo_tpu_torch/csrc/resample_ema.cu",
+        replaces="tempo_tpu/ops/pallas_bucket.py:378", max_abs_err=0.0,
+        ms=time_ms(lambda: bucket.resample_ema_cuda(secs, x, v, 60, 0.2)),
+        plain_ms=time_ms(lambda: bucket.resample_ema_plain(secs, x, v, 60,
+                                                           0.2), reps=3),
+        bound_ms=b, bound_by=by, library_ms=None, shape=f"[{Kx}, {L}]")
+    log(f"B resample_ema: res and ema bitwise equal to plain at "
+        f"{'; '.join(c[-1] for c in cases)}; kernel "
+        f"{rows['resample_ema']['ms']:.4f} ms, plain "
+        f"{rows['resample_ema']['plain_ms']:.4f} ms")
+    log(f"B launches while comparing (not counted): {dict(cuda_lib.launches)}")
+    return rows
+
+
 def chain(TSDF, left, right, steps=None, **kw):
     """The main path; ``steps`` (a dict) collects each step's wall
     seconds, the card synchronised at every step's end."""
@@ -332,7 +473,7 @@ def phase_c(pd, TSDF, left, right, n, n_series):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(cuda_lib.launches)
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in SLICE1_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
     if len(df) != n:
@@ -387,7 +528,7 @@ def phase_d(d_args):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(cuda_lib.launches)
-    if any(v == 0 for v in launches.values()):
+    if any(launches[k] == 0 for k in SLICE1_KERNELS):
         raise AssertionError(f"forward_step skipped a kernel: {launches}")
     K, Ll = d_args[0].shape
     for k, v in out.items():
@@ -414,6 +555,100 @@ def phase_d(d_args):
         f"plain version at bounds ({entry.MAX_WINDOW_ROWS}, "
         f"{entry.MAX_TIE_ROWS}) (count/clipped bitwise, rest max abs err "
         f"{err:.3g}), EMA bitwise")
+
+
+def phase_e(TSDF, right, n, n_series):
+    """Resample -> interpolate, resampleEMA and the public forward fill
+    at full scale; returns the launch counts."""
+    from tempo_tpu_torch import ops
+    from tempo_tpu_torch.ops import cuda_lib
+
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    steps = {}
+    t0 = t_all = time.perf_counter()
+
+    def mark(name):
+        nonlocal t0
+        torch.cuda.synchronize()
+        steps[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    rt = TSDF(right, "event_ts", ["user"])
+    resampled = rt.resample("1 second", "mean")
+    mark("resample")
+    filled = resampled.interpolate(method="linear").df
+    mark("interpolate")
+    bars = rt.resampleEMA("1 minute", "wx").df
+    mark("resampleEMA")
+    x, valid = rt.packed_numeric("wx")
+    val, has = ops.last_valid_scan(x, valid)
+    mark("last_valid_scan")
+    seconds = time.perf_counter() - t_all
+    launches = dict(cuda_lib.launches)
+    missing = [k for k in SLICE2_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"resample/interpolate path never launched "
+                             f"{missing}")
+
+    n_res = len(resampled.df)
+    if list(filled.columns) != ["user", "event_ts", "wx"]:
+        raise AssertionError(f"interpolate columns {list(filled.columns)}")
+    step = filled["event_ts"].diff().dt.total_seconds().to_numpy()
+    same = (filled["user"].to_numpy()[1:] == filled["user"].to_numpy()[:-1])
+    if not (step[1:][same] == 1.0).all():
+        raise AssertionError("interpolated grid is not 1 s within a series")
+    if len(filled) <= n_res:
+        raise AssertionError("interpolate generated no slots")
+    # linear leaves a slot null where the next real row's value is
+    # null (the reference's rule), so about the null share of wx
+    w = filled["wx"].to_numpy()
+    null_share = float(np.isnan(w).mean())
+    if not np.isfinite(w[~np.isnan(w)]).all() or null_share > 0.2:
+        raise AssertionError(f"interpolated wx not finite or mostly null "
+                             f"({null_share:.3f} null)")
+    if not np.isfinite(bars["EMA_wx"].to_numpy()).all():
+        raise AssertionError("resampleEMA EMA_wx has non-finite values")
+    if bars["wx"].isna().mean() > 0.2:
+        raise AssertionError("resampleEMA heads mostly null")
+    if not bool(torch.isfinite(val[has]).all()):
+        raise AssertionError("last_valid_scan filled a non-finite value")
+    log(f"E resample/interpolate path: {n} rows, {n_series} series, "
+        f"{seconds:.3f} s ({n / seconds:.0f} rows/s); resample -> {n_res} "
+        f"rows, interpolate -> {len(filled)} rows "
+        f"({1 - n_res / len(filled):.3f} of the slots generated, "
+        f"{null_share:.3f} of wx null), "
+        f"resampleEMA -> {len(bars)} rows; launches {launches}")
+    log("E steps (wall s, card synchronised after each): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in steps.items()))
+
+    # all five fills and resampleEMA on 8 users: card (float32) against
+    # the plain versions on the CPU (float64)
+    sr = right[right["user"].isin(np.arange(min(8, n_series)))]
+    runs = {m: lambda t, m=m: t.resample("1 second", "mean").interpolate(
+        method=m, show_interpolated=True)
+        for m in ("zero", "null", "ffill", "bfill", "linear")}
+    runs["TSDF.interpolate linear"] = lambda t: t.interpolate(
+        freq="1 second", func="mean", method="linear",
+        show_interpolated=True)
+    runs["resampleEMA"] = lambda t: t.resampleEMA("1 minute", "wx")
+    for what, run in runs.items():
+        card = run(TSDF(sr, "event_ts", ["user"])).df
+        cpu = run(TSDF(sr, "event_ts", ["user"], device="cpu")).df
+        if list(card.columns) != list(cpu.columns) or len(card) != len(cpu):
+            raise AssertionError(f"8-user {what}: frames differ in shape")
+        for c in card.columns:
+            if c in ("wx", "EMA_wx"):
+                np.testing.assert_allclose(
+                    card[c].to_numpy(np.float64), cpu[c].to_numpy(np.float64),
+                    rtol=1e-4, atol=1e-4, equal_nan=True,
+                    err_msg=f"8-user {what} {c}")
+            elif not card[c].equals(cpu[c]):
+                raise AssertionError(f"8-user {what}: {c} differs")
+    log(f"E 8-user slice ({len(sr)} rows): {', '.join(runs)} on the card "
+        f"(float32) agree with the CPU plain versions (float64): keys, "
+        f"timestamps and flags equal, values within 1e-4")
+    return launches
 
 
 def main(argv=None) -> int:
@@ -467,14 +702,17 @@ def main(argv=None) -> int:
         *entry.example_args(K=args.series, Ll=8192, Lr=8192), device=dev)
 
     rows = phase_b(pd, left, right, dev, d_args)
+    rows2 = phase_b_slice2(right, dev)
     launches, _ = phase_c(pd, TSDF, left, right, n, args.series)
     phase_d(d_args)
+    launches2 = phase_e(TSDF, right, n, args.series)
 
     kernels = []
-    for name, row in rows.items():
-        row = dict(row)
-        row["launches"] = launches[name]
-        kernels.append(row)
+    for found, table in ((launches, rows), (launches2, rows2)):
+        for name, row in table.items():
+            row = dict(row)
+            row["launches"] = found[name]
+            kernels.append(row)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

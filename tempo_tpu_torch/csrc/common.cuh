@@ -75,3 +75,62 @@ __device__ __forceinline__ int block_scan_max(int v, int* sh /* >= 32 */, int* t
     *total = sh[nw - 1];
     return v;
 }
+
+// ---------------------------------------------------------------------
+// The exact-EMA ladder shared by ema_ladder.cu and resample_ema.cu.
+//
+// The recurrence y_i = d_i * y_{i-1} + v_i is combined by the
+// Hillis-Steele ladder of the TPU kernels (v += d * v_prev, then
+// d *= d_prev, for spans 1, 2, 4, ...), one block per row, ping-ponging
+// between two (d, v) plane pairs: in shared memory (16 bytes a lane,
+// up to kEmaSmemLimit) or, for longer rows, in a global scratch of
+// [K, 4, L] floats that the wrapper allocates.  Every product and sum
+// rounds to nearest (and the build passes -fmad=false), so no
+// multiply-add is contracted.
+// ---------------------------------------------------------------------
+
+constexpr int kEmaThreads = 1024;
+// largest dynamic shared memory a block may take on sm_90 (227 KB)
+constexpr int kEmaSmemLimit = 232448;
+
+struct EmaPlanes {
+    float* d0;
+    float* v0;
+    float* d1;
+    float* v1;
+};
+
+// This block's row of planes: shared memory, or its slice of scratch.
+__device__ __forceinline__ EmaPlanes ema_planes(float* smem, float* scratch, int L) {
+    float* base = scratch ? scratch + (size_t)blockIdx.x * 4 * L : smem;
+    return {base, base + L, base + 2 * (size_t)L, base + 3 * (size_t)L};
+}
+
+// Runs the ladder over d0/v0 (filled by the caller, then a
+// __syncthreads()); returns the plane that holds the EMA.
+__device__ __forceinline__ float* ema_ladder(EmaPlanes p, int L) {
+    for (int span = 1; span < L; span <<= 1) {
+        for (int i = threadIdx.x; i < L; i += blockDim.x) {
+            const float d_prev = i >= span ? p.d0[i - span] : 1.f;
+            const float v_prev = i >= span ? p.v0[i - span] : 0.f;
+            const float d = p.d0[i];
+            p.v1[i] = __fadd_rn(p.v0[i], __fmul_rn(d, v_prev));
+            p.d1[i] = __fmul_rn(d, d_prev);
+        }
+        __syncthreads();
+        float* t = p.d0; p.d0 = p.d1; p.d1 = t;
+        t = p.v0; p.v0 = p.v1; p.v1 = t;
+    }
+    return p.v0;
+}
+
+// Dynamic shared memory of a ladder launch (0 when it runs in scratch),
+// after raising the kernel's limit to it.
+template <typename Kernel>
+inline cudaError_t ema_ladder_smem(Kernel kernel, const void* scratch, int L, size_t* smem) {
+    *smem = 0;
+    if (scratch != nullptr) return cudaSuccess;
+    *smem = (size_t)16 * L;
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)*smem);
+}

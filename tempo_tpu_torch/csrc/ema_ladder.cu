@@ -8,12 +8,11 @@
 // same association (v += d * v_prev, then d *= d_prev, for spans 1, 2,
 // 4, ...), so the f32 rounding is the TPU kernel's: a decoupled-lookback
 // or sequential scan would round differently.  One block per row; the
-// ladder ping-pongs between two (d, v) plane pairs in shared memory (16
-// bytes a lane: 204 KB at L = 12760, under the 227 KB a block may take
-// after cudaFuncSetAttribute).  Longer rows ping-pong through a global
-// scratch the wrapper allocates, inside the same kernel.  Every product
-// and sum uses a round-to-nearest intrinsic (and the build passes
-// -fmad=false), so no multiply-add is contracted.
+// ladder (common.cuh, shared with resample_ema.cu) ping-pongs between
+// two (d, v) plane pairs in shared memory (16 bytes a lane: 204 KB at
+// L = 12760, under the 227 KB a block may take after
+// cudaFuncSetAttribute).  Longer rows ping-pong through a global scratch
+// the wrapper allocates, inside the same kernel.
 //
 // Bound on H100: bytes, one read of x and valid and one write of y
 // (9 bytes a lane).  The ladder's log2(L) passes run in shared memory,
@@ -22,57 +21,34 @@
 
 namespace {
 
-constexpr int kEmaThreads = 1024;
-
 __global__ void __launch_bounds__(kEmaThreads)
 ema_ladder_kernel(const float* __restrict__ x, const uint8_t* __restrict__ valid,
                   float alpha, float* __restrict__ out, float* __restrict__ scratch,
                   int L) {
     extern __shared__ float smem[];
-    const int k = blockIdx.x;
-    const size_t row = (size_t)k * L;
-    float* base = scratch ? scratch + (size_t)k * 4 * L : smem;
-    float* d0 = base;
-    float* v0 = base + L;
-    float* d1 = base + 2 * (size_t)L;
-    float* v1 = base + 3 * (size_t)L;
+    const size_t row = (size_t)blockIdx.x * L;
+    const EmaPlanes p = ema_planes(smem, scratch, L);
 
     const float one_minus_a = __fsub_rn(1.f, alpha);
     for (int i = threadIdx.x; i < L; i += blockDim.x) {
         const bool ok = valid[row + i] != 0;
-        d0[i] = ok ? one_minus_a : 1.f;
-        v0[i] = ok ? __fmul_rn(alpha, x[row + i]) : 0.f;
+        p.d0[i] = ok ? one_minus_a : 1.f;
+        p.v0[i] = ok ? __fmul_rn(alpha, x[row + i]) : 0.f;
     }
     __syncthreads();
-    for (int span = 1; span < L; span <<= 1) {
-        for (int i = threadIdx.x; i < L; i += blockDim.x) {
-            const float d_prev = i >= span ? d0[i - span] : 1.f;
-            const float v_prev = i >= span ? v0[i - span] : 0.f;
-            const float d = d0[i];
-            v1[i] = __fadd_rn(v0[i], __fmul_rn(d, v_prev));
-            d1[i] = __fmul_rn(d, d_prev);
-        }
-        __syncthreads();
-        float* t = d0; d0 = d1; d1 = t;
-        t = v0; v0 = v1; v1 = t;
-    }
-    for (int i = threadIdx.x; i < L; i += blockDim.x) out[row + i] = v0[i];
+    const float* y = ema_ladder(p, L);
+    for (int i = threadIdx.x; i < L; i += blockDim.x) out[row + i] = y[i];
 }
 
 }  // namespace
 
-// largest dynamic shared memory a block may take on sm_90 (227 KB)
-extern "C" int tempo_ema_smem_limit() { return 232448; }
+extern "C" int tempo_ema_smem_limit() { return kEmaSmemLimit; }
 
 extern "C" int tempo_ema_ladder(const void* x, const void* valid, float alpha, void* out,
                                 void* scratch, int K, int L, void* stream) {
-    size_t smem = 0;
-    if (scratch == nullptr) {
-        smem = (size_t)16 * L;
-        cudaError_t err = cudaFuncSetAttribute(
-            ema_ladder_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return (int)err;
-    }
+    size_t smem;
+    cudaError_t err = ema_ladder_smem(ema_ladder_kernel, scratch, L, &smem);
+    if (err != cudaSuccess) return (int)err;
     ema_ladder_kernel<<<K, kEmaThreads, smem, (cudaStream_t)stream>>>(
         (const float*)x, (const uint8_t*)valid, alpha, (float*)out, (float*)scratch, L);
     return (int)cudaGetLastError();

@@ -1,8 +1,9 @@
 """TSDF: the time-series frame of the port.
 
-Counterpart of ``tempo_tpu/frame.py``, cut to this slice: the
+Counterpart of ``tempo_tpu/frame.py``, cut to the ported slices: the
 constructor and its validation, the packed accessors, ``asofJoin``,
-``withRangeStats``, ``EMA`` and ``df``.  The frame wraps host pandas
+``withRangeStats``, ``EMA``, ``resample``, ``calc_bars``,
+``resampleEMA``, ``interpolate`` and ``df``.  The frame wraps host pandas
 data plus a cache of packed [K series, L lanes] tensors on its device;
 every op is eager (the reference's lazy planner is not part of this
 port).  ``device=None`` means the CUDA card; ``device="cpu"`` runs the
@@ -135,7 +136,10 @@ class TSDF:
         return packing.pad_length(int(self.layout.lengths.max(initial=0)))
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        # pandas may hand out read-only views; torch wants a writable
+        # buffer to wrap
+        arr = np.require(arr, requirements=("C_CONTIGUOUS", "WRITEABLE"))
+        return torch.from_numpy(arr).to(self.device)
 
     def packed_ts(self) -> np.ndarray:
         """[K, L] int64 ns timestamps (host), padded with TS_PAD."""
@@ -164,6 +168,9 @@ class TSDF:
             self._packed["__mask__"] = packing.row_mask(self.layout,
                                                         self.packed_len())
         return self._packed["__mask__"]
+
+    def ts_dtype(self):
+        return self.df[self.ts_col].dtype
 
     # ------------------------------------------------------------------
     # Operations
@@ -204,3 +211,38 @@ class TSDF:
 
         return rolling.ema(self, colName, window, exp_factor, exact,
                            inclusive_window)
+
+    def resample(self, freq: str, func=None, metricCols=None, prefix=None,
+                 fill=None):
+        """Downsample by a coarser frequency (parity: tsdf.py:764-776).
+        Returns a ``_ResampledTSDF`` supporting chained ``.interpolate``."""
+        from tempo_tpu_torch import resample as rs
+
+        return rs.resample(self, freq, func, metricCols, prefix, fill)
+
+    def calc_bars(self, freq: str, func=None, metricCols=None,
+                  fill=None) -> "TSDF":
+        """OHLC bars (parity: tsdf.py:813-826)."""
+        from tempo_tpu_torch import resample as rs
+
+        return rs.calc_bars(self, freq, func, metricCols, fill)
+
+    def resampleEMA(self, freq: str, colName: str,
+                    exp_factor: float = 0.2) -> "TSDF":
+        """Fused floor-resample + exact EMA in one kernel pass: the
+        single-read form of ``resample(freq, 'floor')`` followed by
+        ``EMA(..., exact=True)`` (``resample.resample_ema``)."""
+        from tempo_tpu_torch import resample as rs
+
+        return rs.resample_ema(self, freq, colName, exp_factor)
+
+    def interpolate(self, freq: str = None, func: str = None,
+                    method: str = None, target_cols=None, ts_col: str = None,
+                    partition_cols=None,
+                    show_interpolated: bool = False) -> "TSDF":
+        """Resample + fill missing values (parity: tsdf.py:778-811)."""
+        from tempo_tpu_torch import interpol
+
+        return interpol.interpolate_frame(
+            self, freq, func, method, target_cols, ts_col, partition_cols,
+            show_interpolated)

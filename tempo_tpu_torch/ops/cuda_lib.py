@@ -15,7 +15,8 @@ with round-to-nearest intrinsics, so their float results round like the
 plain versions'.
 
 ``launches`` counts, per kernel, the launches made by the wrappers in
-``ops/merge.py``, ``ops/window.py`` and ``ops/scan.py``: each adds one
+``ops/merge.py``, ``ops/window.py``, ``ops/scan.py`` and
+``ops/bucket.py``: each adds one
 right after its launch returned without error, and nowhere else.
 """
 
@@ -36,7 +37,8 @@ import torch
 from tempo_tpu_torch import config
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("asof_merge.cu", "range_stats.cu", "ema_ladder.cu")
+SOURCES = ("asof_merge.cu", "range_stats.cu", "ema_ladder.cu",
+           "index_scan.cu", "resample_ema.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-fmad=false", "-Xcompiler", "-fPIC",
@@ -44,7 +46,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 #: kernel name -> launches made by its wrapper
 launches: Dict[str, int] = {"asof_merge": 0, "range_stats": 0,
-                            "ema_ladder": 0}
+                            "ema_ladder": 0, "last_valid_index": 0,
+                            "first_valid_index": 0, "last_valid_scan": 0,
+                            "resample_ema": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -59,6 +63,11 @@ _SIGNATURES = {
     "tempo_range_stats": [_P] * 6 + [_I] * 7 + [_P],
     "tempo_ema_ladder": [_P, _P, ctypes.c_float, _P, _P, _I, _I, _P],
     "tempo_ema_smem_limit": [],
+    "tempo_last_valid_index": [_P, _P, _I, _I, _P],
+    "tempo_first_valid_index": [_P, _P, _I, _I, _P],
+    "tempo_last_valid_scan": [_P] * 4 + [_I, _I, _P],
+    "tempo_resample_ema": [_P] * 3 + [_I, ctypes.c_float, ctypes.c_float]
+                          + [_P] * 3 + [_I, _I, _P],
     "tempo_error_string": [_I],
 }
 

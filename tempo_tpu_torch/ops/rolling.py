@@ -1,7 +1,7 @@
 """Range-stats engines and EMA forms on packed [K, L] series.
 
 Counterpart of ``tempo_tpu/ops/rolling.py``: ``pick_range_engine``,
-``windowed_stats``, ``ema_exact`` and ``ema_compat``.
+``windowed_stats``, ``segment_stats``, ``ema_exact`` and ``ema_compat``.
 
 The reference has three range engines; two of them, ``shifted`` and
 ``stream``, are the unrolled and runtime-width forms of one Pallas
@@ -130,6 +130,50 @@ def windowed_stats(x, valid, start, end) -> Dict[str, torch.Tensor]:
         "sum": torch.where(cnt > 0, total, nan),
         "stddev": std,
         "zscore": torch.where(valid, (x - mean) / std, nan),
+    }
+
+
+def segment_stats(x: torch.Tensor, valid: torch.Tensor,
+                  seg_ids: torch.Tensor, num_segments: int
+                  ) -> Dict[str, torch.Tensor]:
+    """Six grouped aggregates per segment of flat ``[n]`` rows
+    (withGroupedStats tsdf.py:750-754), as tensor ops on either device:
+    ``index_add_`` sums and ``scatter_reduce_`` min/max over the segment
+    ids.  On a CUDA tensor ``index_add_`` adds with atomics, in an order
+    that changes from run to run, so float32 sums there are exact only to
+    about ``n_seg * eps * sum|x|`` (n_seg the rows of a segment)."""
+    dt, dev = x.dtype, x.device
+    seg = seg_ids.to(torch.int64)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    one = torch.ones((), dtype=dt, device=dev)
+    nan = torch.full((), float("nan"), dtype=dt, device=dev)
+    pinf = torch.full((), float("inf"), dtype=dt, device=dev)
+    xz = torch.where(valid, x, zero)
+
+    def seg_sum(v):
+        return torch.zeros(num_segments, dtype=dt, device=dev).index_add_(
+            0, seg, v)
+
+    def seg_reduce(v, fill, how):
+        return torch.full((num_segments,), fill, dtype=dt,
+                          device=dev).scatter_reduce_(0, seg, v, how)
+
+    cnt = seg_sum(valid.to(dt))
+    s1 = seg_sum(xz)
+    s2 = seg_sum(xz * xz)
+    mn = seg_reduce(torch.where(valid, x, pinf), float("inf"), "amin")
+    mx = seg_reduce(torch.where(valid, x, -pinf), float("-inf"), "amax")
+    mean = torch.where(cnt > 0, s1 / torch.maximum(cnt, one), nan)
+    var = torch.where(cnt > 1, (s2 - s1 * s1 / torch.maximum(cnt, one))
+                      / torch.maximum(cnt - 1, one), nan)
+    std = torch.where(cnt > 1, torch.sqrt(torch.maximum(var, zero)), nan)
+    return {
+        "mean": mean,
+        "count": cnt,
+        "min": torch.where(cnt > 0, mn, nan),
+        "max": torch.where(cnt > 0, mx, nan),
+        "sum": torch.where(cnt > 0, s1, nan),
+        "stddev": std,
     }
 
 

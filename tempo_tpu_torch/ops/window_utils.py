@@ -1,13 +1,44 @@
-"""Window primitives of the plain (CPU) engines.
+"""Window primitives.
 
 Counterpart of the parts of ``tempo_tpu/ops/window_utils.py`` and
-``tempo_tpu/ops/sortmerge.py:merge_rank`` that the windowed range engine
-and the ``maxLookback`` join need.  Plain tensor code, dtype-generic.
+``tempo_tpu/ops/sortmerge.py:merge_rank`` that the windowed range engine,
+the ``maxLookback`` join and interpolation need.  ``last_valid_index``
+and ``first_valid_index`` reach the index-scan kernels of ``ops/scan``
+on a CUDA tensor (any L) and their plain versions on a CPU tensor; the
+rest is plain tensor code for the CPU engines, dtype-generic.
 """
 
 from __future__ import annotations
 
 import torch
+
+from tempo_tpu_torch.ops import scan
+
+
+def _over_rows(fn, valid: torch.Tensor) -> torch.Tensor:
+    """``fn`` of a [K, L] scan applied along the last axis of any shape."""
+    L = valid.shape[-1]
+    return fn(valid.reshape(-1, L)).reshape(valid.shape)
+
+
+def last_valid_index(valid: torch.Tensor) -> torch.Tensor:
+    """Running index of the last True up to and including each position
+    along the last axis; -1 where none has been seen yet.
+
+    The vectorised ``last(col, ignoreNulls=True)`` over an
+    unbounded-preceding window (reference tsdf.py:139).  Plain form:
+    ``scan.last_valid_index_scan_plain`` (a ``torch.cummax``)."""
+    return _over_rows(scan.last_valid_index_scan, valid)
+
+
+def first_valid_index(valid: torch.Tensor) -> torch.Tensor:
+    """Index of the first True at or after each position along the last
+    axis; its length where none.
+
+    ``first(col, ignoreNulls=True)`` over a current-row-to-unbounded-
+    following window (reference interpol.py:216-222).  Plain form:
+    ``scan.first_valid_index_scan_plain`` (the mirrored ``cummin``)."""
+    return _over_rows(scan.first_valid_index_scan, valid)
 
 
 def shift_right(x: torch.Tensor, k: int, fill) -> torch.Tensor:

@@ -67,6 +67,20 @@ def series_to_ns(values: "pd.Series | np.ndarray") -> np.ndarray:
     raise TypeError(f"Unsupported timestamp dtype: {arr.dtype}")
 
 
+def ns_to_original(ns: np.ndarray, like_dtype):
+    """Map canonical ns back to the dtype the user supplied."""
+    if isinstance(like_dtype, pd.DatetimeTZDtype):
+        utc = pd.Series(ns.astype("datetime64[ns]")).dt.tz_localize("UTC")
+        return utc.dt.tz_convert(like_dtype.tz).to_numpy()
+    if np.issubdtype(like_dtype, np.datetime64):
+        return ns.astype("datetime64[ns]")
+    if np.issubdtype(like_dtype, np.integer):
+        return (ns // NS_PER_S).astype(like_dtype)
+    if np.issubdtype(like_dtype, np.floating):
+        return (ns / NS_PER_S).astype(like_dtype)
+    raise TypeError(f"Unsupported timestamp dtype: {like_dtype}")
+
+
 def encode_keys(
     df: pd.DataFrame, partition_cols: List[str]
 ) -> Tuple[np.ndarray, pd.DataFrame]:

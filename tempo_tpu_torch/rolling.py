@@ -1,7 +1,9 @@
-"""Frame-level ``withRangeStats`` and ``EMA``.
+"""Frame-level ``withRangeStats`` and ``EMA``, and the tumbling-bucket
+segments that resample builds on.
 
-Counterpart of ``tempo_tpu/rolling.py`` (``with_range_stats``, ``ema``):
-reference surface tsdf.py:673-721 and tsdf.py:615-635.
+Counterpart of ``tempo_tpu/rolling.py`` (``with_range_stats``, ``ema``,
+``_bucket_ns``, ``_segments``): reference surface tsdf.py:673-721 and
+tsdf.py:615-635.
 """
 
 from __future__ import annotations
@@ -79,6 +81,27 @@ def with_range_stats(tsdf, colsToSummarize=None, rangeBackWindowSecs=1000):
             out[f"{stat}_{c}"] = (flat.astype(np.int64) if stat == "count"
                                   else flat)
     return tsdf._with_df(out, sequence_col=seq)
+
+
+def _bucket_ns(ts_ns: np.ndarray, freq_sec: int) -> np.ndarray:
+    """Epoch-aligned tumbling window start (Spark f.window semantics)."""
+    step = np.int64(freq_sec) * packing.NS_PER_S
+    return (ts_ns // step) * step
+
+
+def _segments(layout, bucket: np.ndarray):
+    """Contiguous (series, bucket) runs over the sorted flat layout:
+    (segment id per row, first row of each segment, its bucket)."""
+    n = layout.n_rows
+    if n == 0:
+        return np.zeros(0, np.int32), np.zeros(0, np.int64), np.zeros(0, np.int64)
+    change = np.ones(n, dtype=bool)
+    change[1:] = (layout.key_ids[1:] != layout.key_ids[:-1]) | (
+        bucket[1:] != bucket[:-1]
+    )
+    seg_ids = np.cumsum(change) - 1
+    first_row = np.flatnonzero(change)
+    return seg_ids.astype(np.int32), first_row, bucket[first_row]
 
 
 def ema(tsdf, colName: str, window: int = 30, exp_factor: float = 0.2,

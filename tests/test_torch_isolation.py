@@ -14,7 +14,8 @@ import torch
 
 import tempo_tpu_torch
 from tempo_tpu_torch import TSDF, device, interop, join
-from tempo_tpu_torch.ops import cuda_lib, merge, rolling, scan, sortmerge, window
+from tempo_tpu_torch.ops import (bucket, cuda_lib, merge, rolling, scan,
+                                 sortmerge, window)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "tempo_tpu_torch").rglob("*.py")) + [
@@ -47,7 +48,9 @@ def test_kernel_sources_are_in_the_package_and_name_their_pallas_kernel():
         assert "Replaces the Pallas kernel tempo_tpu/ops/pallas_" in head, name
         assert "Bound on H100" in head, name
     assert set(cuda_lib.launches) == {"asof_merge", "range_stats",
-                                      "ema_ladder"}
+                                      "ema_ladder", "last_valid_index",
+                                      "first_valid_index", "last_valid_scan",
+                                      "resample_ema"}
 
 
 def _frame(**kw):
@@ -88,6 +91,10 @@ def test_cpu_tensors_run_the_plain_versions_without_launching():
     window.range_stats(secs, x, valid, 3, 4, 0)
     ts = torch.arange(16, dtype=torch.int64).expand(2, 16).contiguous()
     merge.asof_merge_values(ts, ts, valid[None], x[None])
+    scan.last_valid_index_scan(valid)
+    scan.first_valid_index_scan(valid)
+    scan.last_valid_scan(x, valid)
+    bucket.resample_ema(secs, x, valid, 4, 0.2)
     assert all(n == 0 for n in cuda_lib.launches.values())
 
 
@@ -132,6 +139,15 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     ts = torch.zeros(2, 8, dtype=torch.int64)
     with pytest.raises(ValueError, match="CUDA"):
         merge.asof_merge_cuda(ts, ts, valid[None], x[None])
+    for scan_cuda in (scan.last_valid_index_scan_cuda,
+                      scan.first_valid_index_scan_cuda):
+        with pytest.raises(ValueError, match="CUDA"):
+            scan_cuda(valid)
+    with pytest.raises(ValueError, match="CUDA"):
+        scan.last_valid_scan_cuda(x, valid)
+    with pytest.raises(ValueError, match="CUDA"):
+        bucket.resample_ema_cuda(torch.zeros(2, 8, dtype=torch.int32), x,
+                                 valid, 60, 0.2)
 
 
 def test_package_exports_the_frame():
