@@ -2,11 +2,12 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py            # full HHAR scale, needs one CUDA card
-    python3 chip_smoke.py --rows 200000 --series 64    # a quicker run
+    python3 chip_smoke.py --rows 400000 --series 64 --long-series 2
+                                     # a quicker run
 
 Phases (each raises on failure, and the script then exits non-zero):
 
-A. Build the five CUDA sources of ``tempo_tpu_torch/csrc`` (one nvcc
+A. Build the seven CUDA sources of ``tempo_tpu_torch/csrc`` (one nvcc
    per source, in parallel) and print the build seconds.
 B. Hold each kernel against its plain PyTorch version on the card, in
    float32, at the shapes the main paths give it: the merge join
@@ -20,7 +21,16 @@ B. Hold each kernel against its plain PyTorch version on the card, in
    ``last_valid_scan`` on its packed ``wx`` column, and ``resample_ema``
    at its packed shape, on seconds shifted before 1970, and on rows
    long enough to take the global-scratch ladder (``torch.cummax`` of
-   the candidate lanes is the last-valid-index yardstick).
+   the candidate lanes is the last-valid-index yardstick).  Then the
+   third slice's kernels, all bitwise, at phase F's packed shape: the
+   lookback merge at ``max_lookback`` 0, 1, 4 and 16, ``skipNulls`` both
+   ways (at 0 also against the merge kernel), its value form, a
+   tie-heavy case and, at a smaller shape, bin-packed rows (sid fence)
+   and a sequence tie-break, and its time on one series of 1,000,000
+   rows; the rank on the windowed engine's int32 seconds and on int64
+   nanoseconds, both sides, pads clamped (``torch.searchsorted`` is its
+   yardstick); ``cumsum3`` on a shared-memory row and on phase F's row,
+   which takes the global scratch (``torch.cumsum`` the yardstick).
 C. The main path at full scale, as a user calls it: pandas frames shaped
    like the reference quickstart's HHAR phone<->watch join (13,062,475
    rows a side, 1024 series) -> ``TSDF`` -> ``asofJoin`` ->
@@ -41,6 +51,20 @@ E. The resample / interpolate path at the same scale on the right
    ``TSDF.interpolate`` form of the linear one) and ``resampleEMA`` on
    the card (float32) against ``device="cpu"`` (float64): timestamps,
    keys and flags equal, values within 1e-4.
+F. The third slice at full width: the same 13,062,475 rows a side over
+   128 series (102,050 rows each) -> ``TSDF`` -> ``asofJoin(maxLookback=
+   16)`` (204,112 merged lanes pass the single-program limit, so the
+   auto pick takes the ``chunked`` engine: the lookback kernel) ->
+   ``withRangeStats`` over one day (about 57,600 rows of extent, past
+   ``TEMPO_TPU_STREAM_MAX_ROWS``: the windowed engine, two rank launches
+   and ``cumsum3``) -> exact ``EMA`` -> pandas, the counters zeroed
+   before and read after.  Then 8 of the series on the card (float32)
+   against ``device="cpu"`` (float64): joins and counts equal, the
+   statistics and the EMA within 1e-4, ``sum`` within 2e-3: it is the
+   difference of two float32 prefix sums of ~100,000 centred values,
+   which reach a few hundred (float32 spacing ~3e-5), each rounded at
+   17 ladder levels, plus the float32 centre times a count of ~57,600;
+   a quick run (2 series of 200,000 rows) measured 1.3e-3.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -67,6 +91,10 @@ NS = 1_000_000_000
 SLICE1_KERNELS = ("asof_merge", "range_stats", "ema_ladder")
 SLICE2_KERNELS = ("last_valid_index", "first_valid_index",
                   "last_valid_scan", "resample_ema")
+SLICE3_KERNELS = ("asof_merge_lookback", "merge_rank", "cumsum3",
+                  "ema_ladder")
+LOOKBACK = 16                 # bench.py's serve-bench maxLookback
+DAY = 86_400
 
 
 def log(msg: str) -> None:
@@ -438,7 +466,8 @@ def phase_b_slice2(right, dev):
     return rows
 
 
-def chain(TSDF, left, right, steps=None, **kw):
+def chain(TSDF, left, right, steps=None, max_lookback=0, window_secs=10,
+          **kw):
     """The main path; ``steps`` (a dict) collects each step's wall
     seconds, the card synchronised at every step's end."""
     t0 = time.perf_counter()
@@ -452,10 +481,10 @@ def chain(TSDF, left, right, steps=None, **kw):
 
     lt = TSDF(left, "event_ts", ["user"], **kw)
     rt = TSDF(right, "event_ts", ["user"], **kw)
-    joined = lt.asofJoin(rt)
+    joined = lt.asofJoin(rt, maxLookback=max_lookback)
     mark("asofJoin")
     stats = joined.withRangeStats(colsToSummarize=["x"],
-                                  rangeBackWindowSecs=10)
+                                  rangeBackWindowSecs=window_secs)
     mark("withRangeStats")
     out = stats.EMA("x", exact=True)
     mark("EMA")
@@ -651,10 +680,275 @@ def phase_e(TSDF, right, n, n_series):
     return launches
 
 
+def packed_rows(rng, K, L, n_seg, span, packing):
+    """[K, L] int64 ns timestamps and int32 sids of bin-packed rows:
+    ``n_seg`` series back to back in ascending sid, each sorted, and a
+    pad tail (TS_PAD, SID_PAD) on every row."""
+    seg = L // n_seg
+    sid = np.repeat(np.arange(K * n_seg, dtype=np.int32).reshape(K, n_seg),
+                    seg, axis=1)
+    ts = (np.sort(rng.integers(0, span, (K, n_seg, seg)), axis=-1)
+          .reshape(K, L) * NS)
+    tail = L - L // 16
+    ts[:, tail:] = packing.TS_PAD
+    sid[:, tail:] = packing.SID_PAD
+    return ts, sid
+
+
+def check_lookback(merge, what, l_ts, r_ts, r_valids, *rest, ml, **kw):
+    """The lookback kernel against its plain version, every output
+    bitwise; ``rest`` are the optional operands after ``max_lookback``
+    (values, sids, sequence keys).  Returns the kernel's outputs."""
+    args = (l_ts, r_ts, r_valids, ml) + rest
+    got = merge.asof_merge_lookback_cuda(*args, **kw)
+    want = merge.asof_merge_lookback_plain(*args, **kw)
+    for g, w, out in zip(got, want, ("last_row_idx", "per_col_idx", "vals")):
+        if g is not None or w is not None:
+            check_bitwise(g, w, f"lookback {out} ({what}, max_lookback {ml})")
+    return got
+
+
+def phase_b_slice3(pd, left, right, dev, d_args):
+    """The third slice's kernels against their plain versions at phase
+    F's shapes; returns their rows of the result line (``launches``
+    filled in by phase F)."""
+    from tempo_tpu_torch import TSDF, packing
+    from tempo_tpu_torch import rolling as rolling_frame
+    from tempo_tpu_torch.ops import cuda_lib, merge, scan
+
+    rows = {}
+    rng = np.random.default_rng(3)
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    # -- lookback merge, index form (the frame path) -------------------
+    l_ts, r_ts, r_valids = packed_join_inputs(pd, packing, left, right, dev)
+    K, Ll = l_ts.shape
+    C, _, Lr = r_valids.shape
+    for ml in (0, 1, 4, LOOKBACK):
+        for skip in (True, False):
+            got = check_lookback(merge, f"[{K}, {Ll}] skipNulls {skip}",
+                                 l_ts, r_ts, r_valids, ml=ml,
+                                 skip_nulls=skip)
+            if ml == 0:
+                base = merge.asof_merge_cuda(l_ts, r_ts, r_valids,
+                                             skip_nulls=skip)
+                check_bitwise(got[0], base[0], "lookback 0 vs merge last")
+                check_bitwise(got[1], base[1], "lookback 0 vs merge per-col")
+    # the value form on the wx column, NaN where null
+    vals = torch.randn((1, K, Lr), generator=gen, device=dev)
+    vals = torch.where(r_valids[1:], vals, float("nan"))
+    for skip in (True, False):
+        check_lookback(merge, f"value form, skipNulls {skip}", l_ts, r_ts,
+                       r_valids[1:], vals, ml=LOOKBACK, skip_nulls=skip)
+    # tie-heavy: timestamps floored to 8 s (the pads stay above them)
+    coarse = lambda t: t // (8 * NS) * (8 * NS)
+    for skip in (True, False):
+        check_lookback(merge, f"8 s ties, skipNulls {skip}", coarse(l_ts),
+                       coarse(r_ts), r_valids, ml=4, skip_nulls=skip)
+    # bin-packed rows (sid fence) and a sequence tie-break, smaller shape
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    lt_, ls_ = packed_rows(rng, 64, 4096, 8, 400, packing)
+    rt_, rs_ = packed_rows(rng, 64, 4096, 8, 400, packing)
+    bv = up(rng.random((2, 64, 4096)) > 0.2) & up(rt_ < packing.TS_PAD)
+    bvals = torch.where(bv, torch.randn(bv.shape, generator=gen, device=dev),
+                        float("nan"))
+    for skip in (True, False):
+        check_lookback(merge, f"bin-packed, skipNulls {skip}", up(lt_),
+                       up(rt_), bv, bvals, up(ls_), up(rs_), ml=5,
+                       skip_nulls=skip)
+    sl = np.sort(rng.integers(0, 300, (16, 4096)), -1) * NS
+    sr = np.sort(rng.integers(0, 300, (16, 4096)), -1) * NS
+    seq = rng.integers(-3, 4, sr.shape).astype(np.float64)
+    seq[rng.random(sr.shape) < 0.25] = -np.inf      # NULLS FIRST
+    for k in range(seq.shape[0]):
+        seq[k] = seq[k][np.lexsort((seq[k], sr[k]))]
+    l_key, r_key = merge.seq_keys(None, up(seq), sl.shape, sr.shape)
+    sv = up(rng.random((1,) + sr.shape) > 0.2)
+    svals = torch.where(sv, torch.randn(sv.shape, generator=gen, device=dev),
+                        float("nan"))
+    for skip in (True, False):
+        check_lookback(merge, f"seq tie-break, skipNulls {skip}", up(sl),
+                       up(sr), sv, svals, None, None, l_key, r_key, ml=6,
+                       skip_nulls=skip)
+    # one series of 1,000,000 rows a side (bench.py config 9's shape)
+    one_l = up(np.sort(rng.integers(0, 2_000_000, (1, 1_000_000)), -1) * NS)
+    one_r = up(np.sort(rng.integers(0, 2_000_000, (1, 1_000_000)), -1) * NS)
+    one_v = up(rng.random((1, 1, 1_000_000)) > 0.05)
+    check_lookback(merge, "[1, 1000000]", one_l, one_r, one_v, ml=LOOKBACK)
+    ms_one = time_ms(lambda: merge.asof_merge_lookback_cuda(
+        one_l, one_r, one_v, LOOKBACK))
+    nbytes = K * Ll * 8 + K * Lr * 8 + C * K * Lr + K * Ll * 4 * (1 + C)
+    nops = (K * Ll * math.ceil(math.log2(Lr + 1))
+            + K * Lr * math.ceil(math.log2(Ll + 1)))
+    b, by = bound_ms(nbytes, nops)
+    rows["asof_merge_lookback"] = dict(
+        name="asof_merge_lookback", route="cuda",
+        source="tempo_tpu_torch/csrc/asof_merge.cu",
+        replaces="tempo_tpu/ops/pallas_merge.py:976", max_abs_err=0.0,
+        ms=time_ms(lambda: merge.asof_merge_lookback_cuda(
+            l_ts, r_ts, r_valids, LOOKBACK)),
+        plain_ms=time_ms(lambda: merge.asof_merge_lookback_plain(
+            l_ts, r_ts, r_valids, LOOKBACK), reps=3),
+        bound_ms=b, bound_by=by, library_ms=None,
+        ms_one_series_1m=ms_one,
+        shape=f"[{K}, {Ll}] x [{K}, {Lr}], C={C}, max_lookback {LOOKBACK}")
+    log(f"B asof_merge_lookback: bitwise equal to plain at [{K}, {Ll}]x[{K}, "
+        f"{Lr}] C={C}, max_lookback 0/1/4/{LOOKBACK} x skipNulls both ways "
+        f"(at 0 also equal to the merge kernel), the value form, 8 s ties, "
+        f"bin-packed [64, 4096] and seq [16, 4096] rows, and [1, 1000000]; "
+        f"kernel {rows['asof_merge_lookback']['ms']:.4f} ms, plain "
+        f"{rows['asof_merge_lookback']['plain_ms']:.4f} ms, bound {b:.4f} ms; "
+        f"[1, 1000000] {ms_one:.4f} ms")
+    del l_ts, r_ts, r_valids, vals, one_l, one_r, one_v
+
+    # -- rank on the windowed engine's seconds and on nanoseconds ------
+    lt = TSDF(left, "event_ts", ["user"], device=dev, dtype=torch.float32)
+    engine, rb, ts_long, w = rolling_frame.plan_range_engine(lt, DAY)
+    secs = torch.from_numpy(ts_long).to(dev)
+    ns = torch.from_numpy(lt.packed_ts()).to(dev)
+    if engine != "windowed" or secs.dtype != torch.int32:
+        raise AssertionError(f"one-day window picked {engine} over "
+                             f"{secs.dtype} seconds, not windowed/int32")
+    for keys, shift in ((secs, DAY), (ns, DAY * NS)):
+        for side, q in (("left", keys - shift), ("right", keys)):
+            got = merge.merge_rank_cuda(keys, q, side)
+            check_bitwise(got, merge.merge_rank_plain(keys, q, side),
+                          f"rank {keys.dtype} side {side}")
+            check_bitwise(got, torch.searchsorted(keys, q, side=side),
+                          f"rank {keys.dtype} side {side} vs searchsorted")
+    Kr, Lk = secs.shape
+    start_q = secs - DAY
+    b, by = bound_ms(Kr * Lk * (4 + 4 + 8), Kr * Lk * math.ceil(
+        math.log2(Lk + 1)))
+    rows["merge_rank"] = dict(
+        name="merge_rank", route="cuda",
+        source="tempo_tpu_torch/csrc/merge_rank.cu",
+        replaces="tempo_tpu/ops/pallas_merge.py:703", max_abs_err=0.0,
+        ms=time_ms(lambda: merge.merge_rank_cuda(secs, start_q, "left")),
+        plain_ms=time_ms(lambda: merge.merge_rank_plain(secs, start_q,
+                                                        "left"), reps=3),
+        bound_ms=b, bound_by=by,
+        library_ms=time_ms(lambda: torch.searchsorted(secs, start_q)),
+        shape=f"[{Kr}, {Lk}] int32 keys and queries (window starts)")
+    log(f"B merge_rank: bitwise equal to plain and to torch.searchsorted on "
+        f"[{Kr}, {Lk}] int32 seconds and int64 ns, both sides, pads "
+        f"clamped; kernel {rows['merge_rank']['ms']:.4f} ms, plain "
+        f"{rows['merge_rank']['plain_ms']:.4f} ms, torch.searchsorted "
+        f"{rows['merge_rank']['library_ms']:.4f} ms")
+    del ns, start_q
+
+    # -- cumsum3: a shared-memory row and phase F's global-scratch row -
+    x, valid = lt.packed_numeric("x")
+    sx, sv = d_args[2], d_args[3]
+    if cuda_lib.ladder_scratch(*sx.shape, 6, dev) is not None \
+            or cuda_lib.ladder_scratch(*x.shape, 6, dev) is None:
+        raise AssertionError("cumsum3 cases do not cover both ladder forms")
+    for a, v, what in ((sx, sv, f"shared memory {list(sx.shape)}"),
+                       (x, valid, f"global scratch {list(x.shape)}")):
+        for g, w_, out in zip(scan.cumsum3_cuda(a, v), scan.cumsum3_plain(a, v),
+                              ("x", "x^2", "count")):
+            check_bitwise(g, w_, f"cumsum3 {out} ({what})")
+    Kx, L = x.shape
+    xz = torch.where(valid, x, 0.0)
+    planes = torch.stack([xz, xz * xz, valid.float()])
+    levels = math.ceil(math.log2(max(L, 2)))
+    b, by = bound_ms(Kx * L * (4 + 1 + 12), Kx * L * (1 + 3 * levels))
+    rows["cumsum3"] = dict(
+        name="cumsum3", route="cuda", source="tempo_tpu_torch/csrc/cumsum3.cu",
+        replaces="tempo_tpu/ops/pallas_kernels.py:161", max_abs_err=0.0,
+        ms=time_ms(lambda: scan.cumsum3_cuda(x, valid)),
+        plain_ms=time_ms(lambda: scan.cumsum3_plain(x, valid), reps=3),
+        bound_ms=b, bound_by=by,
+        library_ms=time_ms(lambda: torch.cumsum(planes, dim=-1)),
+        ms_shared_memory_row=time_ms(lambda: scan.cumsum3_cuda(sx, sv)),
+        shape=f"[{Kx}, {L}] (global scratch)")
+    log(f"B cumsum3: bitwise equal to plain at {list(sx.shape)} (shared "
+        f"memory) and [{Kx}, {L}] (global scratch); kernel "
+        f"{rows['cumsum3']['ms']:.4f} ms ({rows['cumsum3']['ms_shared_memory_row']:.4f} "
+        f"ms at {list(sx.shape)}), plain {rows['cumsum3']['plain_ms']:.4f} ms, "
+        f"torch.cumsum {rows['cumsum3']['library_ms']:.4f} ms")
+    log(f"B launches while comparing (not counted): {dict(cuda_lib.launches)}")
+    return rows
+
+
+def phase_f(pd, TSDF, left, right, n, n_series):
+    """The third slice's chain at full width; returns the launch
+    counts."""
+    from tempo_tpu_torch import packing, profiling
+    from tempo_tpu_torch.ops import cuda_lib
+
+    est = 2 * packing.pad_length(n // n_series)
+    if est <= profiling.max_merged_lanes():
+        raise AssertionError(f"{est} merged lanes fit one program: the "
+                             f"chunked engine would not be picked")
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    steps = {}
+    t0 = time.perf_counter()
+    df = chain(TSDF, left, right, steps=steps, max_lookback=LOOKBACK,
+               window_secs=DAY)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(cuda_lib.launches)
+    missing = [k for k in SLICE3_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"slice-3 path never launched {missing}")
+    if launches["asof_merge"] or launches["range_stats"]:
+        raise AssertionError(f"slice-3 path took the single-program join or "
+                             f"the row-bounded stats: {launches}")
+    if len(df) != n:
+        raise AssertionError(f"slice-3 path returned {len(df)} rows, not {n}")
+    if not np.isfinite(df["EMA_x"].to_numpy()).all():
+        raise AssertionError("EMA_x has non-finite values")
+    if not (df["count_x"].to_numpy() >= 1).all():
+        raise AssertionError("count_x below 1 on a valid row")
+    if not np.isfinite(df["mean_x"].to_numpy()).all():
+        raise AssertionError("mean_x has non-finite values")
+    null_share = float(df["right_wx"].isna().mean())
+    if null_share > 0.2:
+        raise AssertionError(f"right_wx mostly null ({null_share:.3f})")
+    log(f"F slice-3 path: {n} rows a side, {n_series} series, {est} merged "
+        f"lanes (limit {profiling.max_merged_lanes()}), {seconds:.3f} s "
+        f"pandas->TSDF->asofJoin(maxLookback={LOOKBACK})->withRangeStats("
+        f"{DAY} s)->EMA->pandas ({n / seconds:.0f} rows/s); right_wx "
+        f"{null_share:.4f} null; launches {launches}")
+    log("F steps (wall s, card synchronised after each): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in steps.items()))
+
+    # 8 series: kernels (float32) vs the plain versions (CPU, float64)
+    users = np.arange(min(8, n_series))
+    sl = left[left["user"].isin(users)]
+    sr = right[right["user"].isin(users)]
+    kw = dict(max_lookback=LOOKBACK, window_secs=DAY)
+    small = chain(TSDF, sl, sr, **kw)
+    ref = chain(TSDF, sl, sr, device="cpu", **kw)
+    for c in ("event_ts", "x", "right_event_ts", "right_wx"):
+        if not small[c].equals(ref[c]):
+            raise AssertionError(f"8-series {c} differs from the plain "
+                                 f"versions")
+    np.testing.assert_array_equal(small["count_x"].to_numpy(),
+                                  ref["count_x"].to_numpy())
+    errs = {}
+    for c in ("mean_x", "min_x", "max_x", "sum_x", "stddev_x", "EMA_x"):
+        g = small[c].to_numpy(np.float64)
+        w = ref[c].to_numpy(np.float64)
+        errs[c] = float(np.nanmax(np.abs(g - w)))
+        np.testing.assert_allclose(g, w, rtol=1e-4,
+                                   atol=2e-3 if c == "sum_x" else 1e-4,
+                                   equal_nan=True, err_msg=c)
+    log(f"F 8 series ({len(small)} rows): card float32 agrees with the CPU "
+        f"float64 plain versions (joins equal, count equal, stats and EMA "
+        f"within 1e-4, sum within 2e-3); max abs err "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=13_062_475)
     ap.add_argument("--series", type=int, default=1024)
+    ap.add_argument("--long-series", type=int, default=128,
+                    help="series of phase F's frames (the same --rows)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -701,14 +995,23 @@ def main(argv=None) -> int:
     d_args = interop.from_reference_arrays(
         *entry.example_args(K=args.series, Ll=8192, Lr=8192), device=dev)
 
+    t0 = time.perf_counter()
+    left3, right3, n3 = make_frames(pd, args.rows, args.long_series)
+    log(f"F data: {n3} rows a side over {args.long_series} series in "
+        f"{time.perf_counter() - t0:.2f} s")
+
     rows = phase_b(pd, left, right, dev, d_args)
     rows2 = phase_b_slice2(right, dev)
+    rows3 = phase_b_slice3(pd, left3, right3, dev, d_args)
+    torch.cuda.empty_cache()
     launches, _ = phase_c(pd, TSDF, left, right, n, args.series)
     phase_d(d_args)
     launches2 = phase_e(TSDF, right, n, args.series)
+    launches3 = phase_f(pd, TSDF, left3, right3, n3, args.long_series)
 
     kernels = []
-    for found, table in ((launches, rows), (launches2, rows2)):
+    for found, table in ((launches, rows), (launches2, rows2),
+                         (launches3, rows3)):
         for name, row in table.items():
             row = dict(row)
             row["launches"] = found[name]

@@ -25,7 +25,8 @@ KNOBS = {
     "TEMPO_TPU_BINPACK":
         "1/0 forces/forbids the bin-packed AS-OF layout",
     "TEMPO_TPU_WINDOW_ENGINE":
-        "force a range-stats engine: auto | shifted | stream | windowed",
+        "force a range-stats engine: auto | shifted | stream | windowed | "
+        "legacy (not ported: raises on the card)",
     "TEMPO_TPU_STREAM_MAX_ROWS":
         "row-extent ceiling of the runtime-width range-stats engine",
     "TEMPO_TPU_KERNEL_BUILD_DIR":

@@ -77,21 +77,30 @@ __device__ __forceinline__ int block_scan_max(int v, int* sh /* >= 32 */, int* t
 }
 
 // ---------------------------------------------------------------------
-// The exact-EMA ladder shared by ema_ladder.cu and resample_ema.cu.
+// Hillis-Steele ladders, one block per row: ema_ladder.cu and
+// resample_ema.cu (the exact-EMA ladder below), cumsum3.cu (three
+// prefix sums).  A ladder ping-pongs between float planes of L lanes:
+// in dynamic shared memory while they fit kEmaSmemLimit, else in the
+// block's slice of a global scratch of [K, n_planes, L] floats that the
+// wrapper allocates (cuda_lib.ladder_scratch makes the same decision).
 //
-// The recurrence y_i = d_i * y_{i-1} + v_i is combined by the
-// Hillis-Steele ladder of the TPU kernels (v += d * v_prev, then
-// d *= d_prev, for spans 1, 2, 4, ...), one block per row, ping-ponging
-// between two (d, v) plane pairs: in shared memory (16 bytes a lane,
-// up to kEmaSmemLimit) or, for longer rows, in a global scratch of
-// [K, 4, L] floats that the wrapper allocates.  Every product and sum
-// rounds to nearest (and the build passes -fmad=false), so no
-// multiply-add is contracted.
+// The EMA recurrence y_i = d_i * y_{i-1} + v_i is combined as the TPU
+// kernels combine it (v += d * v_prev, then d *= d_prev, for spans 1, 2,
+// 4, ...), between two (d, v) plane pairs (16 bytes a lane).  Every
+// product and sum rounds to nearest (and the build passes -fmad=false),
+// so no multiply-add is contracted.
 // ---------------------------------------------------------------------
 
 constexpr int kEmaThreads = 1024;
 // largest dynamic shared memory a block may take on sm_90 (227 KB)
 constexpr int kEmaSmemLimit = 232448;
+
+// This block's row of n_planes planes: shared memory, or its slice of
+// the scratch.
+__device__ __forceinline__ float* ladder_row(float* smem, float* scratch, int L,
+                                             int n_planes) {
+    return scratch ? scratch + (size_t)blockIdx.x * n_planes * L : smem;
+}
 
 struct EmaPlanes {
     float* d0;
@@ -100,9 +109,8 @@ struct EmaPlanes {
     float* v1;
 };
 
-// This block's row of planes: shared memory, or its slice of scratch.
 __device__ __forceinline__ EmaPlanes ema_planes(float* smem, float* scratch, int L) {
-    float* base = scratch ? scratch + (size_t)blockIdx.x * 4 * L : smem;
+    float* base = ladder_row(smem, scratch, L, 4);
     return {base, base + L, base + 2 * (size_t)L, base + 3 * (size_t)L};
 }
 
@@ -124,13 +132,14 @@ __device__ __forceinline__ float* ema_ladder(EmaPlanes p, int L) {
     return p.v0;
 }
 
-// Dynamic shared memory of a ladder launch (0 when it runs in scratch),
-// after raising the kernel's limit to it.
+// Dynamic shared memory of a ladder launch over n_planes planes (0 when
+// it runs in scratch), after raising the kernel's limit to it.
 template <typename Kernel>
-inline cudaError_t ema_ladder_smem(Kernel kernel, const void* scratch, int L, size_t* smem) {
+inline cudaError_t ladder_smem(Kernel kernel, const void* scratch, int L, int n_planes,
+                               size_t* smem) {
     *smem = 0;
     if (scratch != nullptr) return cudaSuccess;
-    *smem = (size_t)16 * L;
+    *smem = sizeof(float) * (size_t)n_planes * L;
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)*smem);
 }

@@ -47,7 +47,7 @@ extern "C" int tempo_ema_smem_limit() { return kEmaSmemLimit; }
 extern "C" int tempo_ema_ladder(const void* x, const void* valid, float alpha, void* out,
                                 void* scratch, int K, int L, void* stream) {
     size_t smem;
-    cudaError_t err = ema_ladder_smem(ema_ladder_kernel, scratch, L, &smem);
+    cudaError_t err = ladder_smem(ema_ladder_kernel, scratch, L, 4, &smem);
     if (err != cudaSuccess) return (int)err;
     ema_ladder_kernel<<<K, kEmaThreads, smem, (cudaStream_t)stream>>>(
         (const float*)x, (const uint8_t*)valid, alpha, (float*)out, (float*)scratch, L);

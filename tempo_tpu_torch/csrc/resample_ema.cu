@@ -63,7 +63,7 @@ extern "C" int tempo_resample_ema(const void* secs, const void* x, const void* v
                                   int step, float alpha, float scale, void* res, void* ema,
                                   void* scratch, int K, int L, void* stream) {
     size_t smem;
-    cudaError_t err = ema_ladder_smem(resample_ema_kernel, scratch, L, &smem);
+    cudaError_t err = ladder_smem(resample_ema_kernel, scratch, L, 4, &smem);
     if (err != cudaSuccess) return (int)err;
     resample_ema_kernel<<<K, kEmaThreads, smem, (cudaStream_t)stream>>>(
         (const int32_t*)secs, (const float*)x, (const uint8_t*)valid, step, alpha, scale,

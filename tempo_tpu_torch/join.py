@@ -15,10 +15,12 @@ Counterpart of ``tempo_tpu/join.py`` (reference tsdf.py:463-560):
   stream (scala asofJoin.scala:64-88).
 
 Engines past the single-program limit (``profiling.pick_join_engine``):
-``chunked`` and ``maxLookback`` need the chunked merge kernel, which is
-not ported: on the card they raise ``KernelNotPortedError``, on the CPU
-the plain forms run (all engines give the same indices).  ``bracket``
-splits series into exact host time brackets and runs the merge kernel.
+``chunked`` runs the lookback kernel (``ops/merge.asof_merge_lookback``,
+the port of the reference's lane-chunked kernel; on Hopper a row of any
+width is one search, so there is no chunk plan), which also carries
+``maxLookback`` on every engine; ``bracket`` splits series into exact
+host time brackets and runs the merge kernel.  All engines give the
+same indices; a CPU tensor runs the plain versions.
 """
 
 from __future__ import annotations
@@ -143,13 +145,9 @@ def _binpack_worthwhile(l_layout, r_layout) -> bool:
     return (l_layout.n_rows + r_layout.n_rows) / slots < 0.35
 
 
-def _check_engine(engine: str, device: torch.device) -> None:
-    if engine == "chunked" and device.type == "cuda":
-        raise sm.not_ported("the chunked AS-OF join engine", sm.CHUNKED_JOIN)
-
-
 def _binpacked_indices(right, l_layout, r_layout, r_sorted_take, valid_cols,
-                       device, max_lookback=0, r_seq_sorted=None):
+                       device, max_lookback=0, r_seq_sorted=None,
+                       engine="single"):
     """Join indices over the bin-packed layout: positions within each
     lane row, plus the packing."""
     Wl = packing.pad_length(max(int(l_layout.lengths.max(initial=0)), 1), 128)
@@ -173,7 +171,7 @@ def _binpacked_indices(right, l_layout, r_layout, r_sorted_take, valid_cols,
            if r_seq_sorted is not None else None)
     last_idx, per_col = sm.asof_indices_binpacked(
         up(lt), up(rt), up(rv), up(lsid), up(rsid),
-        max_lookback=int(max_lookback), r_seq=rsq)
+        max_lookback=int(max_lookback), r_seq=rsq, engine=engine)
     return last_idx.cpu().numpy(), per_col.cpu().numpy(), bp
 
 
@@ -207,8 +205,6 @@ def asof_join(left, right, left_prefix: Optional[str] = None,
         left.df, right.df, sql_join_opt, has_sequence=bool(right.sequence_col),
         max_lookback=max_lookback)
     broadcast_path = strategy == "broadcast"
-    if max_lookback and device.type == "cuda":
-        raise sm.not_ported("asofJoin(maxLookback > 0)", sm.CHUNKED_JOIN)
 
     if tsPartitionVal is not None:
         if not skipNulls:
@@ -270,7 +266,6 @@ def asof_join(left, right, left_prefix: Optional[str] = None,
         if 0 < limit < est or profiling.join_engine_override():
             join_engine = profiling.pick_join_engine(
                 est, limit, chunked_ok=est < (1 << 24))
-        _check_engine(join_engine, device)
         if join_engine == "bracket" and not max_lookback:
             carry_cols = right_value_cols if skipNulls else []
             masks = (np.stack([right_valid[c] for c in carry_cols])
@@ -301,7 +296,8 @@ def asof_join(left, right, left_prefix: Optional[str] = None,
             right_value_cols if skipNulls else [], device,
             max_lookback=max_lookback,
             r_seq_sorted=(r_seq_j[r_layout.order]
-                          if r_seq_j is not None else None))
+                          if r_seq_j is not None else None),
+            engine=join_engine)
     else:
         Ll = packing.pad_length(int(l_layout.lengths.max(initial=0)))
         Lr = packing.pad_length(int(r_layout.lengths.max(initial=0)))
@@ -326,7 +322,8 @@ def asof_join(left, right, left_prefix: Optional[str] = None,
                 if r_seq_j is not None else None)
             last, per_col = asof_ops.asof_indices_merge(
                 l_ts_p, None, r_ts_p, r_seq_p, r_valids,
-                n_cols=len(right_value_cols), max_lookback=max_lookback)
+                n_cols=len(right_value_cols), max_lookback=max_lookback,
+                engine=join_engine)
             last_row_idx, per_col_idx = last.cpu().numpy(), per_col.cpu().numpy()
 
     # --- flatten back to left row coordinates -------------------------

@@ -5,8 +5,9 @@ row indices into the right side (-1 for no match); the frame layer
 gathers the values, so any column dtype rides the same join.  The
 reference's ``asof_indices_searchsorted`` and ``asof_indices_merge``
 compute the same indices; here ``asof_indices_merge`` serves both and
-runs the merge kernel (``ops/merge.py``), the plain version on a CPU
-tensor.
+runs the merge kernel or, for ``maxLookback`` and the ``chunked``
+engine, the lookback kernel (``ops/merge.py``); the plain versions on a
+CPU tensor.
 """
 
 from __future__ import annotations
@@ -19,11 +20,13 @@ from tempo_tpu_torch.ops import merge, sortmerge
 
 
 def asof_indices_merge(l_ts, l_seq, r_ts, r_seq, r_valids, n_cols: int,
-                       max_lookback: int = 0
+                       max_lookback: int = 0, engine: str = "single"
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The merge form with a sequence tie-break and the optional
-    ``maxLookback`` merged-row cap (0 = unbounded)."""
-    if max_lookback:
+    ``maxLookback`` merged-row cap (0 = unbounded).  ``maxLookback`` and
+    the ``chunked`` engine take the lookback kernel, the rest the merge
+    kernel (plain versions on a CPU tensor)."""
+    if sortmerge.takes_lookback_kernel(max_lookback, engine):
         return sortmerge.asof_indices_lookback(
             l_ts, r_ts, r_valids, max_lookback, l_seq=l_seq, r_seq=r_seq)
     return merge.asof_merge_indices(l_ts, r_ts, r_valids, l_seq=l_seq,

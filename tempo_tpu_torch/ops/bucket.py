@@ -70,11 +70,8 @@ def resample_ema_cuda(secs: torch.Tensor, x: torch.Tensor,
     ema = torch.empty_like(x)
     if K == 0 or L == 0:
         return res, ema
-    lib = cuda_lib.lib()
-    scratch = None
-    if 16 * L > lib.tempo_ema_smem_limit():
-        scratch = torch.empty((K, 4, L), dtype=torch.float32, device=x.device)
-    code = lib.tempo_resample_ema(
+    scratch = cuda_lib.ladder_scratch(K, L, 4, x.device)
+    code = cuda_lib.lib().tempo_resample_ema(
         secs.data_ptr(), x.data_ptr(), valid.data_ptr(), step, float(alpha),
         1.0 if scale is None else float(scale), res.data_ptr(),
         ema.data_ptr(), cuda_lib.ptr(scratch), K, L,

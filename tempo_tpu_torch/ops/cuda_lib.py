@@ -38,7 +38,7 @@ from tempo_tpu_torch import config
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("asof_merge.cu", "range_stats.cu", "ema_ladder.cu",
-           "index_scan.cu", "resample_ema.cu")
+           "index_scan.cu", "resample_ema.cu", "merge_rank.cu", "cumsum3.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-fmad=false", "-Xcompiler", "-fPIC",
@@ -48,7 +48,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 launches: Dict[str, int] = {"asof_merge": 0, "range_stats": 0,
                             "ema_ladder": 0, "last_valid_index": 0,
                             "first_valid_index": 0, "last_valid_scan": 0,
-                            "resample_ema": 0}
+                            "resample_ema": 0, "asof_merge_lookback": 0,
+                            "merge_rank": 0, "cumsum3": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -60,6 +61,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "tempo_asof_merge": [_P] * 12 + [_I] * 5 + [_P],
+    "tempo_asof_merge_lookback": [_P] * 13 + [_I] * 6 + [_P],
+    "tempo_merge_rank": [_P] * 3 + [_I] * 5 + [_P],
+    "tempo_cumsum3": [_P] * 6 + [_I, _I, _P],
     "tempo_range_stats": [_P] * 6 + [_I] * 7 + [_P],
     "tempo_ema_ladder": [_P, _P, ctypes.c_float, _P, _P, _I, _I, _P],
     "tempo_ema_smem_limit": [],
@@ -167,3 +171,12 @@ def stream_handle(device) -> int:
 def ptr(t) -> int:
     """Device pointer of a tensor, or None (NULL) for None."""
     return None if t is None else t.data_ptr()
+
+
+def ladder_scratch(K: int, L: int, n_planes: int, device):
+    """Global scratch of a Hillis-Steele ladder kernel (``common.cuh``):
+    None while its ``n_planes`` float planes of ``L`` lanes fit one
+    block's shared memory, else [K, n_planes, L] float32."""
+    if 4 * n_planes * L <= lib().tempo_ema_smem_limit():
+        return None
+    return torch.empty((K, n_planes, L), dtype=torch.float32, device=device)

@@ -1,10 +1,19 @@
-"""AS-OF merge join on packed [K, L] series: the CUDA kernel and its
-plain version.
+"""AS-OF merge join and batched searchsorted on packed [K, L] series:
+the CUDA kernels and their plain versions.
 
-Counterpart of ``tempo_tpu/ops/pallas_merge.py``: the Pallas kernel
-``_make_kernel`` (through ``_merge_call``) behind
-``asof_merge_values_pallas`` and ``asof_merge_indices_pallas``,
-including the sequence re-encoding of ``seq_kernel_form``.
+Counterpart of ``tempo_tpu/ops/pallas_merge.py``:
+
+* ``asof_merge``: the Pallas kernel ``_make_kernel`` (through
+  ``_merge_call``) behind ``asof_merge_values_pallas`` and
+  ``asof_merge_indices_pallas``, including the sequence re-encoding of
+  ``seq_kernel_form``;
+* ``asof_merge_lookback``: ``_make_chunked_kernel`` (through
+  ``_chunked_call``) behind ``asof_merge_values_chunked`` and
+  ``asof_merge_indices_chunked``, the join with Scala's ``maxLookback``
+  horizon; the TPU's merged-lane chunks have no counterpart, since the
+  Hopper kernel searches rows of any width;
+* ``merge_rank``: ``_make_rank_kernel`` (through ``_rank_call``) behind
+  ``merge_rank_pallas``.
 
 For every left row, the last right row at or before it in the total
 order (sid?, ts, seq?, side): right rows win full ties (the reference's
@@ -28,7 +37,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from tempo_tpu_torch.ops import cuda_lib
+from tempo_tpu_torch.ops import cuda_lib, window_utils
 
 _I32_MIN = -(2**31)
 _I64_MIN = -(2**63)
@@ -102,6 +111,62 @@ def _right_valid(r_valids, r_values):
     return r_valids & ~torch.isnan(r_values)
 
 
+def _merged_order(l_ts, r_ts, l_sid=None, r_sid=None, l_key=None,
+                  r_key=None) -> torch.Tensor:
+    """[K, Ll + Lr] lanes (left first, then right) in merged order: a
+    stable lexsort by (sid?, ts, seq?, side), right before left on full
+    ties, each side keeping its lane order."""
+    K, Ll = l_ts.shape
+    Lr = r_ts.shape[-1]
+    dev = l_ts.device
+    keys: List[torch.Tensor] = []
+    if l_sid is not None:
+        keys.append(torch.cat([l_sid, r_sid], -1).to(torch.int64))
+    keys.append(torch.cat([l_ts, r_ts], -1))
+    if l_key is not None:
+        keys.append(torch.cat([l_key, r_key], -1))
+    keys.append(torch.cat([torch.ones(K, Ll, dtype=torch.int64, device=dev),
+                           torch.zeros(K, Lr, dtype=torch.int64, device=dev)],
+                          -1))
+    # least significant key first; the initial order keeps each side's
+    # own lane order on full ties
+    order = torch.arange(Ll + Lr, device=dev).expand(K, -1)
+    for key in reversed(keys):
+        perm = torch.sort(torch.gather(key, 1, order), dim=1,
+                          stable=True).indices
+        order = torch.gather(order, 1, perm)
+    return order
+
+
+def _fence(idx, l_sid, r_sid):
+    """-1 where a right row index belongs to another series than its left
+    row (bin-packed rows); ``idx`` unchanged without sids."""
+    if l_sid is None:
+        return idx
+    got = torch.gather(r_sid, 1, idx.clamp(min=0))
+    return torch.where((idx >= 0) & (got == l_sid), idx, -1)
+
+
+def _gather_values(r_values, col_idx):
+    """[C, K, Ll] right values at ``col_idx``, NaN where it is -1."""
+    if r_values is None:
+        return None
+    C, K, Ll = col_idx.shape
+    if not C:
+        return torch.zeros(0, K, Ll, dtype=r_values.dtype,
+                           device=r_values.device)
+    nan = torch.tensor(float("nan"), dtype=r_values.dtype,
+                       device=r_values.device)
+    idx = col_idx.to(torch.int64)
+    return torch.where(idx >= 0,
+                       torch.gather(r_values, 2, idx.clamp(min=0)), nan)
+
+
+def _stack_cols(cols, K, Ll, dev):
+    return (torch.stack(cols) if cols else
+            torch.zeros(0, K, Ll, dtype=torch.int64, device=dev))
+
+
 def asof_merge_plain(l_ts, r_ts, r_valids, r_values=None, l_sid=None,
                      r_sid=None, l_key=None, r_key=None,
                      skip_nulls: bool = True):
@@ -112,69 +177,36 @@ def asof_merge_plain(l_ts, r_ts, r_valids, r_values=None, l_sid=None,
     K, Ll = l_ts.shape
     Lr = r_ts.shape[-1]
     dev = l_ts.device
-    keys: List[torch.Tensor] = []
-    if l_sid is not None:
-        keys.append(torch.cat([l_sid, r_sid], -1).to(torch.int64))
-    keys.append(torch.cat([l_ts, r_ts], -1))
-    if l_key is not None:
-        keys.append(torch.cat([l_key, r_key], -1))
-    side = torch.cat([torch.ones(K, Ll, dtype=torch.int64, device=dev),
-                      torch.zeros(K, Lr, dtype=torch.int64, device=dev)], -1)
-    keys.append(side)
-    # least significant key first; the initial order keeps each side's
-    # own lane order on full ties
-    order = torch.arange(Ll + Lr, device=dev).expand(K, -1)
-    for key in reversed(keys):
-        perm = torch.sort(torch.gather(key, 1, order), dim=1,
-                          stable=True).indices
-        order = torch.gather(order, 1, perm)
+    order = _merged_order(l_ts, r_ts, l_sid, r_sid, l_key, r_key)
     is_right = order >= Ll
     ridx = torch.where(is_right, order - Ll, -1)
     last_m = torch.cummax(ridx, dim=1).values
     left_slots = order[~is_right].view(K, Ll)
     last = torch.empty(K, Ll, dtype=torch.int64, device=dev)
     last.scatter_(1, left_slots, last_m[~is_right].view(K, Ll))
-
-    def fence(idx):
-        if l_sid is None:
-            return idx
-        got = torch.gather(r_sid, 1, idx.clamp(min=0))
-        return torch.where((idx >= 0) & (got == l_sid), idx, -1)
-
-    last = fence(last)
-    C = r_valids.shape[0]
+    last = _fence(last, l_sid, r_sid)
     rvalid = _right_valid(r_valids, r_values)
     lane = torch.arange(Lr, device=dev)
     cols = []
-    for c in range(C):
+    for c in range(r_valids.shape[0]):
         if skip_nulls:
             scan = torch.cummax(torch.where(rvalid[c], lane, -1), dim=1).values
             j = torch.where(last >= 0,
                             torch.gather(scan, 1, last.clamp(min=0)), -1)
-            j = fence(j)
+            j = _fence(j, l_sid, r_sid)
         else:
             ok = torch.gather(rvalid[c], 1, last.clamp(min=0))
             j = torch.where((last >= 0) & ok, last, -1)
         cols.append(j)
-    col_idx = (torch.stack(cols) if C else
-               torch.zeros(0, K, Ll, dtype=torch.int64, device=dev))
-    vals = None
-    if r_values is not None:
-        nan = torch.tensor(float("nan"), dtype=r_values.dtype, device=dev)
-        vals = torch.stack([
-            torch.where(col_idx[c] >= 0,
-                        torch.gather(r_values[c], 1,
-                                     col_idx[c].clamp(min=0)), nan)
-            for c in range(C)
-        ]) if C else torch.zeros(0, K, Ll, dtype=r_values.dtype, device=dev)
-    return last.to(torch.int32), col_idx.to(torch.int32), vals
+    col_idx = _stack_cols(cols, K, Ll, dev)
+    return (last.to(torch.int32), col_idx.to(torch.int32),
+            _gather_values(r_values, col_idx))
 
 
-def asof_merge_cuda(l_ts, r_ts, r_valids, r_values=None, l_sid=None,
-                    r_sid=None, l_key=None, r_key=None,
-                    skip_nulls: bool = True):
-    """Launch the merge kernel; same contract as
-    :func:`asof_merge_plain`, with float32 values."""
+def _join_cuda(l_ts, r_ts, r_valids, r_values, l_sid, r_sid, l_key, r_key,
+               skip_nulls, max_lookback=None):
+    """Check the operands and launch the merge kernel, or with
+    ``max_lookback`` given, the lookback kernel."""
     K, Ll = l_ts.shape
     Lr = r_ts.shape[-1]
     C = r_valids.shape[0]
@@ -208,12 +240,34 @@ def asof_merge_cuda(l_ts, r_ts, r_valids, r_values=None, l_sid=None,
             if skip_nulls and C else None)
     if K and Ll:
         p = cuda_lib.ptr
-        code = cuda_lib.lib().tempo_asof_merge(
-            p(l_ts), p(r_ts), p(l_sid), p(r_sid), p(l_key), p(r_key),
-            p(r_valids), p(r_values), p(scan), p(last), p(col_idx), p(vals),
-            K, Ll, Lr, C, int(bool(skip_nulls)), cuda_lib.stream_handle(dev))
-        cuda_lib.check(code, "asof_merge")
+        lib = cuda_lib.lib()
+        head = (p(l_ts), p(r_ts), p(l_sid), p(r_sid), p(l_key), p(r_key),
+                p(r_valids), p(r_values), p(scan))
+        tail = (p(last), p(col_idx), p(vals), K, Ll, Lr, C,
+                int(bool(skip_nulls)))
+        stream = cuda_lib.stream_handle(dev)
+        if max_lookback is None:
+            code = lib.tempo_asof_merge(*head, *tail, stream)
+            cuda_lib.check(code, "asof_merge")
+        else:
+            # positions stay below Ll + Lr < 2^31: a wider horizon caps
+            # nothing, as the plain version's windows clamp to the row
+            ml = min(max_lookback, 2**31 - 1)
+            rpos = (torch.empty(K, Lr, dtype=torch.int32, device=dev)
+                    if ml else None)
+            code = lib.tempo_asof_merge_lookback(*head, p(rpos), *tail, ml,
+                                                 stream)
+            cuda_lib.check(code, "asof_merge_lookback")
     return last, col_idx, vals
+
+
+def asof_merge_cuda(l_ts, r_ts, r_valids, r_values=None, l_sid=None,
+                    r_sid=None, l_key=None, r_key=None,
+                    skip_nulls: bool = True):
+    """Launch the merge kernel; same contract as
+    :func:`asof_merge_plain`, with float32 values."""
+    return _join_cuda(l_ts, r_ts, r_valids, r_values, l_sid, r_sid, l_key,
+                      r_key, skip_nulls)
 
 
 def asof_merge(l_ts, r_ts, r_valids, r_values=None, l_sid=None, r_sid=None,
@@ -247,3 +301,140 @@ def asof_merge_indices(l_ts, r_ts, r_valids, l_sid=None, r_sid=None,
     last, col_idx, _ = asof_merge(l_ts, r_ts, r_valids, None, l_sid, r_sid,
                                   l_seq, r_seq, True)
     return last, col_idx
+
+
+def _check_lookback(max_lookback) -> int:
+    ml = int(max_lookback)
+    if ml < 0:
+        raise ValueError(f"max_lookback must be >= 0, got {ml}")
+    return ml
+
+
+def asof_merge_lookback_plain(l_ts, r_ts, r_valids, max_lookback: int,
+                              r_values=None, l_sid=None, r_sid=None,
+                              l_key=None, r_key=None,
+                              skip_nulls: bool = True):
+    """The join capped by Scala's ``maxLookback`` (asofJoin.scala:64-88)
+    as tensor code: a match must lie within the trailing
+    ``max_lookback + 1`` rows of the merged left+right stream, by a
+    windowed running max of the right position over the merged stream
+    (the reference's argmax ladder, ``sortmerge.py:300-316``).  0 turns
+    the cap off (:func:`asof_merge_plain`).  Same outputs as
+    :func:`asof_merge_plain`."""
+    ml = _check_lookback(max_lookback)
+    if ml == 0:
+        return asof_merge_plain(l_ts, r_ts, r_valids, r_values, l_sid, r_sid,
+                                l_key, r_key, skip_nulls)
+    K, Ll = l_ts.shape
+    dev = l_ts.device
+    order = _merged_order(l_ts, r_ts, l_sid, r_sid, l_key, r_key)
+    is_right = order >= Ll
+    ridx = torch.where(is_right, order - Ll, -1)
+    left = ~is_right
+    left_slots = order[left].view(K, Ll)
+
+    def to_left(merged):
+        out = torch.empty(K, Ll, dtype=torch.int64, device=dev)
+        out.scatter_(1, left_slots, merged[left].view(K, Ll))
+        return out
+
+    win = ml + 1
+    last = _fence(to_left(window_utils.windowed_max_last(ridx, win)), l_sid,
+                  r_sid)
+    rvalid = _right_valid(r_valids, r_values)
+    cols = []
+    for c in range(r_valids.shape[0]):
+        if skip_nulls:
+            ok = torch.gather(rvalid[c], 1, ridx.clamp(min=0)) & is_right
+            j = _fence(to_left(window_utils.windowed_max_last(
+                torch.where(ok, ridx, -1), win)), l_sid, r_sid)
+        else:
+            ok = torch.gather(rvalid[c], 1, last.clamp(min=0))
+            j = torch.where((last >= 0) & ok, last, -1)
+        cols.append(j)
+    col_idx = _stack_cols(cols, K, Ll, dev)
+    return (last.to(torch.int32), col_idx.to(torch.int32),
+            _gather_values(r_values, col_idx))
+
+
+def asof_merge_lookback_cuda(l_ts, r_ts, r_valids, max_lookback: int,
+                             r_values=None, l_sid=None, r_sid=None,
+                             l_key=None, r_key=None,
+                             skip_nulls: bool = True):
+    """Launch the lookback kernel (any ``max_lookback``, 0 included);
+    same contract as :func:`asof_merge_lookback_plain`, with float32
+    values."""
+    return _join_cuda(l_ts, r_ts, r_valids, r_values, l_sid, r_sid, l_key,
+                      r_key, skip_nulls, _check_lookback(max_lookback))
+
+
+def asof_merge_lookback(l_ts, r_ts, r_valids, max_lookback: int,
+                        r_values=None, l_sid=None, r_sid=None, l_seq=None,
+                        r_seq=None, skip_nulls: bool = True):
+    """The ``maxLookback`` join on either device: ``(last_idx, col_idx,
+    vals or None)``; the lookback kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    l_key, r_key = seq_keys(l_seq, r_seq, tuple(l_ts.shape),
+                            tuple(r_ts.shape))
+    fn = asof_merge_lookback_cuda if l_ts.is_cuda else asof_merge_lookback_plain
+    return fn(l_ts, r_ts, r_valids, max_lookback, r_values, l_sid, r_sid,
+              l_key, r_key, skip_nulls=skip_nulls)
+
+
+def merge_rank_plain(sorted_keys: torch.Tensor, sorted_queries: torch.Tensor,
+                     side: str = "left") -> torch.Tensor:
+    """``searchsorted`` of each query row into each key row, by a stable
+    merge and a prefix count (both inputs ascending per row); int64
+    ranks."""
+    if side not in ("left", "right"):
+        raise ValueError(f"side must be 'left' or 'right', got {side!r}")
+    K, Lk = sorted_keys.shape
+    Lq = sorted_queries.shape[-1]
+    dev = sorted_keys.device
+    dt = torch.promote_types(sorted_keys.dtype, sorted_queries.dtype)
+    vals = torch.cat([sorted_keys.to(dt), sorted_queries.to(dt)], -1)
+    # side='left': queries sort before equal keys; 'right': after
+    tq, tk = (0, 1) if side == "left" else (1, 0)
+    tie = torch.cat([torch.full((K, Lk), tk, device=dev),
+                     torch.full((K, Lq), tq, device=dev)], -1)
+    order = torch.arange(Lk + Lq, device=dev).expand(K, -1)
+    for key in (tie, vals):
+        perm = torch.sort(torch.gather(key, 1, order), dim=1,
+                          stable=True).indices
+        order = torch.gather(order, 1, perm)
+    is_key = (order < Lk).to(torch.int64)
+    nkeys = torch.cumsum(is_key, dim=1)
+    q_slots = order[order >= Lk].view(K, Lq) - Lk
+    rank = torch.empty(K, Lq, dtype=torch.int64, device=dev)
+    rank.scatter_(1, q_slots, nkeys[order >= Lk].view(K, Lq))
+    return rank
+
+
+def merge_rank_cuda(sorted_keys: torch.Tensor, sorted_queries: torch.Tensor,
+                    side: str = "left") -> torch.Tensor:
+    """Launch the rank kernel on int32/int64 [K, Lk] / [K, Lq] CUDA
+    tensors (promoted to one type, as ``merge_rank_pallas`` does); int64
+    ranks."""
+    if side not in ("left", "right"):
+        raise ValueError(f"side must be 'left' or 'right', got {side!r}")
+    dev = sorted_keys.device
+    if dev.type != "cuda" or sorted_queries.device != dev:
+        raise ValueError("rank kernel operands must lie on one CUDA device")
+    dt = torch.promote_types(sorted_keys.dtype, sorted_queries.dtype)
+    if dt not in (torch.int32, torch.int64):
+        raise TypeError(f"rank kernel takes int32/int64 operands, got {dt}")
+    if sorted_keys.dim() != 2 or sorted_queries.dim() != 2 \
+            or sorted_queries.shape[0] != sorted_keys.shape[0]:
+        raise TypeError("rank kernel takes [K, Lk] keys and [K, Lq] queries")
+    keys = sorted_keys.to(dt).contiguous()
+    queries = sorted_queries.to(dt).contiguous()
+    K, Lk = keys.shape
+    Lq = queries.shape[-1]
+    out = torch.empty(K, Lq, dtype=torch.int64, device=dev)
+    if K and Lq:
+        code = cuda_lib.lib().tempo_merge_rank(
+            keys.data_ptr(), queries.data_ptr(), out.data_ptr(), K, Lk, Lq,
+            int(side == "right"), int(dt == torch.int64),
+            cuda_lib.stream_handle(dev))
+        cuda_lib.check(code, "merge_rank")
+    return out

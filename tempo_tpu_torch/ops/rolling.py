@@ -10,10 +10,15 @@ both, so the port picks between two:
 
 * ``shifted``: the range-stats kernel over the frame's row bounds, up to
   ``TEMPO_TPU_STREAM_MAX_ROWS`` rows of extent;
-* ``windowed``: prefix sums + sparse-table min/max, for spans past int32
-  or wider frames.  Its TPU kernel (``pallas_kernels._cumsum3_kernel``)
-  is not ported yet, so on a CUDA tensor it raises; on the CPU its plain
-  form runs.
+* ``windowed``: prefix sums (the ``cumsum3`` kernel of ``ops/scan``)
+  + sparse-table min/max over per-row [start, end) bounds (two launches
+  of the rank kernel, ``range_window_bounds``), for spans past int32 or
+  wider frames.
+
+``TEMPO_TPU_WINDOW_ENGINE=legacy`` names the reference's legacy
+shifted-window kernel (``pallas_stats._make_kernel``), which is not
+ported: where it would run, a CUDA tensor raises
+``KernelNotPortedError``; on the CPU the plain range stats run.
 """
 
 from __future__ import annotations
@@ -24,11 +29,11 @@ import torch
 import torch.nn.functional as F
 
 from tempo_tpu_torch import config
-from tempo_tpu_torch.ops import scan
+from tempo_tpu_torch.ops import scan, window
 from tempo_tpu_torch.ops.sortmerge import not_ported
 from tempo_tpu_torch.ops.window_utils import merge_rank, shift_right
 
-WINDOWED_ENGINE = "queue B item 2: cumsum3, pallas_kernels.py:161"
+LEGACY_ENGINE = "queue B item 8: legacy shifted-window stats, pallas_stats.py:52"
 
 
 def stream_max_rows() -> int:
@@ -37,23 +42,37 @@ def stream_max_rows() -> int:
 
 
 def pick_range_engine(max_behind: int, max_ahead: int) -> str:
-    """'shifted' | 'windowed' for a frame whose row extent is
+    """'shifted' | 'windowed' | 'legacy' for a frame whose row extent is
     (max_behind, max_ahead).  ``TEMPO_TPU_WINDOW_ENGINE=windowed`` forces
-    the windowed form; the reference's other values ('shifted',
-    'stream') both name the row-bounded kernel."""
+    the windowed form; the reference's 'shifted' and 'stream' both name
+    the row-bounded kernel.  'legacy' picks as auto does, and names the
+    legacy kernel where auto picks the row-bounded one (as the
+    reference's ``range_stats_shifted`` does)."""
     forced = (config.get("TEMPO_TPU_WINDOW_ENGINE") or "auto").lower()
     if forced == "windowed":
         return "windowed"
     if forced in ("shifted", "stream"):
         return "shifted"
     if int(max_behind) + int(max_ahead) <= stream_max_rows():
-        return "shifted"
+        return "legacy" if forced == "legacy" else "shifted"
     return "windowed"
+
+
+def legacy_range_stats(secs, x, valid, window_secs, max_behind: int,
+                       max_ahead: int = 0) -> Dict[str, torch.Tensor]:
+    """The legacy engine: its TPU kernel (``pallas_stats._make_kernel``)
+    has no CUDA port, so a CUDA tensor raises; on the CPU the plain range
+    stats compute the same function."""
+    if secs.is_cuda:
+        raise not_ported("TEMPO_TPU_WINDOW_ENGINE=legacy", LEGACY_ENGINE)
+    return window.range_stats(secs, x, valid, window_secs, max_behind,
+                              max_ahead)
 
 
 def range_window_bounds(ts_long: torch.Tensor, window_secs):
     """Per-row [start, end) of rangeBetween(-window_secs, 0) over a
-    sorted integer seconds axis; ``end`` includes following ties."""
+    sorted integer seconds axis; ``end`` includes following ties.  Two
+    rank launches on a CUDA tensor."""
     w = int(window_secs)
     start = merge_rank(ts_long, ts_long - w, side="left")
     end = merge_rank(ts_long, ts_long, side="right")
@@ -83,17 +102,19 @@ def _range_query(table, start, end, reducer):
     return reducer(torch.gather(flat, 1, p1), torch.gather(flat, 1, p2))
 
 
-def windowed_stats(x, valid, start, end) -> Dict[str, torch.Tensor]:
+def windowed_stats(x, valid, start, end, max_window: int = 0
+                   ) -> Dict[str, torch.Tensor]:
     """mean/count/min/max/sum/stddev/zscore over per-row [start, end)
-    windows: mean-centred prefix sums plus sparse-table min/max.  Plain
-    tensor code for CPU tensors."""
-    if x.is_cuda:
-        raise not_ported("the windowed range-stats engine", WINDOWED_ENGINE)
-    dt = x.dtype
-    zero = torch.zeros((), dtype=dt)
-    one = torch.ones((), dtype=dt)
-    nan = torch.tensor(float("nan"), dtype=dt)
-    pinf = torch.tensor(float("inf"), dtype=dt)
+    windows: mean-centred prefix sums (``scan.cumsum3``) plus sparse-table
+    min/max.  ``max_window`` (0 = the row length) bounds end - start in
+    rows, so the tables build only the levels a window can query, as the
+    reference's ``windowed_stats`` does; a bound below a real window
+    would leave min/max short, so callers compute it from the bounds."""
+    dt, dev = x.dtype, x.device
+    zero = torch.zeros((), dtype=dt, device=dev)
+    one = torch.ones((), dtype=dt, device=dev)
+    nan = torch.tensor(float("nan"), dtype=dt, device=dev)
+    pinf = torch.tensor(float("inf"), dtype=dt, device=dev)
     xz = torch.where(valid, x, zero)
     n_valid = valid.to(dt).sum(-1, keepdim=True)
     center = xz.sum(-1, keepdim=True) / torch.maximum(n_valid, one)
@@ -106,9 +127,7 @@ def windowed_stats(x, valid, start, end) -> Dict[str, torch.Tensor]:
                          torch.gather(p, 1, (start - 1).clamp(min=0)), zero)
         return hi - lo
 
-    s1 = win(torch.cumsum(xc, -1))
-    s2 = win(torch.cumsum(xc * xc, -1))
-    cnt = win(torch.cumsum(valid.to(dt), -1))
+    s1, s2, cnt = (win(p) for p in scan.cumsum3(xc, valid))
     mean = torch.where(cnt > 0, s1 / torch.maximum(cnt, one) + center, nan)
     total = s1 + cnt * center
     var = torch.where(cnt > 1, (s2 - s1 * s1 / torch.maximum(cnt, one))
@@ -116,6 +135,8 @@ def windowed_stats(x, valid, start, end) -> Dict[str, torch.Tensor]:
     std = torch.where(cnt > 1, torch.sqrt(torch.maximum(var, zero)), nan)
     L = x.shape[-1]
     nlev = max(1, (L - 1).bit_length() + 1)
+    if max_window:
+        nlev = min(nlev, (max(1, int(max_window)) - 1).bit_length() + 1)
     tmin = _sparse_table(torch.where(valid, x, pinf), pinf, torch.minimum,
                          nlev)
     tmax = _sparse_table(torch.where(valid, x, -pinf), -pinf, torch.maximum,

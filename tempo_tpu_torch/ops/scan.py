@@ -13,10 +13,13 @@ Counterpart of ``tempo_tpu/ops/pallas_kernels.py``:
   lane : -1`` and the reverse running min of ``valid ? lane : L``, int32.
 * ``last_valid_scan`` (``_last_valid_kernel``): the value at the last
   valid lane at or before each lane (0 before the first) and has-valid.
+* ``cumsum3`` (``_cumsum3_kernel``): inclusive prefix sums of masked x,
+  masked x² and the valid count, by the TPU kernel's Hillis-Steele
+  ladder, so float32 sums round the same way.
 
 A CUDA tensor goes to the kernel (``csrc/ema_ladder.cu``,
-``csrc/index_scan.cu``), a CPU tensor to the plain version, which is
-dtype-generic (float64 on the CPU).
+``csrc/index_scan.cu``, ``csrc/cumsum3.cu``), a CPU tensor to the plain
+version, which is dtype-generic (float64 on the CPU).
 """
 
 from __future__ import annotations
@@ -65,12 +68,8 @@ def ema_cuda(x: torch.Tensor, valid: torch.Tensor, alpha: float
     out = torch.empty_like(x)
     if K == 0 or L == 0:
         return out
-    lib = cuda_lib.lib()
-    scratch = None
-    if 16 * L > lib.tempo_ema_smem_limit():
-        scratch = torch.empty((K, 4, L), dtype=torch.float32,
-                              device=x.device)
-    code = lib.tempo_ema_ladder(
+    scratch = cuda_lib.ladder_scratch(K, L, 4, x.device)
+    code = cuda_lib.lib().tempo_ema_ladder(
         x.data_ptr(), valid.data_ptr(), float(alpha), out.data_ptr(),
         cuda_lib.ptr(scratch), K, L, cuda_lib.stream_handle(x.device))
     cuda_lib.check(code, "ema_ladder")
@@ -190,3 +189,49 @@ def last_valid_scan(x: torch.Tensor, valid: torch.Tensor):
     if x.is_cuda:
         return last_valid_scan_cuda(x, valid)
     return last_valid_scan_plain(x, valid)
+
+
+def cumsum3_plain(x: torch.Tensor, valid: torch.Tensor):
+    """(prefix sum of ``xz``, of ``xz * xz``, of the valid count), ``xz``
+    = x where valid else 0, inclusive along the last axis, in ``x``'s
+    dtype: the ladder ``s += shift(s, span)`` for spans 1, 2, 4, ...,
+    with ``xz * xz`` formed first."""
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    xz = torch.where(valid, x, zero)
+    sums = [xz, xz * xz, valid.to(x.dtype)]
+    span = 1
+    while span < x.shape[-1]:
+        sums = [s + _shift(s, span, 0.0) for s in sums]
+        span *= 2
+    return tuple(sums)
+
+
+def cumsum3_cuda(x: torch.Tensor, valid: torch.Tensor):
+    """Launch the prefix-sum ladder kernel on float32 [K, L] CUDA
+    tensors."""
+    if x.dtype != torch.float32 or x.dim() != 2:
+        raise TypeError(f"cumsum3 kernel takes float32 [K, L], got {x.dtype} "
+                        f"{tuple(x.shape)}")
+    if valid.dtype != torch.bool or valid.shape != x.shape:
+        raise TypeError("valid must be a bool tensor shaped like x")
+    if not (valid.is_cuda and x.device == valid.device):
+        raise ValueError("x and valid must lie on the same CUDA device")
+    x, valid = x.contiguous(), valid.contiguous()
+    K, L = x.shape
+    out = tuple(torch.empty_like(x) for _ in range(3))
+    if K == 0 or L == 0:
+        return out
+    scratch = cuda_lib.ladder_scratch(K, L, 6, x.device)
+    code = cuda_lib.lib().tempo_cumsum3(
+        x.data_ptr(), valid.data_ptr(), *(o.data_ptr() for o in out),
+        cuda_lib.ptr(scratch), K, L, cuda_lib.stream_handle(x.device))
+    cuda_lib.check(code, "cumsum3")
+    return out
+
+
+def cumsum3(x: torch.Tensor, valid: torch.Tensor):
+    """The three prefix sums of the windowed range engine: the kernel for
+    CUDA tensors, the plain version for CPU tensors."""
+    if x.is_cuda:
+        return cumsum3_cuda(x, valid)
+    return cumsum3_plain(x, valid)

@@ -3,16 +3,18 @@
 Counterpart of the parts of ``tempo_tpu/ops/window_utils.py`` and
 ``tempo_tpu/ops/sortmerge.py:merge_rank`` that the windowed range engine,
 the ``maxLookback`` join and interpolation need.  ``last_valid_index``
-and ``first_valid_index`` reach the index-scan kernels of ``ops/scan``
-on a CUDA tensor (any L) and their plain versions on a CPU tensor; the
-rest is plain tensor code for the CPU engines, dtype-generic.
+and ``first_valid_index`` reach the index-scan kernels of ``ops/scan``,
+``merge_rank`` and ``searchsorted_batched`` the rank kernel of
+``ops/merge``, on a CUDA tensor (any L), and their plain versions on a
+CPU tensor.  ``shift_right`` and ``windowed_max_last`` are plain tensor
+code, dtype-generic (the latter for the plain ``maxLookback`` join).
 """
 
 from __future__ import annotations
 
 import torch
 
-from tempo_tpu_torch.ops import scan
+from tempo_tpu_torch.ops import merge, scan
 
 
 def _over_rows(fn, valid: torch.Tensor) -> torch.Tensor:
@@ -74,27 +76,22 @@ def windowed_max_last(x: torch.Tensor, window: int) -> torch.Tensor:
 
 def merge_rank(sorted_keys: torch.Tensor, sorted_queries: torch.Tensor,
                side: str = "left") -> torch.Tensor:
-    """``searchsorted`` of each query row into each key row, by a stable
-    merge and a prefix count (both inputs ascending per row)."""
-    if side not in ("left", "right"):
-        raise ValueError(f"side must be 'left' or 'right', got {side!r}")
-    K, Lk = sorted_keys.shape
-    Lq = sorted_queries.shape[-1]
-    dev = sorted_keys.device
-    dt = torch.promote_types(sorted_keys.dtype, sorted_queries.dtype)
-    vals = torch.cat([sorted_keys.to(dt), sorted_queries.to(dt)], -1)
-    # side='left': queries sort before equal keys; 'right': after
-    tq, tk = (0, 1) if side == "left" else (1, 0)
-    tie = torch.cat([torch.full((K, Lk), tk, device=dev),
-                     torch.full((K, Lq), tq, device=dev)], -1)
-    order = torch.arange(Lk + Lq, device=dev).expand(K, -1)
-    for key in (tie, vals):
-        perm = torch.sort(torch.gather(key, 1, order), dim=1,
-                          stable=True).indices
-        order = torch.gather(order, 1, perm)
-    is_key = (order < Lk).to(torch.int64)
-    nkeys = torch.cumsum(is_key, dim=1)
-    q_slots = order[order >= Lk].view(K, Lq) - Lk
-    rank = torch.empty(K, Lq, dtype=torch.int64, device=dev)
-    rank.scatter_(1, q_slots, nkeys[order >= Lk].view(K, Lq))
-    return rank
+    """``searchsorted`` of each query row into each key row (both
+    ascending per row), int64 ranks: the rank kernel for CUDA tensors,
+    ``merge.merge_rank_plain`` (a stable merge and a prefix count) for
+    CPU tensors."""
+    if sorted_keys.is_cuda:
+        return merge.merge_rank_cuda(sorted_keys, sorted_queries, side)
+    return merge.merge_rank_plain(sorted_keys, sorted_queries, side)
+
+
+def searchsorted_batched(sorted_keys: torch.Tensor, queries: torch.Tensor,
+                         side: str = "left") -> torch.Tensor:
+    """Batched searchsorted over the leading (series) axis: row ``k`` of
+    the result is ``searchsorted(sorted_keys[k], queries[k], side)``.
+
+    API CONTRACT (the reference's): ``queries`` MUST be ascending along
+    the last axis, as ``sorted_keys`` is; every caller passes shifted
+    versions of an already-sorted time axis.  The plain merge form
+    returns wrong ranks for unsorted queries, not an error."""
+    return merge_rank(sorted_keys, queries, side)

@@ -59,15 +59,22 @@ def with_range_stats(tsdf, colsToSummarize=None, rangeBackWindowSecs=1000):
     vals, valids = _packed_metric_stack(tsdf, cols)
     engine, rb, ts_long, w = plan_range_engine(tsdf, rangeBackWindowSecs)
     keys = tsdf._upload(ts_long)
-    if engine == "shifted":
-        stats = window.range_stats(keys, vals, valids, w, int(rb[0]),
-                                   int(rb[1]))
+    if engine in ("shifted", "legacy"):
+        fn = window.range_stats if engine == "shifted" else \
+            rk.legacy_range_stats
+        stats = fn(keys, vals, valids, w, int(rb[0]), int(rb[1]))
     else:
         start, end = rk.range_window_bounds(keys, w)
+        # the min/max tables need levels up to the widest real window
+        # only; pad lanes share the clamped pad seconds, so their
+        # windows span the pad run and are left out
+        real = tsdf._upload(tsdf.packed_mask())
+        max_w = max(1, int(torch.where(real, end - start, 0).max()))
         C, K, L = vals.shape
         flat = rk.windowed_stats(vals.reshape(C * K, L),
                                  valids.reshape(C * K, L),
-                                 start.repeat(C, 1), end.repeat(C, 1))
+                                 start.repeat(C, 1), end.repeat(C, 1),
+                                 max_window=1 << (max_w - 1).bit_length())
         stats = {k: v.reshape(C, K, L) for k, v in flat.items()}
     clip = stats.get("clipped")
     if clip is not None and float(clip.sum()) != 0.0:

@@ -1,7 +1,9 @@
 """Boundaries of the port: it imports neither JAX nor the JAX package,
 its entry points default to the CUDA card and refuse to drop to the CPU
-on their own, and engines whose TPU kernel has no CUDA port yet raise a
-named error on the card instead of running plain PyTorch there."""
+on their own, a CUDA operand reaches the CUDA kernel wrapper (never a
+plain version), and an engine whose TPU kernel has no CUDA port yet
+raises a named error on the card instead of running plain PyTorch
+there."""
 
 import ast
 import types
@@ -13,9 +15,10 @@ import pytest
 import torch
 
 import tempo_tpu_torch
-from tempo_tpu_torch import TSDF, device, interop, join
+from tempo_tpu_torch import TSDF, device, interop
+from tempo_tpu_torch.ops import asof as asof_ops
 from tempo_tpu_torch.ops import (bucket, cuda_lib, merge, rolling, scan,
-                                 sortmerge, window)
+                                 sortmerge, window, window_utils)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "tempo_tpu_torch").rglob("*.py")) + [
@@ -50,7 +53,8 @@ def test_kernel_sources_are_in_the_package_and_name_their_pallas_kernel():
     assert set(cuda_lib.launches) == {"asof_merge", "range_stats",
                                       "ema_ladder", "last_valid_index",
                                       "first_valid_index", "last_valid_scan",
-                                      "resample_ema"}
+                                      "resample_ema", "asof_merge_lookback",
+                                      "merge_rank", "cumsum3"}
 
 
 def _frame(**kw):
@@ -95,37 +99,156 @@ def test_cpu_tensors_run_the_plain_versions_without_launching():
     scan.first_valid_index_scan(valid)
     scan.last_valid_scan(x, valid)
     bucket.resample_ema(secs, x, valid, 4, 0.2)
+    merge.asof_merge_lookback(ts, ts, valid[None], 3, x[None])
+    window_utils.merge_rank(ts, ts)
+    window_utils.searchsorted_batched(secs, secs, side="right")
+    scan.cumsum3(x, valid)
+    start, end = rolling.range_window_bounds(secs, 3)
+    rolling.windowed_stats(x, valid, start, end, max_window=4)
     assert all(n == 0 for n in cuda_lib.launches.values())
 
 
-def _on_card():
-    """A stand-in operand that reports lying on a CUDA device."""
-    return types.SimpleNamespace(is_cuda=True)
+class _CardTensor(torch.Tensor):
+    """A CPU tensor that reports lying on a CUDA device, so dispatchers
+    take their CUDA branch; the wrappers it reaches are spies here."""
+
+    @property
+    def is_cuda(self):
+        return True
 
 
-def test_windowed_range_engine_raises_on_the_card():
-    with pytest.raises(sortmerge.KernelNotPortedError, match="cumsum3"):
-        rolling.windowed_stats(_on_card(), None, None, None)
+def _card(t):
+    return t.as_subclass(_CardTensor)
 
 
-def test_max_lookback_raises_on_the_card():
-    with pytest.raises(sortmerge.KernelNotPortedError, match="chunked"):
-        sortmerge.asof_indices_lookback(_on_card(), None, None, 3)
-    left = _frame(device="cpu")
-    left.device = torch.device("cuda")
-    with pytest.raises(sortmerge.KernelNotPortedError, match="ROADMAP.md"):
-        left.asofJoin(_frame(device="cpu"), maxLookback=3)
+def _spy(monkeypatch, module, name, plain):
+    """Replace ``module.name`` (a CUDA wrapper) by a recorder that runs
+    the plain version; returns the list of recorded calls."""
+    calls = []
+
+    def spy(*args, **kwargs):
+        calls.append((args, kwargs))
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(module, name, spy)
+    return calls
+
+
+def _plain(t):
+    return t.as_subclass(torch.Tensor)
+
+
+def _join_case():
+    ts = torch.tensor([[1, 2, 2, 5, 9, 12, 13, 20]], dtype=torch.int64)
+    rts = torch.tensor([[0, 2, 3, 4, 8, 9, 14, 30]], dtype=torch.int64)
+    valid = torch.tensor([[[True, False, True, True, False, True, True,
+                            True]]])
+    return ts, rts, valid
+
+
+def _frames():
+    """A two-series frame pair on the CPU (float64)."""
+    left = pd.DataFrame({"sym": ["a"] * 5 + ["b"] * 4,
+                         "event_ts": pd.to_datetime(
+                             [1, 2, 4, 8, 9, 1, 3, 5, 7], unit="s"),
+                         "x": np.arange(9.0)})
+    right = pd.DataFrame({"sym": ["a"] * 4 + ["b"] * 3,
+                          "event_ts": pd.to_datetime([0, 2, 3, 7, 2, 4, 6],
+                                                     unit="s"),
+                          "v": [1.0, np.nan, 3.0, 4.0, 5.0, np.nan, 7.0]})
+    return (TSDF(left, "event_ts", ["sym"], device="cpu"),
+            TSDF(right, "event_ts", ["sym"], device="cpu"))
+
+
+def test_windowed_range_engine_raises_on_the_card(monkeypatch):
+    """The windowed range engine on a CUDA operand launches the rank
+    kernel (twice, for the window bounds) and the cumsum3 kernel; it
+    raised there before those kernels were ported."""
+    ranks = _spy(monkeypatch, merge, "merge_rank_cuda",
+                 merge.merge_rank_plain)
+    sums = _spy(monkeypatch, scan, "cumsum3_cuda", scan.cumsum3_plain)
+    secs = torch.tensor([[0, 1, 1, 3, 6, 7, 7, 9]], dtype=torch.int32)
+    x = torch.tensor([[0.5, -1.0, 2.0, 4.0, 0.0, 1.5, -2.0, 3.0]],
+                     dtype=torch.float64)
+    valid = torch.tensor([[True, True, False, True, True, True, True,
+                           False]])
+    start, end = rolling.range_window_bounds(_card(secs), 3)
+    got = rolling.windowed_stats(_card(x), _card(valid), start, end,
+                                 max_window=4)
+    assert [c[0][2] for c in ranks] == ["left", "right"]
+    assert len(sums) == 1 and sums[0][0][0].is_cuda
+    ws, we = rolling.range_window_bounds(secs, 3)
+    assert torch.equal(_plain(start), ws) and torch.equal(_plain(end), we)
+    want = rolling.windowed_stats(x, valid, ws, we)
+    for k, v in want.items():
+        torch.testing.assert_close(_plain(got[k]), v, equal_nan=True,
+                                   rtol=0, atol=0, msg=k)
+
+
+def test_max_lookback_raises_on_the_card(monkeypatch):
+    """``maxLookback`` on a CUDA operand launches the lookback kernel
+    (it raised there before the kernel was ported); on the CPU the frame
+    join runs its plain version with the cap as given."""
+    calls = _spy(monkeypatch, merge, "asof_merge_lookback_cuda",
+                 merge.asof_merge_lookback_plain)
+    ts, rts, valid = _join_case()
+    got = sortmerge.asof_indices_lookback(_card(ts), _card(rts),
+                                          _card(valid), 3)
+    assert len(calls) == 1 and calls[0][0][3] == 3
+    want = sortmerge.asof_indices_lookback(ts, rts, valid, 3)
+    for g, w in zip(got, want):
+        assert torch.equal(_plain(g), w)
+    plain = _spy(monkeypatch, merge, "asof_merge_lookback_plain",
+                 merge.asof_merge_lookback_plain)
+    left, right = _frames()
+    left.asofJoin(right, maxLookback=3)
+    assert plain and all(c[0][3] == 3 for c in plain)
 
 
 def test_chunked_join_engine_raises_on_the_card(monkeypatch):
-    with pytest.raises(sortmerge.KernelNotPortedError, match="chunked"):
-        join._check_engine("chunked", torch.device("cuda"))
-    join._check_engine("chunked", torch.device("cpu"))   # plain form runs
+    """The ``chunked`` join engine takes the lookback kernel whatever
+    ``maxLookback`` is (0 here), as the reference's chunked engine runs
+    its one kernel; it raised on the card before that kernel was
+    ported."""
+    calls = _spy(monkeypatch, merge, "asof_merge_lookback_cuda",
+                 merge.asof_merge_lookback_plain)
+    ts, rts, valid = _join_case()
+    asof_ops.asof_indices_merge(_card(ts), None, _card(rts), None,
+                                _card(valid), 1, engine="chunked")
+    assert len(calls) == 1 and calls[0][0][3] == 0
+    plain = _spy(monkeypatch, merge, "asof_merge_lookback_plain",
+                 merge.asof_merge_lookback_plain)
+    left, right = _frames()
+    want = left.asofJoin(right).df
+    assert not plain
     monkeypatch.setenv("TEMPO_TPU_JOIN_ENGINE", "chunked")
-    left = _frame(device="cpu")
-    left.device = torch.device("cuda")
-    with pytest.raises(sortmerge.KernelNotPortedError):
-        left.asofJoin(_frame(device="cpu"))
+    got = left.asofJoin(right).df
+    assert plain and all(c[0][3] == 0 for c in plain)
+    pd.testing.assert_frame_equal(got, want)
+
+
+def test_legacy_window_engine_raises_on_the_card(monkeypatch):
+    """``TEMPO_TPU_WINDOW_ENGINE=legacy`` names the reference's legacy
+    kernel (not ported): where it would run, a CUDA operand raises
+    naming ROADMAP B8 instead of running another kernel; on the CPU the
+    plain range stats run."""
+    monkeypatch.setenv("TEMPO_TPU_WINDOW_ENGINE", "legacy")
+    assert rolling.pick_range_engine(4, 0) == "legacy"
+    assert rolling.pick_range_engine(rolling.stream_max_rows() + 1,
+                                     0) == "windowed"
+    secs = torch.arange(8, dtype=torch.int32)[None]
+    x = torch.ones(1, 8, dtype=torch.float64)
+    valid = torch.ones(1, 8, dtype=torch.bool)
+    with pytest.raises(sortmerge.KernelNotPortedError, match="item 8"):
+        rolling.legacy_range_stats(_card(secs), _card(x), _card(valid), 3,
+                                   4, 0)
+    left, _ = _frames()
+    got = left.withRangeStats(colsToSummarize=["x"],
+                              rangeBackWindowSecs=3).df
+    monkeypatch.delenv("TEMPO_TPU_WINDOW_ENGINE")
+    want = left.withRangeStats(colsToSummarize=["x"],
+                               rangeBackWindowSecs=3).df
+    pd.testing.assert_frame_equal(got, want)
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -148,6 +271,12 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         bucket.resample_ema_cuda(torch.zeros(2, 8, dtype=torch.int32), x,
                                  valid, 60, 0.2)
+    with pytest.raises(ValueError, match="CUDA"):
+        merge.asof_merge_lookback_cuda(ts, ts, valid[None], 3, x[None])
+    with pytest.raises(ValueError, match="CUDA"):
+        merge.merge_rank_cuda(ts, ts)
+    with pytest.raises(ValueError, match="CUDA"):
+        scan.cumsum3_cuda(x, valid)
 
 
 def test_package_exports_the_frame():
