@@ -7,7 +7,7 @@
 
 Phases (each raises on failure, and the script then exits non-zero):
 
-A. Build the seven CUDA sources of ``tempo_tpu_torch/csrc`` (one nvcc
+A. Build the eight CUDA sources of ``tempo_tpu_torch/csrc`` (one nvcc
    per source, in parallel) and print the build seconds.
 B. Hold each kernel against its plain PyTorch version on the card, in
    float32, at the shapes the main paths give it: the merge join
@@ -31,6 +31,11 @@ B. Hold each kernel against its plain PyTorch version on the card, in
    nanoseconds, both sides, pads clamped (``torch.searchsorted`` is its
    yardstick); ``cumsum3`` on a shared-memory row and on phase F's row,
    which takes the global scratch (``torch.cumsum`` the yardstick).
+   Then the fourth slice's legacy stats kernel: ``count``, ``min``,
+   ``max`` and ``clipped`` bitwise, the rest as range stats are held, on
+   the HHAR left frame's packed ``x`` with the row bounds of a 10 s and
+   a 60 s window, on a two-column stack, and on tie-heavy keys with
+   bounds (4, 1) that clip both ways (no library call computes it).
 C. The main path at full scale, as a user calls it: pandas frames shaped
    like the reference quickstart's HHAR phone<->watch join (13,062,475
    rows a side, 1024 series) -> ``TSDF`` -> ``asofJoin`` ->
@@ -65,6 +70,21 @@ F. The third slice at full width: the same 13,062,475 rows a side over
    which reach a few hundred (float32 spacing ~3e-5), each rounded at
    17 ladder levels, plus the float32 centre times a count of ~57,600;
    a quick run (2 series of 200,000 rows) measured 1.3e-3.
+G. The fourth slice on the HHAR left frame (13,062,475 rows, 1024
+   series), each step timed with the card synchronised and the counters
+   zeroed before and read after: ``withRangeStats`` (10 s) under
+   ``TEMPO_TPU_WINDOW_ENGINE=legacy`` (the legacy kernel must launch and
+   the row-bounded one must not; held against the same call under auto:
+   ``count`` equal, the rest within 1e-5), ``withGroupedStats("1
+   minute")``, ``vwap("m")`` on a trades-shaped copy (``price = 100 +
+   |x|``, seeded volumes 1-999), ``describe``, ``autocorr("x", 1)``,
+   ``fourier_transform(1, "x")``, ``lookbackTensor(["x"], 10)``, and
+   ``filter("x > 0")`` then ``selectExpr``.  Then, on 8 users, each step
+   and ``withLookbackFeatures`` (it builds a Python list per row, so it
+   runs on the 8 users only) on the card (float32) against
+   ``device="cpu"`` (float64): keys, timestamps, counts and the host
+   steps equal, values within 1e-4, the FFT within 1e-5 * ||x||_2 a
+   series (``fft_tolerance``).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -464,6 +484,78 @@ def phase_b_slice2(right, dev):
         f"{rows['resample_ema']['plain_ms']:.4f} ms")
     log(f"B launches while comparing (not counted): {dict(cuda_lib.launches)}")
     return rows
+
+
+def phase_b_slice4(left, dev, d_args):
+    """The legacy stats kernel against its plain version; returns its
+    row of the result line (``launches`` filled in by phase G)."""
+    from tempo_tpu_torch import TSDF
+    from tempo_tpu_torch import rolling as rolling_frame
+    from tempo_tpu_torch.ops import cuda_lib, stats
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    lt = TSDF(left, "event_ts", ["user"], device=dev, dtype=torch.float32)
+    x, valid = lt.packed_numeric("x")
+    cases = []
+    for window_secs in (10, 60):
+        _, rb, ts_long, w = rolling_frame.plan_range_engine(lt, window_secs)
+        secs = torch.from_numpy(ts_long).to(dev)
+        cases.append((f"HHAR x, {window_secs} s", secs, x[None], valid[None],
+                      w, int(rb[0]), int(rb[1])))
+    # a two-column stack: x and a second column with its own nulls
+    second = torch.randn(x.shape, generator=gen, device=dev)
+    second_valid = valid & (torch.rand(x.shape, generator=gen, device=dev)
+                            > 0.2)
+    cases.append(("[2, K, L] stack", cases[1][1], torch.stack([x, second]),
+                  torch.stack([valid, second_valid]), *cases[1][4:]))
+    # tie-heavy keys (about four rows a second) with bounds too small
+    # both ways, so both halves of the clipped audit count rows
+    dsecs = d_args[1].to(torch.int32)
+    dv = d_args[3] & (torch.rand(dsecs.shape, generator=gen, device=dev)
+                      > 0.1)
+    behind = (dsecs[:, 5:] - 10 <= dsecs[:, :-5]).sum()
+    ahead = (dsecs[:, 2:] == dsecs[:, :-2]).sum()
+    if int(behind) == 0 or int(ahead) == 0:
+        raise AssertionError("truncating legacy case does not clip both ways")
+    cases.append(("truncating, bounds (4, 1)", dsecs, d_args[2][None],
+                  dv[None], 10, 4, 1))
+    err = 0.0
+    n_clipped = 0
+    for what, secs, xs, vs, w, mb, ma in cases:
+        got = stats.legacy_stats_cuda(secs, xs, vs, w, mb, ma)
+        want = stats.legacy_stats_plain(secs, xs, vs, w, mb, ma)
+        for k in ("min", "max"):
+            check_bitwise(got[k], want[k], f"legacy stats {k} ({what})")
+        err = max(err, check_range_stats(got, want, f"legacy stats ({what})"))
+        if what.startswith("truncating"):
+            n_clipped = int(want["clipped"].sum())
+    if n_clipped == 0:
+        raise AssertionError("truncating legacy case clipped nothing")
+
+    _, secs, xs, vs, w, mb, ma = cases[0]
+    _, Kw, L = xs.shape
+    nbytes = Kw * L * 4 + Kw * L * (4 + 1) + 7 * Kw * L * 4 + Kw * 4
+    nops = Kw * L * ((mb + ma + 1) * 12 + 20)
+    b, by = bound_ms(nbytes, nops)
+    row = dict(
+        name="legacy_stats", route="cuda",
+        source="tempo_tpu_torch/csrc/legacy_stats.cu",
+        replaces="tempo_tpu/ops/pallas_stats.py:52", max_abs_err=err,
+        ms=time_ms(lambda: stats.legacy_stats_cuda(secs, xs, vs, w, mb, ma)),
+        plain_ms=time_ms(lambda: stats.legacy_stats_plain(secs, xs, vs, w, mb,
+                                                          ma), reps=3),
+        bound_ms=b, bound_by=by, library_ms=None,
+        ms_60s=time_ms(lambda: stats.legacy_stats_cuda(*cases[1][1:])),
+        ms_two_columns=time_ms(lambda: stats.legacy_stats_cuda(*cases[2][1:])),
+        shape=f"[1, {Kw}, {L}], window {w}s, rows {mb} behind/{ma} ahead; "
+              f"60 s: rows {cases[1][5]}/{cases[1][6]}")
+    log(f"B legacy_stats: count/min/max/clipped bitwise, rest within 1e-5 "
+        f"(max abs err {err:.3g}) on {'; '.join(c[0] for c in cases)} "
+        f"({n_clipped} rows clipped); kernel {row['ms']:.4f} ms (60 s "
+        f"{row['ms_60s']:.4f}, two columns {row['ms_two_columns']:.4f}), "
+        f"plain {row['plain_ms']:.4f} ms, bound {b:.4f} ms")
+    log(f"B launches while comparing (not counted): {dict(cuda_lib.launches)}")
+    return {"legacy_stats": row}
 
 
 def chain(TSDF, left, right, steps=None, max_lookback=0, window_secs=10,
@@ -943,6 +1035,220 @@ def phase_f(pd, TSDF, left, right, n, n_series):
     return launches
 
 
+def trades_frame(pd, left, seed: int = 4):
+    """A trades-shaped copy of the left frame for vwap (TSDF.scala:
+    378-401): ``symbol`` and ``event_ts``, ``price = 100 + |x|`` and
+    seeded integer volumes 1-999."""
+    rng = np.random.default_rng(seed)
+    return pd.DataFrame({"symbol": left["user"].to_numpy(),
+                         "event_ts": left["event_ts"].to_numpy(),
+                         "price": 100.0 + np.abs(left["x"].to_numpy()),
+                         "volume": rng.integers(1, 1000, len(left))})
+
+
+SLICE4_STEPS = ("withRangeStats legacy", "withGroupedStats", "vwap",
+                "describe", "autocorr", "fourier_transform", "lookbackTensor",
+                "filter + selectExpr")
+
+
+def slice4_steps(TSDF, left, trades, **kw):
+    """The fourth slice's steps on one device: the left frame's TSDF and
+    name -> a call returning what the step gives back.
+    ``withRangeStats`` runs under ``TEMPO_TPU_WINDOW_ENGINE=legacy`` (set
+    and restored around it)."""
+    import os
+
+    lt = TSDF(left, "event_ts", ["user"], **kw)
+
+    def legacy():
+        old = os.environ.get("TEMPO_TPU_WINDOW_ENGINE")
+        os.environ["TEMPO_TPU_WINDOW_ENGINE"] = "legacy"
+        try:
+            return lt.withRangeStats(colsToSummarize=["x"],
+                                     rangeBackWindowSecs=10).df
+        finally:
+            if old is None:
+                del os.environ["TEMPO_TPU_WINDOW_ENGINE"]
+            else:
+                os.environ["TEMPO_TPU_WINDOW_ENGINE"] = old
+
+    return lt, {
+        "withRangeStats legacy": legacy,
+        "withGroupedStats": lambda: lt.withGroupedStats(freq="1 minute").df,
+        "vwap": lambda: TSDF(trades, "event_ts", ["symbol"], **kw).vwap(
+            "m").df,
+        "describe": lt.describe,
+        "autocorr": lambda: lt.autocorr("x", lag=1),
+        "fourier_transform": lambda: lt.fourier_transform(1, "x").df,
+        "lookbackTensor": lambda: lt.lookbackTensor(["x"], 10),
+        "filter + selectExpr": lambda: lt.filter("x > 0").selectExpr(
+            "user", "event_ts", "x * 2 AS x2", "abs(x) AS ax").df,
+    }
+
+
+def fft_tolerance(x: np.ndarray) -> float:
+    """Largest difference allowed between a float32 cuFFT transform of
+    one series and the float64 one: 1e-5 * ||x||_2.  An FFT's error is
+    about eps * log2(n) * ||x||_2 (eps 6e-8 in float32, log2(12,756) =
+    13.6, so 8e-7 * ||x||_2) times a small constant; n = 12,756 = 4 * 3 *
+    1063 has a large prime factor, which cuFFT takes by Bluestein's
+    method (three transforms of a padded length), so the constant is
+    taken as about 10, and the float32 rounding of the input adds about
+    eps * ||x||_2."""
+    return 1e-5 * float(np.linalg.norm(x))
+
+
+def phase_g(pd, TSDF, left, n, n_series):
+    """The fourth slice at HHAR scale, each step timed with the card
+    synchronised and the counters zeroed before and read after; then 8
+    users on the card (float32) against the CPU (float64).  Returns the
+    launch counts of the legacy step."""
+    from tempo_tpu_torch.ops import cuda_lib
+
+    trades = trades_frame(pd, left)
+    lt, steps = slice4_steps(TSDF, left, trades)
+    seconds, launches, out = {}, {}, {}
+    for name in SLICE4_STEPS:
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        out[name] = steps[name]()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = dict(cuda_lib.launches)
+    legacy = launches["withRangeStats legacy"]
+    if legacy["legacy_stats"] == 0 or legacy["range_stats"] != 0:
+        raise AssertionError(f"legacy withRangeStats did not take the legacy "
+                             f"kernel alone: {legacy}")
+
+    # the legacy step against the same call on the row-bounded kernel
+    # (auto): the same frames, summed in another order
+    stats = out["withRangeStats legacy"]
+    auto = TSDF(left, "event_ts", ["user"]).withRangeStats(
+        colsToSummarize=["x"], rangeBackWindowSecs=10).df
+    np.testing.assert_array_equal(stats["count_x"].to_numpy(),
+                                  auto["count_x"].to_numpy())
+    legacy_err = {}
+    for c in ("mean_x", "min_x", "max_x", "sum_x", "stddev_x"):
+        g, w = stats[c].to_numpy(), auto[c].to_numpy()
+        legacy_err[c] = float(np.nanmax(np.abs(g - w)))
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5, equal_nan=True,
+                                   err_msg=f"legacy vs auto {c}")
+    if len(stats) != n or not (stats["count_x"].to_numpy() >= 1).all():
+        raise AssertionError("legacy withRangeStats rows or counts wrong")
+
+    grouped, bars = out["withGroupedStats"], out["vwap"]
+    if grouped["count_x"].sum() != n or bars["volume"].sum() != \
+            trades["volume"].sum():
+        raise AssertionError("grouped stats or vwap lost rows")
+    if not np.isfinite(bars["vwap"].to_numpy()).all():
+        raise AssertionError("vwap has non-finite values")
+    table = out["describe"]
+    if list(table["summary"]) != ["global", "count", "mean", "stddev", "min",
+                                  "max", "missing_vals_pct"] \
+            or table["x"][1] != str(n):
+        raise AssertionError("describe table malformed")
+    ac = out["autocorr"]["autocorr_lag_1"].to_numpy()
+    if len(ac) != n_series or not (np.abs(ac) < 0.1).all():
+        raise AssertionError("autocorr of white noise not near 0")
+    ft = out["fourier_transform"]
+    if len(ft) != n or not np.isfinite(ft["ft_real"].to_numpy()).all():
+        raise AssertionError("fourier_transform rows or values wrong")
+    tensor, mask = out["lookbackTensor"]
+    # a row at position p of its series has min(p, 10) earlier rows
+    lengths = lt.layout.lengths
+    head = np.minimum(lengths, 10)
+    expect = int((head * (head - 1) // 2).sum()
+                 + 10 * (lengths - head).sum())
+    real = (torch.arange(tensor.shape[1], device=mask.device)[None, :]
+            < torch.from_numpy(lengths).to(mask.device)[:, None])
+    if tensor.shape[2:] != (10, 1) or int(mask[real].sum()) != expect:
+        raise AssertionError(f"lookbackTensor shape {tuple(tensor.shape)} "
+                             f"or mask count {int(mask[real].sum())} != "
+                             f"{expect}")
+    sel = out["filter + selectExpr"]
+    if list(sel.columns) != ["user", "event_ts", "x2", "ax"] \
+            or not (sel["x2"] > 0).all():
+        raise AssertionError("filter + selectExpr wrong")
+    total = sum(seconds.values())
+    log(f"G slice-4 steps at HHAR scale ({n} rows, {n_series} series): "
+        f"{total:.3f} s; legacy step launches {legacy}; legacy vs auto "
+        f"row-bounded kernel: count equal, max abs diff "
+        + ", ".join(f"{k} {v:.3g}" for k, v in legacy_err.items()))
+    log("G steps (wall s, card synchronised after each): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items()))
+    other = {k: {n_: c for n_, c in v.items() if c}
+             for k, v in launches.items() if k != "withRangeStats legacy"}
+    log(f"G launches of the other steps (torch ops, no kernel of the "
+        f"port): {other}")
+
+    # 8 users: every step on the card (float32) against the CPU (float64)
+    users = np.arange(min(8, n_series))
+    sl = left[left["user"].isin(users)]
+    st = trades[trades["symbol"].isin(users)]
+    _, card = slice4_steps(TSDF, sl, st)
+    _, cpu = slice4_steps(TSDF, sl, st, device="cpu")
+    errs = {}
+    for name in SLICE4_STEPS:
+        g, w = card[name](), cpu[name]()
+        if name == "lookbackTensor":
+            if not torch.equal(g[1].cpu(), w[1]):
+                raise AssertionError("8-user lookbackTensor mask differs")
+            np.testing.assert_allclose(g[0].cpu().double().numpy(),
+                                       w[0].numpy(), rtol=1e-4, atol=1e-4)
+            continue
+        if name == "describe" or name == "filter + selectExpr":
+            pd.testing.assert_frame_equal(g, w)
+            continue
+        if list(g.columns) != list(w.columns) or len(g) != len(w):
+            raise AssertionError(f"8-user {name}: frames differ in shape")
+        for c in g.columns:
+            if name == "fourier_transform" and c in ("ft_real", "ft_imag"):
+                diff = np.abs(g[c].to_numpy() - w[c].to_numpy())
+                for u in users:
+                    rows = (g["user"] == u).to_numpy()
+                    tol = fft_tolerance(w["x"].to_numpy()[rows])
+                    if not diff[rows].max() <= tol:
+                        raise AssertionError(
+                            f"8-user FFT {c} of user {u} off by "
+                            f"{diff[rows].max()} (tolerance {tol})")
+                    errs[f"fft {c} / ||x||"] = max(
+                        errs.get(f"fft {c} / ||x||", 0.0),
+                        float(diff[rows].max()) / (tol / 1e-5))
+            elif c.startswith("count") or not pd.api.types.is_float_dtype(
+                    w[c].dtype):
+                pd.testing.assert_series_equal(g[c], w[c], check_dtype=False)
+            elif c == "zscore_x":
+                # as x - mean: where the window's stddev is near 0 the
+                # float32 quotient is ill-conditioned (stddev is held
+                # on its own)
+                np.testing.assert_allclose(
+                    (g[c] * g["stddev_x"]).to_numpy(np.float64),
+                    (w[c] * w["stddev_x"]).to_numpy(np.float64),
+                    rtol=1e-4, atol=1e-4, equal_nan=True,
+                    err_msg=f"8-user {name} {c}")
+            else:
+                np.testing.assert_allclose(
+                    g[c].to_numpy(np.float64), w[c].to_numpy(np.float64),
+                    rtol=1e-4, atol=1e-4, equal_nan=True,
+                    err_msg=f"8-user {name} {c}")
+    feats = {"card": TSDF(sl, "event_ts", ["user"]),
+             "cpu": TSDF(sl, "event_ts", ["user"], device="cpu")}
+    feats = {k: t.withLookbackFeatures(["x"], 10) for k, t in feats.items()}
+    if len(feats["card"]) != len(feats["cpu"]):
+        raise AssertionError("8-user withLookbackFeatures rows differ")
+    np.testing.assert_allclose(np.asarray(feats["card"]["features"].tolist()),
+                               np.asarray(feats["cpu"]["features"].tolist()),
+                               rtol=1e-4, atol=1e-4)
+    log(f"G 8-user slice ({len(sl)} rows): every step and "
+        f"withLookbackFeatures (8 users only: it builds a Python list per "
+        f"row) on the card (float32) agree with the CPU (float64): keys, "
+        f"timestamps, counts and the host steps equal, values within 1e-4 "
+        f"(relative or absolute), the FFT within 1e-5 * ||x||_2 a series; "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    return legacy, seconds
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=13_062_475)
@@ -1003,15 +1309,19 @@ def main(argv=None) -> int:
     rows = phase_b(pd, left, right, dev, d_args)
     rows2 = phase_b_slice2(right, dev)
     rows3 = phase_b_slice3(pd, left3, right3, dev, d_args)
+    rows4 = phase_b_slice4(left, dev, d_args)
     torch.cuda.empty_cache()
     launches, _ = phase_c(pd, TSDF, left, right, n, args.series)
     phase_d(d_args)
     launches2 = phase_e(TSDF, right, n, args.series)
     launches3 = phase_f(pd, TSDF, left3, right3, n3, args.long_series)
+    del left3, right3
+    torch.cuda.empty_cache()
+    launches4, _ = phase_g(pd, TSDF, left, n, args.series)
 
     kernels = []
     for found, table in ((launches, rows), (launches2, rows2),
-                         (launches3, rows3)):
+                         (launches3, rows3), (launches4, rows4)):
         for name, row in table.items():
             row = dict(row)
             row["launches"] = found[name]

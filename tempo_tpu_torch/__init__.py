@@ -1,10 +1,11 @@
 """tempo_tpu_torch: the PyTorch / CUDA port of tempo_tpu.
 
-The flagship chain (pandas in -> ``TSDF`` -> ``asofJoin`` ->
-``withRangeStats`` -> exact ``EMA`` -> pandas out) and the resample
-family (``resample``, ``calc_bars``, ``resampleEMA``, ``interpolate``)
-run on a CUDA card through hand-written kernels (``ops/merge.py``,
-``ops/window.py``, ``ops/scan.py``, ``ops/bucket.py``); ``device="cpu"``
+The single-device ``TSDF``: the flagship chain (pandas in -> ``TSDF``
+-> ``asofJoin`` -> ``withRangeStats`` -> exact ``EMA`` -> pandas out),
+the resample family, grouped stats, vwap, lookback features, the
+spectral ops, describe, the DataFrame-mirror ops and SQL.  Its kernels
+run on a CUDA card, hand-written (``ops/merge.py``, ``ops/window.py``,
+``ops/stats.py``, ``ops/scan.py``, ``ops/bucket.py``); ``device="cpu"``
 runs their plain PyTorch versions.
 This package imports neither JAX nor ``tempo_tpu``.
 """

@@ -1,7 +1,7 @@
 """The ``TEMPO_TPU_*`` environment knobs this package reads.
 
-Counterpart of ``tempo_tpu/config.py``, cut to the knobs the eager
-frame chain (pack -> asofJoin -> withRangeStats -> EMA) consults.  The
+Counterpart of ``tempo_tpu/config.py``, cut to the knobs the port's
+eager frame consults.  The
 names are kept so one environment drives both packages the same way.
 Every ``os.environ`` read of the package goes through :func:`get`.
 """
@@ -26,9 +26,15 @@ KNOBS = {
         "1/0 forces/forbids the bin-packed AS-OF layout",
     "TEMPO_TPU_WINDOW_ENGINE":
         "force a range-stats engine: auto | shifted | stream | windowed | "
-        "legacy (not ported: raises on the card)",
+        "legacy (the legacy shifted-window kernel within the shifted row "
+        "budget, as the reference picks it)",
     "TEMPO_TPU_STREAM_MAX_ROWS":
         "row-extent ceiling of the runtime-width range-stats engine",
+    "TEMPO_TPU_SQL_STRICT":
+        "strict SQL: selectExpr/filter raise StrictSqlFallback instead of "
+        "falling back to pandas eval/query (per-call strict= wins)",
+    "TEMPO_TPU_STRICT_SQL":
+        "legacy alias of TEMPO_TPU_SQL_STRICT",
     "TEMPO_TPU_KERNEL_BUILD_DIR":
         "directory the CUDA kernels are built into (default "
         "tempo_tpu_torch/_build)",
@@ -48,3 +54,12 @@ def get_int(name: str, default: Optional[int] = None) -> Optional[int]:
     if val is None or not val.strip():
         return default
     return int(val)
+
+
+def get_bool(name: str, default: bool = False) -> bool:
+    """Boolean knob: unset -> ``default``; '', '0', 'false', 'no' and
+    'off' -> False; anything else -> True."""
+    val = get(name)
+    if val is None:
+        return default
+    return val.strip().lower() not in ("", "0", "false", "no", "off")

@@ -1,26 +1,73 @@
 """TSDF: the time-series frame of the port.
 
-Counterpart of ``tempo_tpu/frame.py``, cut to the ported slices: the
-constructor and its validation, the packed accessors, ``asofJoin``,
-``withRangeStats``, ``EMA``, ``resample``, ``calc_bars``,
-``resampleEMA``, ``interpolate`` and ``df``.  The frame wraps host pandas
-data plus a cache of packed [K series, L lanes] tensors on its device;
-every op is eager (the reference's lazy planner is not part of this
-port).  ``device=None`` means the CUDA card; ``device="cpu"`` runs the
-kernels' plain versions.
+Counterpart of ``tempo_tpu/frame.py`` on one device: the constructor and
+its validation, the column classes, the packed accessors, the
+DataFrame-mirror ops (``select``, ``selectExpr``, ``filter``, ...; SQL
+strings through the host evaluator ``sql.py``), ``asofJoin``,
+``withRangeStats``, ``withGroupedStats``, ``EMA``, ``vwap``, the lookback
+features, ``fourier_transform``, ``autocorr``, ``describe``, the
+resample family and ``fromOrderingColumns``.  Not here: the I/O
+(``write``, arrow and Spark interop), ``explain``, ``on_mesh`` and plan
+recording.  The frame wraps host pandas data plus a cache of packed
+[K series, L lanes] tensors on its device; every op is eager (the
+reference's lazy planner is not part of this port), and every derived
+frame keeps the device and dtype.  ``device=None`` means the CUDA card;
+``device="cpu"`` runs the kernels' plain versions.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Union
+import logging
+import re
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import pandas as pd
 import torch
 
+from tempo_tpu_torch import config, packing
 from tempo_tpu_torch import device as devices
-from tempo_tpu_torch import packing
 from tempo_tpu_torch.packing import FlatLayout
+
+logger = logging.getLogger(__name__)
+
+DEFAULT_SEQ_COLNAME = "sequence_num"  # parity: scala TSDF.scala:529
+
+
+def _strict_sql(strict: Optional[bool]) -> bool:
+    """Resolve the strict-SQL switch: an explicit argument wins, else
+    ``TEMPO_TPU_SQL_STRICT``, else the legacy ``TEMPO_TPU_STRICT_SQL``
+    (both default off)."""
+    if strict is not None:
+        return bool(strict)
+    return (config.get_bool("TEMPO_TPU_SQL_STRICT")
+            or config.get_bool("TEMPO_TPU_STRICT_SQL"))
+
+
+def _split_alias(raw: str):
+    """Split ``expr as alias`` at the last top-level ``as``/``AS``
+    (outside single/double quotes and backticks) for the selectExpr
+    fallback path.  Returns (expr, alias) or None when no plausible
+    alias exists."""
+    low = raw.lower()
+    in_q = None
+    last = -1
+    for i, ch in enumerate(raw):
+        if in_q:
+            if ch == in_q:
+                in_q = None
+        elif ch in ("'", '"', "`"):
+            in_q = ch
+        elif low.startswith(" as ", i):
+            last = i
+    if last < 0:
+        return None
+    expr, alias = raw[:last].strip(), raw[last + 4:].strip()
+    if re.fullmatch(r"`[^`]+`", alias):
+        return expr, alias[1:-1]
+    if re.fullmatch(r"[A-Za-z_][A-Za-z0-9_]*", alias):
+        return expr, alias
+    return None
 
 
 def _is_numeric(dtype) -> bool:
@@ -87,6 +134,11 @@ class TSDF:
                     else partition_cols,
                     sequence_col, device=self.device, dtype=self.dtype)
 
+    def _with_rows(self, df: pd.DataFrame) -> "TSDF":
+        """A frame over new data with this frame's column roles (ts,
+        partition and sequence columns), device and dtype."""
+        return self._with_df(df, sequence_col=self.sequence_col or None)
+
     def _check_partition_cols_match(self, other: "TSDF") -> None:
         for lc, rc in zip(self.partitionCols, other.partitionCols):
             if lc != rc:
@@ -103,6 +155,26 @@ class TSDF:
     @property
     def columns(self) -> List[str]:
         return list(self.df.columns)
+
+    @property
+    def structuralColumns(self) -> List[str]:
+        """ts col + partition cols (scala TSDF.scala:193)."""
+        cols = [self.ts_col] + self.partitionCols
+        if self.sequence_col:
+            cols.append(self.sequence_col)
+        return cols
+
+    @property
+    def observationColumns(self) -> List[str]:
+        """All non-structural columns (scala TSDF.scala:198-199)."""
+        structural = set(self.structuralColumns)
+        return [c for c in self.df.columns if c not in structural]
+
+    @property
+    def measureColumns(self) -> List[str]:
+        """Numeric observation columns (scala TSDF.scala:204-205)."""
+        return [c for c in self.observationColumns
+                if _is_numeric(self.df[c].dtype)]
 
     def summarizable_columns(self) -> List[str]:
         """Numeric columns other than ts and partition columns
@@ -123,6 +195,10 @@ class TSDF:
                 self.df, self.ts_col, self.partitionCols,
                 self.sequence_col or None)
         return self._layout
+
+    def sorted_flat(self, col: str) -> np.ndarray:
+        """Column values in the sorted flat layout (host)."""
+        return self.df[col].to_numpy()[self.layout.order]
 
     def numeric_flat(self, col: str):
         """(float64 values, valid) in the sorted flat layout; NaN is
@@ -171,6 +247,158 @@ class TSDF:
 
     def ts_dtype(self):
         return self.df[self.ts_col].dtype
+
+    # ------------------------------------------------------------------
+    # DataFrame-mirror operations (parity: scala TSDF.scala:218-293)
+    # ------------------------------------------------------------------
+
+    def select(self, *cols) -> "TSDF":
+        """Parity: tsdf.py:319-343 - structural columns must be kept."""
+        if len(cols) == 1 and isinstance(cols[0], (list, tuple)):
+            cols = tuple(cols[0])
+        if "*" in cols:
+            cols = tuple(self.df.columns)
+        seq_stub = [self.sequence_col] if self.sequence_col else []
+        mandatory = [self.ts_col] + self.partitionCols + seq_stub
+        if set(mandatory).issubset(set(cols)):
+            return self._with_rows(self.df[list(cols)])
+        raise Exception(
+            "In TSDF's select statement original ts_col, partitionCols and "
+            "seq_col_stub(optional) must be present")
+
+    def selectExpr(self, *exprs, strict: Optional[bool] = None) -> "TSDF":
+        """Spark-style SQL projections (parity: TSDF.scala:226-229) by
+        the host expression engine (``sql.py``): arithmetic, CASE WHEN,
+        CAST, IN/BETWEEN/LIKE and the common function library, with
+        ``expr AS alias`` naming.  Expressions the SQL grammar rejects
+        fall back to pandas ``eval`` syntax (e.g. ``price ** 2``); the
+        switch is logged (the two engines differ on NULL semantics and
+        function surface), and ``strict=True`` (or
+        ``TEMPO_TPU_SQL_STRICT=1`` / the legacy ``TEMPO_TPU_STRICT_SQL=1``)
+        raises ``StrictSqlFallback`` instead."""
+        from tempo_tpu_torch import sql
+
+        strict = _strict_sql(strict)
+        out = {}
+        for raw in exprs:
+            try:
+                out.update(sql.select_exprs(self.df, [raw]))
+                logger.debug("selectExpr(%r): evaluated by the SQL "
+                             "engine", raw)
+            except sql.SqlError as e:
+                if strict:
+                    raise sql.StrictSqlFallback(
+                        f"selectExpr({raw!r}) left the compiled SQL "
+                        f"surface ({e}); strict mode forbids the "
+                        f"pandas-eval fallback") from e
+                logger.warning(
+                    "selectExpr(%r): SQL engine rejected the expression "
+                    "(%s); falling back to pandas eval semantics — pass "
+                    "strict=True (or set TEMPO_TPU_SQL_STRICT=1) to "
+                    "re-raise instead", raw, e)
+                split = _split_alias(raw)
+                if split is not None:
+                    src, alias = split
+                    out[alias] = (self.df[src] if src in self.df.columns
+                                  else self.df.eval(src))
+                else:
+                    out[raw.strip()] = self.df[raw.strip()]
+        return self._with_rows(pd.DataFrame(out))
+
+    def filter(self, condition, strict: Optional[bool] = None) -> "TSDF":
+        """Row filter (parity: TSDF.scala:232-238).  String predicates
+        parse as SQL (three-valued logic: NULL rows drop, as in Spark);
+        other strings fall back to pandas ``query`` syntax, logged,
+        because the engines disagree on NULL handling, and turned into a
+        ``StrictSqlFallback`` error by ``strict=True`` /
+        ``TEMPO_TPU_SQL_STRICT=1`` (legacy ``TEMPO_TPU_STRICT_SQL``).  A
+        callable gets the frame's DataFrame; anything else is a mask."""
+        if callable(condition):
+            mask = condition(self.df)
+        elif isinstance(condition, str):
+            from tempo_tpu_torch import sql
+
+            try:
+                mask = sql.filter_mask(self.df, condition)
+                logger.debug("filter(%r): evaluated by the SQL engine",
+                             condition)
+            except sql.SqlError as e:
+                if _strict_sql(strict):
+                    raise sql.StrictSqlFallback(
+                        f"filter({condition!r}) left the compiled SQL "
+                        f"surface ({e}); strict mode forbids the "
+                        f"pandas-query fallback") from e
+                logger.warning(
+                    "filter(%r): SQL engine rejected the predicate "
+                    "(%s); falling back to pandas query semantics — "
+                    "pass strict=True (or set TEMPO_TPU_SQL_STRICT=1) "
+                    "to re-raise instead", condition, e)
+                return self._with_rows(self.df.query(condition))
+        else:
+            mask = condition
+        return self._with_rows(self.df[mask])
+
+    where = filter
+
+    def limit(self, n: int) -> "TSDF":
+        return self._with_rows(self.df.head(n))
+
+    def union(self, other: "TSDF") -> "TSDF":
+        return self._with_rows(
+            pd.concat([self.df, other.df[self.df.columns]],
+                      ignore_index=True))
+
+    unionAll = union
+
+    def withColumn(self, colName: str, values) -> "TSDF":
+        df = self.df.copy()
+        df[colName] = values(df) if callable(values) else values
+        return self._with_rows(df)
+
+    def withColumnRenamed(self, existing: str, new: str) -> "TSDF":
+        df = self.df.rename(columns={existing: new})
+        ts_col = new if existing == self.ts_col else self.ts_col
+        pcols = [new if c == existing else c for c in self.partitionCols]
+        seq = new if existing == self.sequence_col else (
+            self.sequence_col or None)
+        return self._with_df(df, ts_col=ts_col, partition_cols=pcols,
+                             sequence_col=seq)
+
+    def drop(self, *cols) -> "TSDF":
+        return self._with_rows(self.df.drop(columns=list(cols)))
+
+    def withPartitionCols(self, partitionCols) -> "TSDF":
+        """Parity: tsdf.py:583-590 (drops sequence_col, as the reference
+        does)."""
+        return self._with_df(self.df, partition_cols=partitionCols or [])
+
+    # Scala front-end spellings (TSDF.scala:89 partitionedBy, :72 rangeStats)
+    partitionedBy = withPartitionCols
+
+    def rangeStats(self, colsToSummarise=None,
+                   rangeBackWindowSecs: int = 1000) -> "TSDF":
+        return self.withRangeStats(colsToSummarize=colsToSummarise,
+                                   rangeBackWindowSecs=rangeBackWindowSecs)
+
+    def show(self, n: int = 20, truncate: bool = True,
+             vertical: bool = False) -> None:
+        """Parity: tsdf.py:345-382, rendered by pandas."""
+        view = self.df.head(n)
+        if vertical:
+            for i, row in view.iterrows():
+                print(f"-RECORD {i}-")
+                for c in view.columns:
+                    print(f" {c}: {row[c]}")
+        else:
+            with pd.option_context("display.max_colwidth",
+                                   20 if truncate else None):
+                print(view.to_string(index=False))
+
+    def count(self) -> int:
+        return len(self.df)
+
+    def to_pandas(self) -> pd.DataFrame:
+        return self.df
 
     # ------------------------------------------------------------------
     # Operations
@@ -246,3 +474,83 @@ class TSDF:
         return interpol.interpolate_frame(
             self, freq, func, method, target_cols, ts_col, partition_cols,
             show_interpolated)
+
+    def withGroupedStats(self, metricCols=None, freq=None) -> "TSDF":
+        """Tumbling-window grouped statistics (parity: tsdf.py:723-759)."""
+        from tempo_tpu_torch import rolling
+
+        return rolling.with_grouped_stats(self, metricCols, freq)
+
+    def vwap(self, frequency: str = "m", volume_col: str = "volume",
+             price_col: str = "price") -> "TSDF":
+        """Volume-weighted average price (spec: scala TSDF.scala:378-401)."""
+        from tempo_tpu_torch import rolling
+
+        return rolling.vwap(self, frequency, volume_col, price_col)
+
+    def withLookbackFeatures(self, featureCols, lookbackWindowSize: int,
+                             exactSize: bool = True,
+                             featureColName: str = "features"):
+        """Trailing lookback feature lists (parity: tsdf.py:637-671)."""
+        from tempo_tpu_torch import rolling
+
+        return rolling.with_lookback_features(
+            self, featureCols, lookbackWindowSize, exactSize, featureColName)
+
+    def lookbackTensor(self, featureCols, lookbackWindowSize: int):
+        """The dense [K, L, w, F] lookback tensor and its validity mask,
+        on the frame's device."""
+        from tempo_tpu_torch import rolling
+
+        return rolling.lookback_tensor(self, featureCols, lookbackWindowSize)
+
+    def fourier_transform(self, timestep: float, valueCol: str) -> "TSDF":
+        """Frequency-domain representation per series (parity:
+        tsdf.py:828-902): batched ``torch.fft`` on the frame's device."""
+        from tempo_tpu_torch import spectral
+
+        return spectral.fourier_transform(self, timestep, valueCol)
+
+    def autocorr(self, col: str, lag: int = 1) -> pd.DataFrame:
+        """Autocorrelation at a given lag per series (parity:
+        tsdf.py:192-316; returns a bare DataFrame like the reference)."""
+        from tempo_tpu_torch import spectral
+
+        return spectral.autocorr(self, col, lag)
+
+    def describe(self) -> pd.DataFrame:
+        """Global + per-column summary table (parity: tsdf.py:384-431)."""
+        from tempo_tpu_torch import describe as describe_mod
+
+        return describe_mod.describe(self)
+
+    # ------------------------------------------------------------------
+    # Sequence-number constructor (parity: scala TSDF.scala:584-616)
+    # ------------------------------------------------------------------
+
+    @classmethod
+    def fromOrderingColumns(
+        cls,
+        df: pd.DataFrame,
+        ts_col: str,
+        ordering_cols: Sequence[str],
+        partition_cols: Optional[List[str]] = None,
+        sequence_col_name: str = DEFAULT_SEQ_COLNAME,
+        device: devices.DeviceLike = None,
+        dtype: Union[str, torch.dtype, None] = None,
+    ) -> "TSDF":
+        """Synthesize a total-order sequence column from ordering columns
+        by a per-key row_number, like the Scala sequence-number ctor."""
+        pcols = partition_cols or []
+        sort_cols = pcols + list(ordering_cols)
+        order = df.sort_values(sort_cols, kind="stable").index
+        seq = np.empty(len(df), dtype=np.int64)
+        if pcols:
+            grouped = df.loc[order].groupby(pcols, sort=False).cumcount() + 1
+            seq[order] = grouped.to_numpy()
+        else:
+            seq[order] = np.arange(1, len(df) + 1)
+        out = df.copy()
+        out[sequence_col_name] = seq
+        return cls(out, ts_col, pcols, sequence_col_name, device=device,
+                   dtype=dtype)

@@ -1,12 +1,15 @@
 """Packed-array operations of the port: the CUDA kernel wrappers
-(``merge``, ``window``, ``scan``, ``bucket``), each beside its plain
-PyTorch version, and the dispatchers above them.  The public ops below
+(``merge``, ``window``, ``stats``, ``scan``, ``bucket``), each beside its
+plain PyTorch version, and the dispatchers above them.  The public ops below
 are those of ``tempo_tpu/ops/__init__.py`` that the port has so far."""
 
 from tempo_tpu_torch.ops.bucket import resample_ema
 from tempo_tpu_torch.ops.rolling import (
+    ema_compat,
+    ema_exact,
     range_window_bounds,
     segment_stats,
+    shifted_row_budget,
     windowed_stats,
 )
 from tempo_tpu_torch.ops.scan import (
@@ -27,6 +30,9 @@ __all__ = [
     "windowed_stats",
     "resample_ema",
     "segment_stats",
+    "shifted_row_budget",
+    "ema_compat",
+    "ema_exact",
     "last_valid_index",
     "first_valid_index",
     "windowed_max_last",

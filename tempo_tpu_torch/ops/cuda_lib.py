@@ -15,8 +15,8 @@ with round-to-nearest intrinsics, so their float results round like the
 plain versions'.
 
 ``launches`` counts, per kernel, the launches made by the wrappers in
-``ops/merge.py``, ``ops/window.py``, ``ops/scan.py`` and
-``ops/bucket.py``: each adds one
+``ops/merge.py``, ``ops/window.py``, ``ops/stats.py``, ``ops/scan.py``
+and ``ops/bucket.py``: each adds one
 right after its launch returned without error, and nowhere else.
 """
 
@@ -38,7 +38,8 @@ from tempo_tpu_torch import config
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("asof_merge.cu", "range_stats.cu", "ema_ladder.cu",
-           "index_scan.cu", "resample_ema.cu", "merge_rank.cu", "cumsum3.cu")
+           "index_scan.cu", "resample_ema.cu", "merge_rank.cu", "cumsum3.cu",
+           "legacy_stats.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-fmad=false", "-Xcompiler", "-fPIC",
@@ -49,7 +50,8 @@ launches: Dict[str, int] = {"asof_merge": 0, "range_stats": 0,
                             "ema_ladder": 0, "last_valid_index": 0,
                             "first_valid_index": 0, "last_valid_scan": 0,
                             "resample_ema": 0, "asof_merge_lookback": 0,
-                            "merge_rank": 0, "cumsum3": 0}
+                            "merge_rank": 0, "cumsum3": 0,
+                            "legacy_stats": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -65,6 +67,7 @@ _SIGNATURES = {
     "tempo_merge_rank": [_P] * 3 + [_I] * 5 + [_P],
     "tempo_cumsum3": [_P] * 6 + [_I, _I, _P],
     "tempo_range_stats": [_P] * 6 + [_I] * 7 + [_P],
+    "tempo_legacy_stats": [_P] * 5 + [_I] * 6 + [_P],
     "tempo_ema_ladder": [_P, _P, ctypes.c_float, _P, _P, _I, _I, _P],
     "tempo_ema_smem_limit": [],
     "tempo_last_valid_index": [_P, _P, _I, _I, _P],

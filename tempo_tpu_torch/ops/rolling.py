@@ -1,7 +1,8 @@
 """Range-stats engines and EMA forms on packed [K, L] series.
 
 Counterpart of ``tempo_tpu/ops/rolling.py``: ``pick_range_engine``,
-``windowed_stats``, ``segment_stats``, ``ema_exact`` and ``ema_compat``.
+``shifted_row_budget``, ``windowed_stats``, ``segment_stats``,
+``ema_exact`` and ``ema_compat``.
 
 The reference has three range engines; two of them, ``shifted`` and
 ``stream``, are the unrolled and runtime-width forms of one Pallas
@@ -15,10 +16,11 @@ both, so the port picks between two:
   of the rank kernel, ``range_window_bounds``), for spans past int32 or
   wider frames.
 
-``TEMPO_TPU_WINDOW_ENGINE=legacy`` names the reference's legacy
-shifted-window kernel (``pallas_stats._make_kernel``), which is not
-ported: where it would run, a CUDA tensor raises
-``KernelNotPortedError``; on the CPU the plain range stats run.
+``TEMPO_TPU_WINDOW_ENGINE=legacy`` adds a third, ``legacy``: the
+reference's legacy shifted-window kernel (``pallas_stats._make_kernel``,
+here ``ops/stats.legacy_stats``), for extents within
+``shifted_row_budget``, as the reference's ``shifted`` engine runs legacy
+arithmetic under that knob.
 """
 
 from __future__ import annotations
@@ -29,11 +31,16 @@ import torch
 import torch.nn.functional as F
 
 from tempo_tpu_torch import config
-from tempo_tpu_torch.ops import scan, window
-from tempo_tpu_torch.ops.sortmerge import not_ported
+from tempo_tpu_torch.ops import scan, stats
 from tempo_tpu_torch.ops.window_utils import merge_rank, shift_right
 
-LEGACY_ENGINE = "queue B item 8: legacy shifted-window stats, pallas_stats.py:52"
+# The reference's ceiling on the shifted form's row extent (compile-time
+# growth on small shards), and the window ceilings of its two unrolled
+# VMEM kernels (pallas_stats._PALLAS_STATS_MAX_W, pallas_window.
+# UNROLL_MAX_W), which floor ``shifted_row_budget`` when they can run.
+SHIFTED_MAX_ROWS = 512
+_PALLAS_STATS_MAX_W = 64
+_UNROLL_MAX_W = 64
 
 
 def stream_max_rows() -> int:
@@ -41,31 +48,49 @@ def stream_max_rows() -> int:
     return 16384 if n is None else int(n)
 
 
-def pick_range_engine(max_behind: int, max_ahead: int) -> str:
-    """'shifted' | 'windowed' | 'legacy' for a frame whose row extent is
-    (max_behind, max_ahead).  ``TEMPO_TPU_WINDOW_ENGINE=windowed`` forces
-    the windowed form; the reference's 'shifted' and 'stream' both name
-    the row-bounded kernel.  'legacy' picks as auto does, and names the
-    legacy kernel where auto picks the row-bounded one (as the
-    reference's ``range_stats_shifted`` does)."""
+def shifted_row_budget(n_elems: int, pallas_ok: bool = False) -> int:
+    """Largest row extent the reference's shifted form takes on a shard
+    of ``n_elems`` values (a copy of its ``shifted_row_budget``): its
+    XLA form materialises shifted operand copies, so the bound falls
+    with the shard's size (12 GB at 3 copies of 4 B a pass); a shard
+    its VMEM kernels can take (``pallas_ok``) is floored at their window
+    ceiling; never past ``SHIFTED_MAX_ROWS``."""
+    mem_rows = int(12e9 // max(n_elems * 4 * 3, 1))
+    if pallas_ok:
+        mem_rows = max(mem_rows, _PALLAS_STATS_MAX_W, _UNROLL_MAX_W)
+    return min(SHIFTED_MAX_ROWS, mem_rows)
+
+
+def pick_range_engine(n_elems: int, max_behind: int, max_ahead: int
+                      ) -> str:
+    """'shifted' | 'windowed' | 'legacy' for a frame of ``n_elems``
+    packed lanes whose row extent is (max_behind, max_ahead).
+    ``TEMPO_TPU_WINDOW_ENGINE=windowed`` forces the windowed form, and
+    'shifted' or 'stream' the row-bounded kernel.  Under 'legacy' the
+    pick is the reference's for a shard its kernels can take: its
+    ``shifted`` engine (legacy arithmetic under that knob, here the
+    legacy kernel, which takes every extent) up to
+    ``shifted_row_budget(n_elems, pallas_ok=True)`` rows, its ``stream``
+    engine (the row-bounded kernel) up to ``TEMPO_TPU_STREAM_MAX_ROWS``,
+    then windowed."""
     forced = (config.get("TEMPO_TPU_WINDOW_ENGINE") or "auto").lower()
     if forced == "windowed":
         return "windowed"
     if forced in ("shifted", "stream"):
         return "shifted"
-    if int(max_behind) + int(max_ahead) <= stream_max_rows():
-        return "legacy" if forced == "legacy" else "shifted"
+    extent = int(max_behind) + int(max_ahead)
+    if forced == "legacy" and extent <= shifted_row_budget(n_elems, True):
+        return "legacy"
+    if extent <= stream_max_rows():
+        return "shifted"
     return "windowed"
 
 
 def legacy_range_stats(secs, x, valid, window_secs, max_behind: int,
                        max_ahead: int = 0) -> Dict[str, torch.Tensor]:
-    """The legacy engine: its TPU kernel (``pallas_stats._make_kernel``)
-    has no CUDA port, so a CUDA tensor raises; on the CPU the plain range
-    stats compute the same function."""
-    if secs.is_cuda:
-        raise not_ported("TEMPO_TPU_WINDOW_ENGINE=legacy", LEGACY_ENGINE)
-    return window.range_stats(secs, x, valid, window_secs, max_behind,
+    """The legacy engine: ``ops/stats.legacy_stats``, the legacy kernel
+    on a CUDA tensor and its plain version on the CPU."""
+    return stats.legacy_stats(secs, x, valid, window_secs, max_behind,
                               max_ahead)
 
 

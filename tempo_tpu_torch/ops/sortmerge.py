@@ -10,7 +10,8 @@ for the ``chunked`` engine (whatever ``maxLookback``, as the reference's
 chunked engine runs its one kernel).  The reference's other dispatchers
 have nothing left to pick: its ``asof_merge_indices`` is
 ``merge.asof_merge_indices`` and its ``range_stats_shifted[_packed]`` is
-``window.range_stats``, which callers use directly.
+``window.range_stats`` (``stats.legacy_stats`` under
+``TEMPO_TPU_WINDOW_ENGINE=legacy``), which callers use directly.
 """
 
 from __future__ import annotations
@@ -21,18 +22,6 @@ import torch
 
 from tempo_tpu_torch import config
 from tempo_tpu_torch.ops import merge
-
-
-class KernelNotPortedError(NotImplementedError):
-    """An engine whose TPU kernel has no CUDA port yet was asked to run
-    on a CUDA tensor.  The message names the ROADMAP.md item."""
-
-
-def not_ported(what: str, roadmap_item: str) -> KernelNotPortedError:
-    return KernelNotPortedError(
-        f"{what} needs a CUDA kernel that is not ported yet "
-        f"(ROADMAP.md {roadmap_item}); run it with device='cpu' for the "
-        f"plain version")
 
 
 def use_sort_kernels() -> bool:

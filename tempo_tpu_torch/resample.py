@@ -49,7 +49,7 @@ from tempo_tpu_torch.frame import TSDF
 from tempo_tpu_torch.ops import bucket
 from tempo_tpu_torch.ops import rolling as rk
 from tempo_tpu_torch.ops import scan
-from tempo_tpu_torch.rolling import _bucket_ns, _segments
+from tempo_tpu_torch.rolling import segment_frame
 
 
 def _is_numeric_col(df: pd.DataFrame, c: str) -> bool:
@@ -74,16 +74,11 @@ def aggregate(tsdf, freq: str, func: str, metricCols=None, prefix=None,
         metricCols = [c for c in tsdf.df.columns if c not in grouping]
     prefix = "" if prefix is None else prefix + "_"
 
-    bucket_ns = _bucket_ns(layout.ts_ns, freq_sec)
-    seg_ids, first_row, seg_bucket = _segments(layout, bucket_ns)
+    seg_ids, first_row, out = segment_frame(tsdf, freq_sec)
     n_seg = len(first_row)
     last_row = (np.append(first_row[1:], layout.n_rows) - 1) if n_seg else first_row
 
     sorted_df = tsdf.df.iloc[layout.order].reset_index(drop=True)
-    out = {}
-    for c in tsdf.partitionCols:
-        out[c] = sorted_df[c].to_numpy()[first_row]
-    out[tsdf.ts_col] = packing.ns_to_original(seg_bucket, tsdf.ts_dtype())
 
     if func in (floor, ceiling):
         # whole-record min/max-by-timestamp (struct trick equivalent):
@@ -193,13 +188,7 @@ def resample_ema(tsdf, freq: str, colName: str, exp_factor: float = 0.2):
     res_flat = packing.unpack_column(planes[0], layout)
     ema_flat = packing.unpack_column(planes[1], layout)
 
-    seg_ids, first_row, seg_bucket = _segments(
-        layout, _bucket_ns(layout.ts_ns, freq_sec))
-    sorted_df = tsdf.df.iloc[layout.order].reset_index(drop=True)
-    out = {}
-    for c in tsdf.partitionCols:
-        out[c] = sorted_df[c].to_numpy()[first_row]
-    out[tsdf.ts_col] = packing.ns_to_original(seg_bucket, tsdf.ts_dtype())
+    _, first_row, out = segment_frame(tsdf, freq_sec)
     out[colName] = res_flat[first_row].astype(np.float64)
     out["EMA_" + colName] = ema_flat[first_row].astype(np.float64)
     return tsdf._with_df(pd.DataFrame(out))

@@ -1,9 +1,8 @@
 """Boundaries of the port: it imports neither JAX nor the JAX package,
 its entry points default to the CUDA card and refuse to drop to the CPU
-on their own, a CUDA operand reaches the CUDA kernel wrapper (never a
-plain version), and an engine whose TPU kernel has no CUDA port yet
-raises a named error on the card instead of running plain PyTorch
-there."""
+on their own, and a CUDA operand reaches the CUDA kernel wrapper (never
+a plain version), on every engine, the legacy range-stats engine
+included."""
 
 import ast
 import types
@@ -18,7 +17,7 @@ import tempo_tpu_torch
 from tempo_tpu_torch import TSDF, device, interop
 from tempo_tpu_torch.ops import asof as asof_ops
 from tempo_tpu_torch.ops import (bucket, cuda_lib, merge, rolling, scan,
-                                 sortmerge, window, window_utils)
+                                 sortmerge, stats, window, window_utils)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "tempo_tpu_torch").rglob("*.py")) + [
@@ -54,7 +53,8 @@ def test_kernel_sources_are_in_the_package_and_name_their_pallas_kernel():
                                       "ema_ladder", "last_valid_index",
                                       "first_valid_index", "last_valid_scan",
                                       "resample_ema", "asof_merge_lookback",
-                                      "merge_rank", "cumsum3"}
+                                      "merge_rank", "cumsum3",
+                                      "legacy_stats"}
 
 
 def _frame(**kw):
@@ -93,6 +93,7 @@ def test_cpu_tensors_run_the_plain_versions_without_launching():
     scan.ema(x, valid, 0.2)
     secs = torch.arange(16, dtype=torch.int32).expand(2, 16).contiguous()
     window.range_stats(secs, x, valid, 3, 4, 0)
+    stats.legacy_stats(secs, x, valid, 3, 4, 1)
     ts = torch.arange(16, dtype=torch.int64).expand(2, 16).contiguous()
     merge.asof_merge_values(ts, ts, valid[None], x[None])
     scan.last_valid_index_scan(valid)
@@ -228,27 +229,36 @@ def test_chunked_join_engine_raises_on_the_card(monkeypatch):
 
 
 def test_legacy_window_engine_raises_on_the_card(monkeypatch):
-    """``TEMPO_TPU_WINDOW_ENGINE=legacy`` names the reference's legacy
-    kernel (not ported): where it would run, a CUDA operand raises
-    naming ROADMAP B8 instead of running another kernel; on the CPU the
-    plain range stats run."""
+    """``TEMPO_TPU_WINDOW_ENGINE=legacy`` on a CUDA operand launches the
+    legacy stats kernel (it raised there before that kernel was ported),
+    within the reference's shifted row budget; past it the row-bounded
+    kernel runs, as the reference's stream engine does.  On the CPU the
+    frame runs the legacy kernel's plain version."""
     monkeypatch.setenv("TEMPO_TPU_WINDOW_ENGINE", "legacy")
-    assert rolling.pick_range_engine(4, 0) == "legacy"
-    assert rolling.pick_range_engine(rolling.stream_max_rows() + 1,
+    assert rolling.pick_range_engine(64, 4, 0) == "legacy"
+    assert rolling.pick_range_engine(64, rolling.SHIFTED_MAX_ROWS, 1) \
+        == "shifted"
+    assert rolling.pick_range_engine(64, rolling.stream_max_rows() + 1,
                                      0) == "windowed"
-    secs = torch.arange(8, dtype=torch.int32)[None]
-    x = torch.ones(1, 8, dtype=torch.float64)
-    valid = torch.ones(1, 8, dtype=torch.bool)
-    with pytest.raises(sortmerge.KernelNotPortedError, match="item 8"):
-        rolling.legacy_range_stats(_card(secs), _card(x), _card(valid), 3,
-                                   4, 0)
+    calls = _spy(monkeypatch, stats, "legacy_stats_cuda",
+                 stats.legacy_stats_plain)
+    secs = torch.tensor([[0, 1, 1, 3, 6, 7, 7, 9]], dtype=torch.int32)
+    x = torch.tensor([[0.5, -1.0, 2.0, 4.0, 0.0, 1.5, -2.0, 3.0]],
+                     dtype=torch.float64)
+    valid = torch.tensor([[True, True, False, True, True, True, True,
+                           False]])
+    got = rolling.legacy_range_stats(_card(secs), _card(x), _card(valid), 3,
+                                     4, 1)
+    assert len(calls) == 1 and calls[0][0][0].is_cuda
+    want = stats.legacy_stats_plain(secs, x[None], valid[None], 3, 4, 1)
+    for k, v in want.items():
+        torch.testing.assert_close(_plain(got[k]), v[0], equal_nan=True,
+                                   rtol=0, atol=0, msg=k)
+    plain = _spy(monkeypatch, stats, "legacy_stats_plain",
+                 stats.legacy_stats_plain)
     left, _ = _frames()
-    got = left.withRangeStats(colsToSummarize=["x"],
-                              rangeBackWindowSecs=3).df
-    monkeypatch.delenv("TEMPO_TPU_WINDOW_ENGINE")
-    want = left.withRangeStats(colsToSummarize=["x"],
-                               rangeBackWindowSecs=3).df
-    pd.testing.assert_frame_equal(got, want)
+    left.withRangeStats(colsToSummarize=["x"], rangeBackWindowSecs=3)
+    assert len(plain) == 1 and len(calls) == 1
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -259,6 +269,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         window.range_stats_cuda(torch.zeros(2, 8, dtype=torch.int32), x[None],
                                 valid[None], 3, 2, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        stats.legacy_stats_cuda(torch.zeros(2, 8, dtype=torch.int32),
+                                x[None], valid[None], 3, 2, 0)
     ts = torch.zeros(2, 8, dtype=torch.int64)
     with pytest.raises(ValueError, match="CUDA"):
         merge.asof_merge_cuda(ts, ts, valid[None], x[None])
