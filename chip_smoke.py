@@ -7,7 +7,7 @@
 
 Phases (each raises on failure, and the script then exits non-zero):
 
-A. Build the eight CUDA sources of ``tempo_tpu_torch/csrc`` (one nvcc
+A. Build the nine CUDA sources of ``tempo_tpu_torch/csrc`` (one nvcc
    per source, in parallel) and print the build seconds.
 B. Hold each kernel against its plain PyTorch version on the card, in
    float32, at the shapes the main paths give it: the merge join
@@ -36,6 +36,14 @@ B. Hold each kernel against its plain PyTorch version on the card, in
    the HHAR left frame's packed ``x`` with the row bounds of a 10 s and
    a 60 s window, on a two-column stack, and on tie-heavy keys with
    bounds (4, 1) that clip both ways (no library call computes it).
+   Then the fifth slice's bucket-stats kernel: ``count``, ``min`` and
+   ``max`` bitwise, the rest as range stats are held, on phase H's
+   inputs (the HHAR left frame's 1-minute bucket ids over x, the joined
+   right_wx and EMA_x, from the mesh chain on the card: [3, 1024,
+   12760]), on x alone, on x with 30% more nulls, on a [64, 4096] case
+   with pad lanes, an all-null and an all-pad row (shared-memory ladder)
+   and on phase F's long rows (global-scratch ladder); no library call
+   computes it.
 C. The main path at full scale, as a user calls it: pandas frames shaped
    like the reference quickstart's HHAR phone<->watch join (13,062,475
    rows a side, 1024 series) -> ``TSDF`` -> ``asofJoin`` ->
@@ -85,6 +93,20 @@ G. The fourth slice on the HHAR left frame (13,062,475 rows, 1024
    ``device="cpu"`` (float64): keys, timestamps, counts and the host
    steps equal, values within 1e-4, the FFT within 1e-5 * ||x||_2 a
    series (``fft_tolerance``).
+H. The fifth slice: the series-sharded ``DistributedTSDF`` on
+   ``make_mesh()`` (one shard on the card) at HHAR scale:
+   ``left.on_mesh().asofJoin(right.on_mesh())`` -> ``withRangeStats``
+   (10 s) -> exact ``EMA`` -> ``withGroupedStats`` of x, right_wx and
+   EMA_x by the minute -> ``collect()``, each step timed with the card
+   synchronised, beside phase C's chain seconds of the same run; the
+   counters zeroed before and read after: the merge, range-stats, EMA
+   and bucket-stats kernels must launch, with 2 packs and 1 fetch.  Then
+   ``resample("1 minute", "mean").interpolate(method="linear")`` of the
+   EMA frame still on the card and ``vwap("m")`` of phase G's trades
+   copy (1 pack, 2 fetches).  Then, on 64 users, the same three chains
+   on two shards of cuda:0 (bitwise equal to one shard) and on a CPU
+   mesh (float64): keys, timestamps and counts equal, values within
+   1e-4, stddev as the variance.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -184,6 +206,8 @@ def check_range_stats(got, want, what: str) -> float:
     Returns the largest absolute difference."""
     err = 0.0
     for k in ("count", "clipped"):
+        if k not in want:
+            continue
         if not torch.equal(got[k], want[k]):
             raise AssertionError(f"{what}: range-stats kernel {k} differs "
                                  f"from its plain version")
@@ -1249,6 +1273,258 @@ def phase_g(pd, TSDF, left, n, n_series):
     return legacy, seconds
 
 
+def mesh_chain(TSDF, left, right, mesh, steps=None, grouped=True, **kw):
+    """Phase H's chain on ``mesh``: both frames packed once, joined,
+    range stats, exact EMA, then (``grouped``) 1-minute grouped stats of
+    x, the joined wx and the EMA, collected once.  Returns the EMA frame
+    (still on the mesh) and the collected grouped stats; ``steps`` (a
+    dict) collects each step's wall seconds, the card synchronised at
+    every step's end."""
+    t0 = time.perf_counter()
+
+    def mark(name):
+        nonlocal t0
+        if steps is not None:
+            torch.cuda.synchronize()
+            steps[name] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+
+    dl = TSDF(left, "event_ts", ["user"], **kw).on_mesh(mesh)
+    dr = TSDF(right, "event_ts", ["user"], **kw).on_mesh(mesh)
+    mark("on_mesh x2")
+    joined = dl.asofJoin(dr)
+    mark("asofJoin")
+    stats = joined.withRangeStats(colsToSummarize=["x"],
+                                  rangeBackWindowSecs=10)
+    mark("withRangeStats")
+    ema = stats.EMA("x", exact=True)
+    mark("EMA")
+    if not grouped:
+        return ema, None
+    grouped = ema.withGroupedStats(metricCols=["x", "right_wx", "EMA_x"],
+                                   freq="1 minute")
+    mark("withGroupedStats")
+    out = grouped.collect().df
+    mark("collect")
+    return ema, out
+
+
+def mesh_tail(TSDF, ema, trades, mesh, **kw):
+    """Phase H's second and third chains: resample -> interpolate of the
+    EMA frame still on the mesh, and vwap of the trades frame."""
+    filled = ema.resample("1 minute", "mean").interpolate(
+        method="linear").collect().df
+    bars = TSDF(trades, "event_ts", ["symbol"], **kw).on_mesh(mesh).vwap(
+        "m").collect().df
+    return filled, bars
+
+
+def check_bucket_stats(got, want, what: str) -> float:
+    """Raise unless kernel bucket stats match the plain version: count,
+    min and max bitwise, the rest as range stats are held (within 1e-5,
+    stddev as the variance, zscore as ``x - mean``)."""
+    for k in ("min", "max"):
+        check_bitwise(got[k], want[k], f"bucket stats {k} ({what})")
+    return check_range_stats(got, want, f"bucket stats ({what})")
+
+
+def phase_b_bucket(pd, TSDF, left, right, left3, dev):
+    """The bucket-stats kernel against its plain version on the card;
+    returns its row of the result line (``launches`` filled in by phase
+    H)."""
+    from tempo_tpu_torch import dist, make_mesh
+    from tempo_tpu_torch.ops import bucket, cuda_lib
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    mesh = make_mesh()
+    # phase H's inputs: the HHAR left frame's 1-minute bucket ids over x,
+    # the joined right_wx and EMA_x
+    ema, _ = mesh_chain(TSDF, left, right, mesh, grouped=False)
+    ts, mask = ema.ts[0], ema.mask[0]
+    _, _, bid = dist._bucket_heads(ts, mask, 60 * NS)
+    xs, vs = ema._stack(["x", "right_wx", "EMA_x"])
+    xs, vs = xs[0], vs[0]
+    cases = [("HHAR [3, K, L]: x, right_wx, EMA_x", bid, xs, vs),
+             ("HHAR x alone", bid, xs[:1], vs[:1])]
+    sparse = vs[:1] & (torch.rand(vs[:1].shape, generator=gen, device=dev)
+                       > 0.3)
+    cases.append(("HHAR x, 30% more nulls", bid, xs[:1], sparse))
+    # pad lanes, an all-null row and an all-pad row, in shared memory
+    Ks, Ls = 64, 4096
+    sb = torch.sort(torch.randint(0, 200, (Ks, Ls), generator=gen,
+                                  device=dev), dim=-1).values.to(torch.int32)
+    sx = torch.randn((1, Ks, Ls), generator=gen, device=dev)
+    sv = torch.rand((1, Ks, Ls), generator=gen, device=dev) > 0.2
+    sb[0, 3000:] = 2**31 - 1
+    sv[0, 0, 3000:] = False
+    sx[0, 0, 3000:] = float("nan")
+    sv[0, 1] = False
+    sb[2] = 2**31 - 1
+    sv[0, 2] = False
+    sx[0, 2] = float("nan")
+    cases.append((f"[{Ks}, {Ls}] pads, all-null and all-pad rows "
+                  f"(shared memory)", sb, sx, sv))
+    # phase F's long rows: the global-scratch ladder
+    lt3 = TSDF(left3, "event_ts", ["user"], device=dev, dtype=torch.float32)
+    lts = torch.from_numpy(lt3.packed_ts()).to(dev)
+    lmask = torch.from_numpy(lt3.packed_mask()).to(dev)
+    lx, lv = lt3.packed_numeric("x")
+    _, _, lbid = dist._bucket_heads(lts, lmask, 60 * NS)
+    cases.append((f"long rows {list(lx.shape)}", lbid, lx[None], lv[None]))
+    err = 0.0
+    for what, b, x, v in cases:
+        got = bucket.bucket_stats_cuda(b, x, v)
+        want = bucket.bucket_stats_plain(b, x, v)
+        err = max(err, check_bucket_stats(got, want, what))
+
+    C, K, L = xs.shape
+    steps = 2 * math.ceil(math.log2(L))
+    nbytes = K * L * 4 + C * K * L * (4 + 1) + 7 * C * K * L * 4
+    nops = C * K * L * (steps * 13 + 25)
+    b_ms, by = bound_ms(nbytes, nops)
+    row = dict(
+        name="bucket_stats", route="cuda",
+        source="tempo_tpu_torch/csrc/bucket_stats.cu",
+        replaces="tempo_tpu/ops/pallas_bucket.py:173", max_abs_err=err,
+        ms=time_ms(lambda: bucket.bucket_stats_cuda(bid, xs, vs)),
+        plain_ms=time_ms(lambda: bucket.bucket_stats_plain(bid, xs, vs),
+                         reps=3),
+        bound_ms=b_ms, bound_by=by, library_ms=None,
+        ms_one_column=time_ms(lambda: bucket.bucket_stats_cuda(
+            bid, xs[:1], vs[:1])),
+        ms_shared_memory=time_ms(lambda: bucket.bucket_stats_cuda(sb, sx,
+                                                                  sv)),
+        ms_long_rows=time_ms(lambda: bucket.bucket_stats_cuda(
+            lbid, lx[None], lv[None]), reps=3),
+        shape=f"[{C}, {K}, {L}] (1-minute buckets); one column; "
+              f"[1, {Ks}, {Ls}]; long rows [1, {lx.shape[0]}, {lx.shape[1]}]")
+    log(f"B bucket_stats: count/min/max bitwise, rest within 1e-5 (max abs "
+        f"err {err:.3g}) on {'; '.join(c[0] for c in cases)}; kernel "
+        f"{row['ms']:.4f} ms (one column {row['ms_one_column']:.4f}, "
+        f"shared memory {row['ms_shared_memory']:.4f}, long rows "
+        f"{row['ms_long_rows']:.4f}), plain {row['plain_ms']:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({by})")
+    log(f"B launches while comparing (not counted): {dict(cuda_lib.launches)}")
+    del ema
+    return {"bucket_stats": row}
+
+
+def compare_card_cpu(card, cpu, what: str) -> float:
+    """Raise unless a frame from the card (float32) agrees with the CPU's
+    (float64): keys, timestamps and integer columns (counts) equal, values within
+    1e-4 (relative or absolute), stddev as the variance (near-constant
+    buckets: float32 cancellation in s2 - s1*s1/n, which the square root
+    blows up).  Returns the largest absolute difference."""
+    if list(card.columns) != list(cpu.columns) or len(card) != len(cpu):
+        raise AssertionError(f"{what}: frames differ in shape")
+    err = 0.0
+    for c in cpu.columns:
+        g, w = card[c], cpu[c]
+        if not np.issubdtype(w.dtype, np.floating):
+            if not np.array_equal(g.to_numpy(), w.to_numpy()):
+                raise AssertionError(f"{what}: {c} differs")
+            continue
+        g, w = g.to_numpy(np.float64), w.to_numpy(np.float64)
+        if c.startswith("stddev"):
+            g, w = g * g, w * w
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4,
+                                   equal_nan=True, err_msg=f"{what} {c}")
+        err = max(err, float(np.nanmax(np.abs(g - w), initial=0.0)))
+    return err
+
+
+def phase_h(pd, TSDF, left, right, n, n_series, c_seconds):
+    """The fifth slice: the distributed frame on one shard of the card at
+    HHAR scale, its launch counters and pack/fetch events read around
+    each chain; then 64 users on two shards of the card (bitwise equal
+    to one shard) and on the CPU (float64).  Returns the first chain's
+    launch counts."""
+    from tempo_tpu_torch import dist, make_mesh
+    from tempo_tpu_torch.ops import cuda_lib
+
+    mesh = make_mesh()
+    if mesh.shape != {"series": torch.cuda.device_count()}:
+        raise AssertionError(f"default mesh {mesh.shape}")
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        p0, f0 = dist._PACK_EVENTS, dist._FETCH_EVENTS
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, time.perf_counter() - t0, dict(cuda_lib.launches),
+                (dist._PACK_EVENTS - p0, dist._FETCH_EVENTS - f0))
+
+    steps = {}
+    (ema, grouped), seconds, launches, events = counted(
+        lambda: mesh_chain(TSDF, left, right, mesh, steps=steps))
+    missing = [k for k in ("asof_merge", "range_stats", "ema_ladder",
+                           "bucket_stats") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"mesh chain never launched {missing}")
+    if events != (2, 1):
+        raise AssertionError(f"mesh chain packed/fetched {events}, not (2, 1)")
+    if int(grouped["count_x"].sum()) != n:
+        raise AssertionError("grouped stats lost rows")
+    if not np.isfinite(grouped["mean_EMA_x"].to_numpy()).all():
+        raise AssertionError("mean_EMA_x has non-finite values")
+    log(f"H mesh chain on {mesh.shape} ({n} rows a side, {n_series} "
+        f"series): {seconds:.3f} s on_mesh->asofJoin->withRangeStats->EMA->"
+        f"withGroupedStats->collect, {len(grouped)} bucket rows "
+        f"({n / seconds:.0f} rows/s); phase C's host chain in this run "
+        f"{c_seconds:.3f} s; pack/fetch events {events}; launches {launches}")
+    log("H steps (wall s, card synchronised after each): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in steps.items()))
+
+    trades = trades_frame(pd, left)
+    (filled, bars), tail_s, tail_launches, tail_events = counted(
+        lambda: mesh_tail(TSDF, ema, trades, mesh))
+    if tail_events != (1, 2):
+        raise AssertionError(f"resample/vwap chains packed/fetched "
+                             f"{tail_events}, not (1, 2)")
+    if tail_launches["bucket_stats"] < 2 or tail_launches["asof_merge"] < 2:
+        raise AssertionError(f"resample/interpolate/vwap launches "
+                             f"{tail_launches}")
+    if int(bars["volume"].sum()) != int(trades["volume"].sum()) \
+            or not np.isfinite(bars["vwap"].to_numpy()).all():
+        raise AssertionError("mesh vwap lost volume or is not finite")
+    if filled["x"].isna().any():
+        raise AssertionError("linear interpolation left holes in x")
+    log(f"H resample('1 minute', 'mean').interpolate('linear') of the EMA "
+        f"frame ({len(filled)} grid rows) and vwap('m') of the trades copy "
+        f"({len(bars)} bars): {tail_s:.3f} s; pack/fetch events "
+        f"{tail_events}; launches {tail_launches}")
+    del ema
+    torch.cuda.empty_cache()
+
+    # 64 users: one shard, two shards of the same card, and the CPU
+    users = np.arange(min(64, n_series))
+    sl = left[left["user"].isin(users)]
+    sr = right[right["user"].isin(users)]
+    st = trades[trades["symbol"].isin(users)]
+    runs = {}
+    for name, m, kw in (
+            ("one shard", make_mesh({"series": 1}, devices=["cuda:0"]), {}),
+            ("two shards", make_mesh({"series": 2},
+                                     devices=["cuda:0", "cuda:0"]), {}),
+            ("cpu", make_mesh({"series": 1}, devices=["cpu"]),
+             {"device": "cpu"})):
+        e, g = mesh_chain(TSDF, sl, sr, m, **kw)
+        runs[name] = (g,) + mesh_tail(TSDF, e, st, m, **kw)
+    for one, two in zip(runs["one shard"], runs["two shards"]):
+        pd.testing.assert_frame_equal(one, two, check_exact=True)
+    err = max(compare_card_cpu(g, w, f"64-user {what}") for g, w, what in zip(
+        runs["one shard"], runs["cpu"],
+        ("grouped stats", "resample/interpolate", "vwap")))
+    log(f"H 64 users ({len(sl)} rows a side): two shards on cuda:0 bitwise "
+        f"equal to one shard (grouped stats, resample/interpolate, vwap); "
+        f"card float32 agrees with the CPU float64 (keys, timestamps, "
+        f"counts equal, values within 1e-4, stddev as the variance; max "
+        f"abs err {err:.3g})")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=13_062_475)
@@ -1310,18 +1586,22 @@ def main(argv=None) -> int:
     rows2 = phase_b_slice2(right, dev)
     rows3 = phase_b_slice3(pd, left3, right3, dev, d_args)
     rows4 = phase_b_slice4(left, dev, d_args)
+    rows5 = phase_b_bucket(pd, TSDF, left, right, left3, dev)
     torch.cuda.empty_cache()
-    launches, _ = phase_c(pd, TSDF, left, right, n, args.series)
+    launches, c_seconds = phase_c(pd, TSDF, left, right, n, args.series)
     phase_d(d_args)
     launches2 = phase_e(TSDF, right, n, args.series)
     launches3 = phase_f(pd, TSDF, left3, right3, n3, args.long_series)
     del left3, right3
     torch.cuda.empty_cache()
     launches4, _ = phase_g(pd, TSDF, left, n, args.series)
+    torch.cuda.empty_cache()
+    launches5 = phase_h(pd, TSDF, left, right, n, args.series, c_seconds)
 
     kernels = []
     for found, table in ((launches, rows), (launches2, rows2),
-                         (launches3, rows3), (launches4, rows4)):
+                         (launches3, rows3), (launches4, rows4),
+                         (launches5, rows5)):
         for name, row in table.items():
             row = dict(row)
             row["launches"] = found[name]

@@ -6,9 +6,9 @@ DataFrame-mirror ops (``select``, ``selectExpr``, ``filter``, ...; SQL
 strings through the host evaluator ``sql.py``), ``asofJoin``,
 ``withRangeStats``, ``withGroupedStats``, ``EMA``, ``vwap``, the lookback
 features, ``fourier_transform``, ``autocorr``, ``describe``, the
-resample family and ``fromOrderingColumns``.  Not here: the I/O
-(``write``, arrow and Spark interop), ``explain``, ``on_mesh`` and plan
-recording.  The frame wraps host pandas data plus a cache of packed
+resample family, ``fromOrderingColumns`` and ``on_mesh`` (the
+series-sharded ``DistributedTSDF``, ``dist.py``).  Not here: the I/O
+(``write``, arrow and Spark interop), ``explain`` and plan recording.  The frame wraps host pandas data plus a cache of packed
 [K series, L lanes] tensors on its device; every op is eager (the
 reference's lazy planner is not part of this port), and every derived
 frame keeps the device and dtype.  ``device=None`` means the CUDA card;
@@ -399,6 +399,23 @@ class TSDF:
 
     def to_pandas(self) -> pd.DataFrame:
         return self.df
+
+    def on_mesh(self, mesh=None, time_axis=None, series_axis: str = "series",
+                halo_fraction: float = 0.5):
+        """Distribute this frame over a device mesh
+        (``parallel.make_mesh``): packs the columns once, cuts them over
+        the mesh's series axis and returns a
+        :class:`~tempo_tpu_torch.dist.DistributedTSDF` whose ops run on
+        each shard's device and chain there until ``collect()``.  With no
+        mesh, one shard on this frame's device: the device-residency path
+        for chained ops.  A ``time_axis`` of size above 1 is not ported
+        (``NotImplementedError``); ``halo_fraction`` (the time axis's halo
+        size) is accepted for the reference's calls and has no effect."""
+        from tempo_tpu_torch.dist import DistributedTSDF
+
+        return DistributedTSDF.from_tsdf(
+            self, mesh, series_axis=series_axis, time_axis=time_axis,
+            halo_fraction=halo_fraction)
 
     # ------------------------------------------------------------------
     # Operations

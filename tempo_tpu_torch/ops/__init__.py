@@ -3,7 +3,7 @@
 plain PyTorch version, and the dispatchers above them.  The public ops below
 are those of ``tempo_tpu/ops/__init__.py`` that the port has so far."""
 
-from tempo_tpu_torch.ops.bucket import resample_ema
+from tempo_tpu_torch.ops.bucket import bucket_stats, resample_ema
 from tempo_tpu_torch.ops.rolling import (
     ema_compat,
     ema_exact,
@@ -29,6 +29,7 @@ __all__ = [
     "range_window_bounds",
     "windowed_stats",
     "resample_ema",
+    "bucket_stats",
     "segment_stats",
     "shifted_row_budget",
     "ema_compat",

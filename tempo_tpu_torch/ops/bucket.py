@@ -1,12 +1,21 @@
 """Tumbling-bucket kernels over packed [K, L] series.
 
-Counterpart of ``tempo_tpu/ops/pallas_bucket.py``, so far its fused
-floor-resample + exact EMA (``resample_ema_pallas``, Pallas kernel
-``_resample_ema_kernel``; bench config 3): ``res`` is ``x * scale`` at
-each bucket's first row when that row is valid (NaN elsewhere), ``ema``
-the exact EMA over those head samples.  A CUDA tensor goes to the kernel
-(``csrc/resample_ema.cu``), a CPU tensor to the plain version, which
-repeats the kernel's op sequence and ladder and is dtype-generic.
+Counterpart of ``tempo_tpu/ops/pallas_bucket.py``:
+
+* ``resample_ema`` (``resample_ema_pallas``, Pallas kernel
+  ``_resample_ema_kernel``; bench config 3), the fused floor-resample +
+  exact EMA: ``res`` is ``x * scale`` at each bucket's first row when that
+  row is valid (NaN elsewhere), ``ema`` the exact EMA over those head
+  samples (``csrc/resample_ema.cu``);
+* ``bucket_stats`` (``bucket_stats_pallas`` / ``bucket_stats_packed``,
+  Pallas kernel ``_make_bucket_kernel`` over ``_bucket_math``): mean,
+  count, min, max, sum, stddev and zscore of each row's tumbling bucket
+  (runs of equal int32 bucket id), broadcast to every row of the bucket,
+  for a [C, K, L] stack of columns sharing one [K, L] id plane
+  (``csrc/bucket_stats.cu``).
+
+A CUDA tensor goes to the kernel, a CPU tensor to the plain version,
+which repeats the kernel's op sequence and ladders and is dtype-generic.
 """
 
 from __future__ import annotations
@@ -71,12 +80,11 @@ def resample_ema_cuda(secs: torch.Tensor, x: torch.Tensor,
     if K == 0 or L == 0:
         return res, ema
     scratch = cuda_lib.ladder_scratch(K, L, 4, x.device)
-    code = cuda_lib.lib().tempo_resample_ema(
-        secs.data_ptr(), x.data_ptr(), valid.data_ptr(), step, float(alpha),
-        1.0 if scale is None else float(scale), res.data_ptr(),
-        ema.data_ptr(), cuda_lib.ptr(scratch), K, L,
-        cuda_lib.stream_handle(x.device))
-    cuda_lib.check(code, "resample_ema")
+    cuda_lib.launch("resample_ema", x.device, "tempo_resample_ema",
+                    secs.data_ptr(), x.data_ptr(), valid.data_ptr(), step,
+                    float(alpha), 1.0 if scale is None else float(scale),
+                    res.data_ptr(), ema.data_ptr(), cuda_lib.ptr(scratch),
+                    K, L)
     return res, ema
 
 
@@ -88,3 +96,127 @@ def resample_ema(secs: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
     if x.is_cuda:
         return resample_ema_cuda(secs, x, valid, step, alpha, scale)
     return resample_ema_plain(secs, x, valid, step, alpha, scale)
+
+
+BUCKET_STATS = ("mean", "count", "min", "max", "sum", "stddev", "zscore")
+# the ladder's float planes (two sets of count, s1, s2, min, max, flag)
+# and the static shared memory of the kernel's block reduction
+_BUCKET_PLANES = 12
+_BUCKET_STATIC_SMEM = 256
+
+
+def _bucket_flags(bid: torch.Tensor, dtype):
+    """(head, tail) flags of each run of equal ids along the lanes, as
+    0/1 planes of ``dtype``."""
+    edge = torch.ones_like(bid[:, :1], dtype=torch.bool)
+    change = bid[:, 1:] != bid[:, :-1]
+    return (torch.cat([edge, change], -1).to(dtype),
+            torch.cat([change, edge], -1).to(dtype))
+
+
+def _shift_back(a: torch.Tensor, span: int, fill: float) -> torch.Tensor:
+    """``a[..., i - span]``, ``fill`` where that runs off the row."""
+    return scan._shift(a, span, fill)
+
+
+def _shift_fwd(a: torch.Tensor, span: int, fill: float) -> torch.Tensor:
+    """``a[..., i + span]``, ``fill`` where that runs off the row."""
+    pad = torch.full(a.shape[:-1] + (span,), fill, dtype=a.dtype,
+                     device=a.device)
+    return torch.cat([a[..., span:], pad], dim=-1)
+
+
+def bucket_stats_plain(bid: torch.Tensor, xs: torch.Tensor,
+                       valids: torch.Tensor):
+    """``_bucket_math`` op for op as tensor code over [C, K, L] stacks
+    sharing one [K, L] id plane, in ``xs``'s dtype: the row centre, the
+    forward segmented Hillis-Steele scan of the five planes (identity and
+    flag 1 shifted in), the reverse tail broadcast (0 shifted in), then
+    the outputs."""
+    dt, dev = xs.dtype, xs.device
+    zero = torch.zeros((), dtype=dt, device=dev)
+    one = torch.ones((), dtype=dt, device=dev)
+    nan = torch.full((), float("nan"), dtype=dt, device=dev)
+    pinf = torch.full((), float("inf"), dtype=dt, device=dev)
+    L = xs.shape[-1]
+    f, g = _bucket_flags(bid, dt)
+    validf = valids.to(dt)
+    xz = torch.where(valids, xs, zero)
+    nv = validf.sum(-1, keepdim=True)
+    center = xz.sum(-1, keepdim=True) / torch.maximum(nv, one)
+    xc = torch.where(valids, xs - center, zero)
+    planes = [validf, xc, xc * xc, torch.where(valids, xs, pinf),
+              torch.where(valids, xs, -pinf)]
+    ops = [(torch.add, 0.0)] * 3 + [(torch.minimum, float("inf")),
+                                    (torch.maximum, float("-inf"))]
+    span = 1
+    while span < L:
+        planes = [torch.where(f > 0, p, combine(p, _shift_back(p, span, ident)))
+                  for p, (combine, ident) in zip(planes, ops)]
+        f = torch.maximum(f, _shift_back(f, span, 1.0))
+        span *= 2
+    span = 1
+    while span < L:
+        planes = [torch.where(g > 0, p, _shift_fwd(p, span, 0.0))
+                  for p in planes]
+        g = torch.maximum(g, _shift_fwd(g, span, 0.0))
+        span *= 2
+    cnt, s1, s2, mn, mx = planes
+    cnt1 = torch.maximum(cnt, one)
+    mean = torch.where(cnt > 0, s1 / cnt1 + center, nan)
+    total = s1 + cnt * center
+    var = torch.where(cnt > 1, (s2 - s1 * s1 / cnt1)
+                      / torch.maximum(cnt - one, one), nan)
+    std = torch.where(cnt > 1, torch.sqrt(torch.maximum(var, zero)), nan)
+    return {
+        "mean": mean,
+        "count": cnt,
+        "min": torch.where(cnt > 0, mn, nan),
+        "max": torch.where(cnt > 0, mx, nan),
+        "sum": torch.where(cnt > 0, total, nan),
+        "stddev": std,
+        "zscore": torch.where(valids, (xs - mean) / std, nan),
+    }
+
+
+def bucket_stats_cuda(bid: torch.Tensor, xs: torch.Tensor,
+                      valids: torch.Tensor):
+    """Launch the bucket-stats kernel on an int32 [K, L] id plane and
+    float32 / bool [C, K, L] stacks, all on one CUDA device."""
+    if bid.dtype != torch.int32 or bid.dim() != 2:
+        raise TypeError("bucket-stats kernel takes int32 [K, L] bucket ids")
+    if xs.dtype != torch.float32 or xs.dim() != 3:
+        raise TypeError("bucket-stats kernel takes float32 [C, K, L] values")
+    if valids.dtype != torch.bool or valids.shape != xs.shape \
+            or tuple(xs.shape[1:]) != tuple(bid.shape):
+        raise TypeError("valid must be bool [C, K, L] over [K, L] ids")
+    if not (bid.is_cuda and xs.device == bid.device
+            and valids.device == bid.device):
+        raise ValueError("ids, values and valid must lie on one CUDA device")
+    C, K, L = xs.shape
+    bid, xs, valids = bid.contiguous(), xs.contiguous(), valids.contiguous()
+    out = torch.empty((len(BUCKET_STATS), C, K, L), dtype=torch.float32,
+                      device=xs.device)
+    if C and K and L:
+        scratch = cuda_lib.ladder_scratch(K, L, _BUCKET_PLANES, xs.device,
+                                          _BUCKET_STATIC_SMEM)
+        cuda_lib.launch("bucket_stats", xs.device, "tempo_bucket_stats",
+                        bid.data_ptr(), xs.data_ptr(), valids.data_ptr(),
+                        out.data_ptr(), cuda_lib.ptr(scratch), C, K, L)
+    return {name: out[i] for i, name in enumerate(BUCKET_STATS)}
+
+
+def bucket_stats(bid: torch.Tensor, xs: torch.Tensor, valids: torch.Tensor):
+    """Tumbling-bucket aggregates of [C, K, L] (or [K, L]) values over one
+    [K, L] int32 bucket-id plane, non-decreasing along each row (pad
+    lanes carry an id of their own; callers mask their outputs): the
+    kernel for CUDA tensors, the plain version for CPU tensors.  Returns
+    the seven ``BUCKET_STATS`` planes shaped like ``xs``."""
+    single = xs.dim() == 2
+    if single:
+        xs, valids = xs[None], valids[None]
+    fn = bucket_stats_cuda if xs.is_cuda else bucket_stats_plain
+    stats = fn(bid, xs, valids)
+    if single:
+        stats = {k: v[0] for k, v in stats.items()}
+    return stats

@@ -18,6 +18,10 @@ plain versions'.
 ``ops/merge.py``, ``ops/window.py``, ``ops/stats.py``, ``ops/scan.py``
 and ``ops/bucket.py``: each adds one
 right after its launch returned without error, and nowhere else.
+Every wrapper launches through :func:`launch`, which makes the
+operands' device the current CUDA device first: a launch onto a stream
+of another device than the current one fails, and a shard of a
+``DistributedTSDF`` may lie on any card.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from tempo_tpu_torch import config
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("asof_merge.cu", "range_stats.cu", "ema_ladder.cu",
            "index_scan.cu", "resample_ema.cu", "merge_rank.cu", "cumsum3.cu",
-           "legacy_stats.cu")
+           "legacy_stats.cu", "bucket_stats.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-fmad=false", "-Xcompiler", "-fPIC",
@@ -51,7 +55,7 @@ launches: Dict[str, int] = {"asof_merge": 0, "range_stats": 0,
                             "first_valid_index": 0, "last_valid_scan": 0,
                             "resample_ema": 0, "asof_merge_lookback": 0,
                             "merge_rank": 0, "cumsum3": 0,
-                            "legacy_stats": 0}
+                            "legacy_stats": 0, "bucket_stats": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -68,6 +72,7 @@ _SIGNATURES = {
     "tempo_cumsum3": [_P] * 6 + [_I, _I, _P],
     "tempo_range_stats": [_P] * 6 + [_I] * 7 + [_P],
     "tempo_legacy_stats": [_P] * 5 + [_I] * 6 + [_P],
+    "tempo_bucket_stats": [_P] * 5 + [_I] * 3 + [_P],
     "tempo_ema_ladder": [_P, _P, ctypes.c_float, _P, _P, _I, _I, _P],
     "tempo_ema_smem_limit": [],
     "tempo_last_valid_index": [_P, _P, _I, _I, _P],
@@ -171,15 +176,27 @@ def stream_handle(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def launch(kernel: str, device, entry: str, *args) -> None:
+    """Call the C entry point ``entry`` with ``args`` and the current
+    stream of ``device``, with ``device`` made the current CUDA device
+    for the call, then :func:`check` the returned code (which counts the
+    launch of ``kernel``)."""
+    with torch.cuda.device(device):
+        code = getattr(lib(), entry)(*args, stream_handle(device))
+    check(code, kernel)
+
+
 def ptr(t) -> int:
     """Device pointer of a tensor, or None (NULL) for None."""
     return None if t is None else t.data_ptr()
 
 
-def ladder_scratch(K: int, L: int, n_planes: int, device):
+def ladder_scratch(K: int, L: int, n_planes: int, device,
+                   static_bytes: int = 0):
     """Global scratch of a Hillis-Steele ladder kernel (``common.cuh``):
-    None while its ``n_planes`` float planes of ``L`` lanes fit one
-    block's shared memory, else [K, n_planes, L] float32."""
-    if 4 * n_planes * L <= lib().tempo_ema_smem_limit():
+    None while its ``n_planes`` float planes of ``L`` lanes, beside the
+    kernel's ``static_bytes`` of static shared memory, fit one block's
+    shared memory, else [K, n_planes, L] float32."""
+    if 4 * n_planes * L + static_bytes <= lib().tempo_ema_smem_limit():
         return None
     return torch.empty((K, n_planes, L), dtype=torch.float32, device=device)

@@ -240,24 +240,22 @@ def _join_cuda(l_ts, r_ts, r_valids, r_values, l_sid, r_sid, l_key, r_key,
             if skip_nulls and C else None)
     if K and Ll:
         p = cuda_lib.ptr
-        lib = cuda_lib.lib()
         head = (p(l_ts), p(r_ts), p(l_sid), p(r_sid), p(l_key), p(r_key),
                 p(r_valids), p(r_values), p(scan))
         tail = (p(last), p(col_idx), p(vals), K, Ll, Lr, C,
                 int(bool(skip_nulls)))
-        stream = cuda_lib.stream_handle(dev)
         if max_lookback is None:
-            code = lib.tempo_asof_merge(*head, *tail, stream)
-            cuda_lib.check(code, "asof_merge")
+            cuda_lib.launch("asof_merge", dev, "tempo_asof_merge", *head,
+                            *tail)
         else:
             # positions stay below Ll + Lr < 2^31: a wider horizon caps
             # nothing, as the plain version's windows clamp to the row
             ml = min(max_lookback, 2**31 - 1)
             rpos = (torch.empty(K, Lr, dtype=torch.int32, device=dev)
                     if ml else None)
-            code = lib.tempo_asof_merge_lookback(*head, p(rpos), *tail, ml,
-                                                 stream)
-            cuda_lib.check(code, "asof_merge_lookback")
+            cuda_lib.launch("asof_merge_lookback", dev,
+                            "tempo_asof_merge_lookback", *head, p(rpos),
+                            *tail, ml)
     return last, col_idx, vals
 
 
@@ -432,9 +430,8 @@ def merge_rank_cuda(sorted_keys: torch.Tensor, sorted_queries: torch.Tensor,
     Lq = queries.shape[-1]
     out = torch.empty(K, Lq, dtype=torch.int64, device=dev)
     if K and Lq:
-        code = cuda_lib.lib().tempo_merge_rank(
-            keys.data_ptr(), queries.data_ptr(), out.data_ptr(), K, Lk, Lq,
-            int(side == "right"), int(dt == torch.int64),
-            cuda_lib.stream_handle(dev))
-        cuda_lib.check(code, "merge_rank")
+        cuda_lib.launch("merge_rank", dev, "tempo_merge_rank",
+                        keys.data_ptr(), queries.data_ptr(), out.data_ptr(),
+                        K, Lk, Lq, int(side == "right"),
+                        int(dt == torch.int64))
     return out

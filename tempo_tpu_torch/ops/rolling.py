@@ -1,8 +1,9 @@
 """Range-stats engines and EMA forms on packed [K, L] series.
 
 Counterpart of ``tempo_tpu/ops/rolling.py``: ``pick_range_engine``,
-``shifted_row_budget``, ``windowed_stats``, ``segment_stats``,
-``ema_exact`` and ``ema_compat``.
+``shifted_row_budget``, ``windowed_stats``, ``bucket_stats``,
+``bucket_stats_multi``, ``segment_stats``, ``ema_exact`` and
+``ema_compat``.
 
 The reference has three range engines; two of them, ``shifted`` and
 ``stream``, are the unrolled and runtime-width forms of one Pallas
@@ -31,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from tempo_tpu_torch import config
-from tempo_tpu_torch.ops import scan, stats
+from tempo_tpu_torch.ops import bucket, scan, stats
 from tempo_tpu_torch.ops.window_utils import merge_rank, shift_right
 
 # The reference's ceiling on the shifted form's row extent (compile-time
@@ -177,6 +178,24 @@ def windowed_stats(x, valid, start, end, max_window: int = 0
         "stddev": std,
         "zscore": torch.where(valid, (x - mean) / std, nan),
     }
+
+
+def bucket_stats(bid, x, valid) -> Dict[str, torch.Tensor]:
+    """Tumbling-bucket aggregates broadcast to every row of the bucket
+    (the resample / grouped-stats reduction), for one [K, L] column over
+    its int32 bucket-id plane: ``ops/bucket.bucket_stats`` on every
+    device, the kernel on a CUDA tensor and its plain version on the
+    CPU.  (The reference takes its Pallas kernel only on the TPU and
+    ``windowed_stats`` over searchsorted bucket bounds elsewhere; the
+    port keeps one arithmetic on both devices.)"""
+    return bucket.bucket_stats(bid, x, valid)
+
+
+def bucket_stats_multi(bid, xs, valids) -> Dict[str, torch.Tensor]:
+    """:func:`bucket_stats` of a [C, K, L] column stack sharing one id
+    plane, in one kernel launch; each column's planes equal a
+    single-column call's."""
+    return bucket.bucket_stats(bid, xs, valids)
 
 
 def segment_stats(x: torch.Tensor, valid: torch.Tensor,

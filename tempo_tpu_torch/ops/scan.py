@@ -69,10 +69,9 @@ def ema_cuda(x: torch.Tensor, valid: torch.Tensor, alpha: float
     if K == 0 or L == 0:
         return out
     scratch = cuda_lib.ladder_scratch(K, L, 4, x.device)
-    code = cuda_lib.lib().tempo_ema_ladder(
-        x.data_ptr(), valid.data_ptr(), float(alpha), out.data_ptr(),
-        cuda_lib.ptr(scratch), K, L, cuda_lib.stream_handle(x.device))
-    cuda_lib.check(code, "ema_ladder")
+    cuda_lib.launch("ema_ladder", x.device, "tempo_ema_ladder",
+                    x.data_ptr(), valid.data_ptr(), float(alpha),
+                    out.data_ptr(), cuda_lib.ptr(scratch), K, L)
     return out
 
 
@@ -128,10 +127,8 @@ def _index_scan_cuda(valid: torch.Tensor, entry: str) -> torch.Tensor:
     out = torch.empty((K, L), dtype=torch.int32, device=valid.device)
     if K == 0 or L == 0:
         return out
-    code = getattr(cuda_lib.lib(), f"tempo_{entry}")(
-        valid.data_ptr(), out.data_ptr(), K, L,
-        cuda_lib.stream_handle(valid.device))
-    cuda_lib.check(code, entry)
+    cuda_lib.launch(entry, valid.device, f"tempo_{entry}", valid.data_ptr(),
+                    out.data_ptr(), K, L)
     return out
 
 
@@ -160,10 +157,9 @@ def last_valid_scan_cuda(x: torch.Tensor, valid: torch.Tensor):
     has = torch.empty_like(valid)
     if K == 0 or L == 0:
         return val, has
-    code = cuda_lib.lib().tempo_last_valid_scan(
-        x.data_ptr(), valid.data_ptr(), val.data_ptr(), has.data_ptr(), K, L,
-        cuda_lib.stream_handle(x.device))
-    cuda_lib.check(code, "last_valid_scan")
+    cuda_lib.launch("last_valid_scan", x.device, "tempo_last_valid_scan",
+                    x.data_ptr(), valid.data_ptr(), val.data_ptr(),
+                    has.data_ptr(), K, L)
     return val, has
 
 
@@ -222,10 +218,9 @@ def cumsum3_cuda(x: torch.Tensor, valid: torch.Tensor):
     if K == 0 or L == 0:
         return out
     scratch = cuda_lib.ladder_scratch(K, L, 6, x.device)
-    code = cuda_lib.lib().tempo_cumsum3(
-        x.data_ptr(), valid.data_ptr(), *(o.data_ptr() for o in out),
-        cuda_lib.ptr(scratch), K, L, cuda_lib.stream_handle(x.device))
-    cuda_lib.check(code, "cumsum3")
+    cuda_lib.launch("cumsum3", x.device, "tempo_cumsum3", x.data_ptr(),
+                    valid.data_ptr(), *(o.data_ptr() for o in out),
+                    cuda_lib.ptr(scratch), K, L)
     return out
 
 

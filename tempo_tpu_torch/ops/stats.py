@@ -119,12 +119,11 @@ def legacy_stats_cuda(secs, xs, valids, window, max_behind, max_ahead
     clipped = torch.empty((C, K, 1), dtype=torch.float32, device=xs.device)
     if C and K and L:
         # bounds past the row act as the row length (all-fill shifts)
-        code = cuda_lib.lib().tempo_legacy_stats(
+        cuda_lib.launch(
+            "legacy_stats", xs.device, "tempo_legacy_stats",
             secs.data_ptr(), xs.data_ptr(), valids.data_ptr(),
             out.data_ptr(), clipped.data_ptr(), _clamp_window(window),
-            min(int(max_behind), L), min(int(max_ahead), L), C, K, L,
-            cuda_lib.stream_handle(xs.device))
-        cuda_lib.check(code, "legacy_stats")
+            min(int(max_behind), L), min(int(max_ahead), L), C, K, L)
     else:
         clipped.zero_()
     stats = {name: out[i] for i, name in enumerate(STATS)}

@@ -158,13 +158,12 @@ def range_stats_cuda(secs, xs, valids, window, max_behind, max_ahead,
                       device=xs.device)
     clipped = torch.empty((C, K, 1), dtype=torch.float32, device=xs.device)
     if C and K and L:
-        code = cuda_lib.lib().tempo_range_stats(
+        cuda_lib.launch(
+            "range_stats", xs.device, "tempo_range_stats",
             secs.data_ptr(), xs.data_ptr(), valids.data_ptr(),
             scale.data_ptr(), out.data_ptr(), clipped.data_ptr(),
             _clamp_window(window), _clamp_window(window_ahead),
-            int(max_behind), int(max_ahead), C, K, L,
-            cuda_lib.stream_handle(xs.device))
-        cuda_lib.check(code, "range_stats")
+            int(max_behind), int(max_ahead), C, K, L)
     else:
         clipped.zero_()
     stats = {name: out[i] for i, name in enumerate(STATS)}

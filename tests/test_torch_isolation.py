@@ -54,7 +54,42 @@ def test_kernel_sources_are_in_the_package_and_name_their_pallas_kernel():
                                       "first_valid_index", "last_valid_scan",
                                       "resample_ema", "asof_merge_lookback",
                                       "merge_rank", "cumsum3",
-                                      "legacy_stats"}
+                                      "legacy_stats", "bucket_stats"}
+
+
+WRAPPER_MODULES = ("merge", "window", "stats", "scan", "bucket")
+
+
+def _calls(fn: ast.FunctionDef):
+    """Dotted names of the calls in a function body (``a.b`` / ``f``)."""
+    for node in ast.walk(fn):
+        if isinstance(node, ast.Call):
+            f = node.func
+            if isinstance(f, ast.Attribute) and isinstance(f.value, ast.Name):
+                yield f"{f.value.id}.{f.attr}"
+            elif isinstance(f, ast.Name):
+                yield f.id
+
+
+@pytest.mark.parametrize("module", WRAPPER_MODULES)
+def test_every_cuda_wrapper_launches_under_the_device_guard(module):
+    """Each ``*_cuda`` wrapper of the kernel modules launches through
+    ``cuda_lib.launch`` (directly or through a helper that does), which
+    makes the operands' device the current CUDA device: a launch onto a
+    stream of another device than the current one fails.  Nothing else
+    calls into the library or fetches a stream."""
+    path = ROOT / "tempo_tpu_torch" / "ops" / f"{module}.py"
+    tree = ast.parse(path.read_text())
+    fns = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    launching = {name for name, fn in fns.items()
+                 if "cuda_lib.launch" in set(_calls(fn))}
+    wrappers = [name for name in fns if name.endswith("_cuda")]
+    assert wrappers, module
+    for name in wrappers:
+        calls = set(_calls(fns[name]))
+        assert name in launching or calls & launching, name
+    text = path.read_text()
+    assert "stream_handle" not in text and "lib()." not in text, module
 
 
 def _frame(**kw):
@@ -104,6 +139,7 @@ def test_cpu_tensors_run_the_plain_versions_without_launching():
     window_utils.merge_rank(ts, ts)
     window_utils.searchsorted_batched(secs, secs, side="right")
     scan.cumsum3(x, valid)
+    rolling.bucket_stats_multi(secs // 4, x[None], valid[None])
     start, end = rolling.range_window_bounds(secs, 3)
     rolling.windowed_stats(x, valid, start, end, max_window=4)
     assert all(n == 0 for n in cuda_lib.launches.values())
@@ -290,6 +326,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         merge.merge_rank_cuda(ts, ts)
     with pytest.raises(ValueError, match="CUDA"):
         scan.cumsum3_cuda(x, valid)
+    with pytest.raises(ValueError, match="CUDA"):
+        bucket.bucket_stats_cuda(torch.zeros(2, 8, dtype=torch.int32),
+                                 x[None], valid[None])
 
 
 def test_package_exports_the_frame():
