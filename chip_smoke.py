@@ -8,7 +8,8 @@
 Phases (each raises on failure, and the script then exits non-zero):
 
 A. Build the nine CUDA sources of ``tempo_tpu_torch/csrc`` (one nvcc
-   per source, in parallel) and print the build seconds.
+   per source, in parallel; ``ring.cuh`` is a header of three of them)
+   and print the build seconds.
 B. Hold each kernel against its plain PyTorch version on the card, in
    float32, at the shapes the main paths give it: the merge join
    bitwise, range stats bitwise for ``count``/``clipped`` and within
@@ -43,7 +44,19 @@ B. Hold each kernel against its plain PyTorch version on the card, in
    12760]), on x alone, on x with 30% more nulls, on a [64, 4096] case
    with pad lanes, an all-null and an all-pad row (shared-memory ladder)
    and on phase F's long rows (global-scratch ladder); no library call
-   computes it.
+   computes it.  Every case also runs the staged form at the default
+   ring depth, bitwise equal to the row form (rows with a bucket longer
+   than the staged tile left to the row form, and counted).
+   Then the staging ring (``csrc/ring.cuh``, the port of
+   ``pallas_stream._make_ring_kernel``) in each of its three users at its
+   main-path shape (range stats at phase C's [1, 1024, 12760], the
+   resample EMA at phase E's [1024, 12760], bucket stats at phase H's
+   [3, 1024, 12760]), at ``TEMPO_TPU_DMA_BUFFERS`` 2, 3 and 8 (set
+   in-process and restored): the staged form bitwise equal to the row
+   form and to itself across depths, within the row form's tolerance of
+   the plain version, the kernel's shared-memory total equal to the
+   planner's (``ops/stream.py``); each depth timed beside the row form,
+   with the tile and depth the planner chose.
 C. The main path at full scale, as a user calls it: pandas frames shaped
    like the reference quickstart's HHAR phone<->watch join (13,062,475
    rows a side, 1024 series) -> ``TSDF`` -> ``asofJoin`` ->
@@ -77,7 +90,11 @@ F. The third slice at full width: the same 13,062,475 rows a side over
    difference of two float32 prefix sums of ~100,000 centred values,
    which reach a few hundred (float32 spacing ~3e-5), each rounded at
    17 ladder levels, plus the float32 centre times a count of ~57,600;
-   a quick run (2 series of 200,000 rows) measured 1.3e-3.
+   a quick run (2 series of 200,000 rows) measured 1.3e-3.  Then, on
+   the same long rows, a six-hour ``withRangeStats`` (about 14,400 rows
+   of extent: no ring slot holds the halo) and ``resampleEMA("1
+   minute", "x")`` (the row's ladder alone passes shared memory), both
+   counted: they must take the row forms.
 G. The fourth slice on the HHAR left frame (13,062,475 rows, 1024
    series), each step timed with the card synchronised and the counters
    zeroed before and read after: ``withRangeStats`` (10 s) under
@@ -92,15 +109,22 @@ G. The fourth slice on the HHAR left frame (13,062,475 rows, 1024
    runs on the 8 users only) on the card (float32) against
    ``device="cpu"`` (float64): keys, timestamps, counts and the host
    steps equal, values within 1e-4, the FFT within 1e-5 * ||x||_2 a
-   series (``fft_tolerance``).
+   series (``fft_tolerance``).  ``withGroupedStats``, ``vwap`` and
+   ``resample("1 minute", "mean")`` called twice on the card must be
+   bitwise equal (segment sums in a fixed order).
 H. The fifth slice: the series-sharded ``DistributedTSDF`` on
    ``make_mesh()`` (one shard on the card) at HHAR scale:
    ``left.on_mesh().asofJoin(right.on_mesh())`` -> ``withRangeStats``
    (10 s) -> exact ``EMA`` -> ``withGroupedStats`` of x, right_wx and
    EMA_x by the minute -> ``collect()``, each step timed with the card
    synchronised, beside phase C's chain seconds of the same run; the
-   counters zeroed before and read after: the merge, range-stats, EMA
-   and bucket-stats kernels must launch, with 2 packs and 1 fetch.  Then
+   counters zeroed before and read after: the merge and EMA kernels and
+   the staged range-stats and bucket-stats forms must launch, with 2
+   packs and 1 fetch; ``on_mesh()`` with no mesh must take
+   ``make_mesh()``.  The chain again under ``TEMPO_TPU_DMA_BUFFERS=4``
+   must equal it bitwise, and ``withGroupedStats("1 hour")`` of its x
+   (buckets of about 2,400 lanes) must leave its rows to the bucket row
+   form.  Then
    ``resample("1 minute", "mean").interpolate(method="linear")`` of the
    EMA frame still on the card and ``vwap("m")`` of phase G's trades
    copy (1 pack, 2 fetches).  Then, on 64 users, the same three chains
@@ -108,15 +132,19 @@ H. The fifth slice: the series-sharded ``DistributedTSDF`` on
    mesh (float64): keys, timestamps and counts equal, values within
    1e-4, stddev as the variance.
 
-Prints the card's name and power limit, a ``{"kernels": [...]}`` line,
-and last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
-without the repository's ``tempo_tpu_torch`` package beside it, it
-prints no result and exits with 2.
+Prints the card's name and power limit, a ``{"kernels": [...]}`` line
+(each kernel's launches summed over the main-path runs of phases C, E,
+F, G's legacy step and H; the staged forms' rows, one a depth, name
+their counter), and last ``{"ok": true, "device": {...}}``.  Without a
+CUDA device, or without the repository's ``tempo_tpu_torch`` package
+beside it, it prints no result and exits with 2.
 """
 
 import argparse
+import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -129,10 +157,13 @@ HERE = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 NS = 1_000_000_000
-# the kernels each main path must launch: phases C and D, phase E
-SLICE1_KERNELS = ("asof_merge", "range_stats", "ema_ladder")
+# the kernels each main path must launch: phases C and D, phase E (the
+# staged forms of range stats and the resample EMA at these widths)
+SLICE1_KERNELS = ("asof_merge", "range_stats_ring", "ema_ladder")
 SLICE2_KERNELS = ("last_valid_index", "first_valid_index",
-                  "last_valid_scan", "resample_ema")
+                  "last_valid_scan", "resample_ema_ring")
+# the staging ring's depths held against each other and the row forms
+RING_DEPTHS = (2, 3, 8)
 SLICE3_KERNELS = ("asof_merge_lookback", "merge_rank", "cumsum3",
                   "ema_ladder")
 LOOKBACK = 16                 # bench.py's serve-bench maxLookback
@@ -164,6 +195,91 @@ def time_ms(fn, reps: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+@contextlib.contextmanager
+def dma_depth(depth):
+    """``TEMPO_TPU_DMA_BUFFERS`` set to ``depth`` inside, restored after."""
+    old = os.environ.get("TEMPO_TPU_DMA_BUFFERS")
+    os.environ["TEMPO_TPU_DMA_BUFFERS"] = str(depth)
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["TEMPO_TPU_DMA_BUFFERS"]
+        else:
+            os.environ["TEMPO_TPU_DMA_BUFFERS"] = old
+
+
+def check_same(got, want, what: str) -> None:
+    """Raise unless two kernel outputs (tensors, or dicts / tuples of
+    them) are bitwise equal, floats compared as their bits."""
+    if isinstance(got, dict):
+        for k in want:
+            check_same(got[k], want[k], f"{what} {k}")
+    elif isinstance(got, (tuple, list)):
+        for i, (g, w) in enumerate(zip(got, want)):
+            check_same(g, w, f"{what} [{i}]")
+    else:
+        check_bitwise(got, want, what)
+
+
+def ring_rows(user, run, row_out, want, check, row, kernel_src, smem_args):
+    """The staged form of ``user`` (``run()``, its wrapper forced to the
+    staged form) at each of ``RING_DEPTHS``: bitwise equal to the row
+    form's output ``row_out`` and to itself across depths, within
+    ``check`` of the plain version's ``want``; timed at each depth; the
+    kernel's own shared-memory total (``tempo_*_ring_smem`` at
+    ``smem_args(plan)``) equal to the planner's.  Returns its rows of the
+    result line, beside the row form's ``row`` (same work, so the same
+    bound and plain time)."""
+    from tempo_tpu_torch.ops import cuda_lib, stream
+
+    smem = getattr(cuda_lib.lib(), {"bucket_stats": "tempo_bucket_ring_smem",
+                                    "range_stats": "tempo_range_ring_smem",
+                                    "resample_ema": "tempo_resample_ring_smem"
+                                    }[user])
+    rows, first, notes = {}, None, []
+    for depth in RING_DEPTHS:
+        with dma_depth(depth):
+            got = run()
+            torch.cuda.synchronize()
+            plan = dict(stream.last_plan[user])
+            if plan["form"] != "ring":
+                raise AssertionError(f"{user}: no staged plan at depth "
+                                     f"{depth}")
+            check_same(got, row_out, f"{user} staged (depth {depth}) against "
+                                     f"its row form")
+            if first is not None:
+                check_same(got, first, f"{user} staged depth {depth} against "
+                                       f"depth {RING_DEPTHS[0]}")
+            first = got
+            if smem(*smem_args(plan)) != plan["smem"]:
+                raise AssertionError(f"{user}: the kernel's shared memory "
+                                     f"differs from the planner's {plan}")
+            err = check(got, want, f"{user} staged depth {depth}")
+            ms = time_ms(run)
+        name = f"{user}_ring_d{depth}"
+        rows[name] = dict(
+            name=name, counter=f"{user}_ring", route="cuda",
+            source="tempo_tpu_torch/csrc/ring.cuh",
+            replaces="tempo_tpu/ops/pallas_stream.py:170",
+            max_abs_err=err, ms=ms, plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=None, kernel=kernel_src, depth_asked=depth,
+            depth=plan["depth"], tile=plan["tile"], smem=plan["smem"],
+            long_rows=plan.get("long_rows"), row_form_ms=row["ms"],
+            shape=row["shape"])
+        notes.append(f"depth {depth}: T={plan['tile']} x {plan['depth']} "
+                     f"slots, {plan['smem']} B, {ms:.4f} ms"
+                     + (f", {plan['long_rows']} long-bucket rows"
+                        if "long_rows" in plan else ""))
+    log(f"B ring {user}: staged form bitwise equal to the row form and "
+        f"across depths {RING_DEPTHS}, within the stated tolerance of the "
+        f"plain version; " + "; ".join(notes) + f"; row form "
+        f"{row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms; the kernel's "
+        f"shared-memory total agrees with the planner's")
+    return rows
 
 
 def bound_ms(nbytes: float, nops: float):
@@ -324,20 +440,24 @@ def phase_b(pd, left, right, dev, d_args):
     engine, rb, ts_long, w = rolling_frame.plan_range_engine(lt, 10)
     secs = torch.from_numpy(ts_long).to(dev)
     mb, ma = int(rb[0]), int(rb[1])
-    got = window.range_stats_cuda(secs, x[None], valid[None], w, mb, ma)
-    want = window.range_stats_plain(secs, x[None], valid[None], w, mb, ma)
-    err = check_range_stats(got, want, "HHAR shape")
+    hh_row = window.range_stats_cuda(secs, x[None], valid[None], w, mb, ma,
+                                     _form="row")
+    hh_want = window.range_stats_plain(secs, x[None], valid[None], w, mb, ma)
+    err = check_range_stats(hh_row, hh_want, "HHAR shape")
     # look-ahead rows (a forward window) and truncation both ways, so the
     # kernel's ahead loop and both halves of its clipped audit are held
-    # against the plain version too
+    # against the plain version too, in both forms
     dsecs = d_args[1].to(torch.int32)
     dx, dv = d_args[2][None], d_args[3][None]
-    got = window.range_stats_cuda(dsecs, dx, dv, 10, 4, 2, window_ahead=6)
     want = window.range_stats_plain(dsecs, dx, dv, 10, 4, 2, window_ahead=6)
     n_clipped = int(want["clipped"].sum())
     if n_clipped == 0:
         raise AssertionError("truncating range-stats case clipped nothing")
-    err = max(err, check_range_stats(got, want, "truncating case"))
+    for form in ("row", "ring"):
+        got = window.range_stats_cuda(dsecs, dx, dv, 10, 4, 2,
+                                      window_ahead=6, _form=form)
+        err = max(err, check_range_stats(got, want,
+                                         f"truncating case, {form} form"))
     Kw, L = x.shape
     nbytes = Kw * L * (4 + 4 + 1) + 7 * Kw * L * 4 + Kw * 4
     nops = Kw * L * ((mb + ma) * 10 + 20)
@@ -348,7 +468,7 @@ def phase_b(pd, left, right, dev, d_args):
         replaces="tempo_tpu/ops/pallas_window.py:312",
         max_abs_err=err,
         ms=time_ms(lambda: window.range_stats_cuda(secs, x[None], valid[None],
-                                                   w, mb, ma)),
+                                                   w, mb, ma, _form="row")),
         plain_ms=time_ms(lambda: window.range_stats_plain(
             secs, x[None], valid[None], w, mb, ma), reps=3),
         bound_ms=b, bound_by=by, library_ms=None,
@@ -360,7 +480,14 @@ def phase_b(pd, left, right, dev, d_args):
         f"{n_clipped} rows clipped; "
         f"kernel {rows['range_stats']['ms']:.4f} ms, plain "
         f"{rows['range_stats']['plain_ms']:.4f} ms")
-    del got, want
+    rows.update(ring_rows(
+        "range_stats",
+        lambda: window.range_stats_cuda(secs, x[None], valid[None], w, mb,
+                                        ma, _form="ring"),
+        hh_row, hh_want, check_range_stats, rows["range_stats"],
+        "tempo_tpu_torch/csrc/range_stats.cu",
+        lambda p: (mb, ma, L, p["tile"], p["depth"])))
+    del got, want, hh_row, hh_want
 
     # -- exact EMA ladder at the HHAR shape ---------------------------
     ema_err = check_ema(scan.ema_cuda(x, valid, 0.2),
@@ -488,17 +615,24 @@ def phase_b_slice2(right, dev):
              (long(secs), long(x), long(v), 7, None,
               f"global-scratch form [{k_long // f}, {f * L}], step 7")]
     for s_, x_, v_, step, scale, what in cases:
-        got = bucket.resample_ema_cuda(s_, x_, v_, step, 0.2, scale)
         want = bucket.resample_ema_plain(s_, x_, v_, step, 0.2, scale)
-        check_bitwise(got[0], want[0], f"resample_ema res ({what})")
-        check_bitwise(got[1], want[1], f"resample_ema ema ({what})")
+        # the staged form needs the row's ladder in shared memory: not on
+        # the global-scratch rows
+        forms = ("row", "ring") if s_.shape[1] == L else ("row",)
+        for form in forms:
+            got = bucket.resample_ema_cuda(s_, x_, v_, step, 0.2, scale,
+                                           _form=form)
+            for i, out in enumerate(("res", "ema")):
+                check_bitwise(got[i], want[i],
+                              f"resample_ema {out} ({what}, {form})")
     levels = math.ceil(math.log2(max(L, 2)))
     b, by = bound_ms(Kx * L * 17, Kx * L * (3 * levels + 6))
     rows["resample_ema"] = dict(
         name="resample_ema", route="cuda",
         source="tempo_tpu_torch/csrc/resample_ema.cu",
         replaces="tempo_tpu/ops/pallas_bucket.py:378", max_abs_err=0.0,
-        ms=time_ms(lambda: bucket.resample_ema_cuda(secs, x, v, 60, 0.2)),
+        ms=time_ms(lambda: bucket.resample_ema_cuda(secs, x, v, 60, 0.2,
+                                                    _form="row")),
         plain_ms=time_ms(lambda: bucket.resample_ema_plain(secs, x, v, 60,
                                                            0.2), reps=3),
         bound_ms=b, bound_by=by, library_ms=None, shape=f"[{Kx}, {L}]")
@@ -506,6 +640,14 @@ def phase_b_slice2(right, dev):
         f"{'; '.join(c[-1] for c in cases)}; kernel "
         f"{rows['resample_ema']['ms']:.4f} ms, plain "
         f"{rows['resample_ema']['plain_ms']:.4f} ms")
+    rows.update(ring_rows(
+        "resample_ema",
+        lambda: bucket.resample_ema_cuda(secs, x, v, 60, 0.2, _form="ring"),
+        bucket.resample_ema_cuda(secs, x, v, 60, 0.2, _form="row"),
+        bucket.resample_ema_plain(secs, x, v, 60, 0.2),
+        lambda g, w, what: (check_same(g, w, what), 0.0)[1],
+        rows["resample_ema"], "tempo_tpu_torch/csrc/resample_ema.cu",
+        lambda p: (L, p["tile"], p["depth"])))
     log(f"B launches while comparing (not counted): {dict(cuda_lib.launches)}")
     return rows
 
@@ -1009,7 +1151,8 @@ def phase_f(pd, TSDF, left, right, n, n_series):
     missing = [k for k in SLICE3_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"slice-3 path never launched {missing}")
-    if launches["asof_merge"] or launches["range_stats"]:
+    if launches["asof_merge"] or launches["range_stats"] \
+            or launches["range_stats_ring"]:
         raise AssertionError(f"slice-3 path took the single-program join or "
                              f"the row-bounded stats: {launches}")
     if len(df) != n:
@@ -1056,6 +1199,41 @@ def phase_f(pd, TSDF, left, right, n, n_series):
         f"float64 plain versions (joins equal, count equal, stats and EMA "
         f"within 1e-4, sum within 2e-3); max abs err "
         + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    return launches, long_row_forms(TSDF, left, n)
+
+
+def long_row_forms(TSDF, left, n):
+    """Two ops on phase F's long rows whose staged forms do not fit: a
+    six-hour ``withRangeStats`` (about 14,400 rows of extent: no slot
+    holds the halo) and ``resampleEMA`` (the row's ladder alone passes
+    shared memory).  Both must take the row forms; returns the launch
+    counts."""
+    from tempo_tpu_torch.ops import cuda_lib, stream
+
+    lt = TSDF(left, "event_ts", ["user"])
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    stats = lt.withRangeStats(colsToSummarize=["x"],
+                              rangeBackWindowSecs=6 * 3600).df
+    bars = lt.resampleEMA("1 minute", "x").df
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(cuda_lib.launches)
+    if launches["range_stats"] == 0 or launches["resample_ema"] == 0 \
+            or launches["range_stats_ring"] or launches["resample_ema_ring"]:
+        raise AssertionError(f"long rows did not take the row forms: "
+                             f"{launches}")
+    if len(stats) != n or not (stats["count_x"].to_numpy() >= 1).all() \
+            or not np.isfinite(stats["mean_x"].to_numpy()).all():
+        raise AssertionError("six-hour withRangeStats rows or counts wrong")
+    if not np.isfinite(bars["EMA_x"].to_numpy()).all():
+        raise AssertionError("long-row resampleEMA EMA_x not finite")
+    log(f"F long rows: withRangeStats(6 h, up to "
+        f"{int(stats['count_x'].max())} rows a frame) and resampleEMA('1 "
+        f"minute') take the row forms ({stream.last_plan['range_stats']}, "
+        f"{stream.last_plan['resample_ema']}): {seconds:.3f} s; launches "
+        f"{launches}")
     return launches
 
 
@@ -1141,7 +1319,8 @@ def phase_g(pd, TSDF, left, n, n_series):
         seconds[name] = time.perf_counter() - t0
         launches[name] = dict(cuda_lib.launches)
     legacy = launches["withRangeStats legacy"]
-    if legacy["legacy_stats"] == 0 or legacy["range_stats"] != 0:
+    if legacy["legacy_stats"] == 0 or legacy["range_stats"] != 0 \
+            or legacy["range_stats_ring"] != 0:
         raise AssertionError(f"legacy withRangeStats did not take the legacy "
                              f"kernel alone: {legacy}")
 
@@ -1165,6 +1344,17 @@ def phase_g(pd, TSDF, left, n, n_series):
     if grouped["count_x"].sum() != n or bars["volume"].sum() != \
             trades["volume"].sum():
         raise AssertionError("grouped stats or vwap lost rows")
+    # grouped reductions repeat bitwise on the card (segment sums in a
+    # fixed order, no atomics)
+    pd.testing.assert_frame_equal(steps["withGroupedStats"](), grouped,
+                                  check_exact=True)
+    pd.testing.assert_frame_equal(steps["vwap"](), bars, check_exact=True)
+    pd.testing.assert_frame_equal(lt.resample("1 minute", "mean").df,
+                                  lt.resample("1 minute", "mean").df,
+                                  check_exact=True)
+    log("G repeat: withGroupedStats('1 minute'), vwap('m') and "
+        "resample('1 minute', 'mean') called twice on the card: bitwise "
+        "equal")
     if not np.isfinite(bars["vwap"].to_numpy()).all():
         raise AssertionError("vwap has non-finite values")
     table = out["describe"]
@@ -1333,7 +1523,7 @@ def phase_b_bucket(pd, TSDF, left, right, left3, dev):
     returns its row of the result line (``launches`` filled in by phase
     H)."""
     from tempo_tpu_torch import dist, make_mesh
-    from tempo_tpu_torch.ops import bucket, cuda_lib
+    from tempo_tpu_torch.ops import bucket, cuda_lib, stream
 
     gen = torch.Generator(device=dev).manual_seed(5)
     mesh = make_mesh()
@@ -1371,11 +1561,15 @@ def phase_b_bucket(pd, TSDF, left, right, left3, dev):
     lx, lv = lt3.packed_numeric("x")
     _, _, lbid = dist._bucket_heads(lts, lmask, 60 * NS)
     cases.append((f"long rows {list(lx.shape)}", lbid, lx[None], lv[None]))
-    err = 0.0
+    err, long_rows = 0.0, {}
     for what, b, x, v in cases:
-        got = bucket.bucket_stats_cuda(b, x, v)
         want = bucket.bucket_stats_plain(b, x, v)
-        err = max(err, check_bucket_stats(got, want, what))
+        row_out = bucket.bucket_stats_cuda(b, x, v, _form="row")
+        err = max(err, check_bucket_stats(row_out, want, what))
+        ring_out = bucket.bucket_stats_cuda(b, x, v, _form="ring")
+        check_same(ring_out, row_out, f"bucket stats staged form ({what})")
+        long_rows[what] = stream.last_plan["bucket_stats"]["long_rows"]
+    del want, row_out, ring_out
 
     C, K, L = xs.shape
     steps = 2 * math.ceil(math.log2(L))
@@ -1386,16 +1580,21 @@ def phase_b_bucket(pd, TSDF, left, right, left3, dev):
         name="bucket_stats", route="cuda",
         source="tempo_tpu_torch/csrc/bucket_stats.cu",
         replaces="tempo_tpu/ops/pallas_bucket.py:173", max_abs_err=err,
-        ms=time_ms(lambda: bucket.bucket_stats_cuda(bid, xs, vs)),
+        ms=time_ms(lambda: bucket.bucket_stats_cuda(bid, xs, vs,
+                                                    _form="row")),
         plain_ms=time_ms(lambda: bucket.bucket_stats_plain(bid, xs, vs),
                          reps=3),
         bound_ms=b_ms, bound_by=by, library_ms=None,
         ms_one_column=time_ms(lambda: bucket.bucket_stats_cuda(
-            bid, xs[:1], vs[:1])),
-        ms_shared_memory=time_ms(lambda: bucket.bucket_stats_cuda(sb, sx,
-                                                                  sv)),
+            bid, xs[:1], vs[:1], _form="row")),
+        ms_shared_memory=time_ms(lambda: bucket.bucket_stats_cuda(
+            sb, sx, sv, _form="row")),
         ms_long_rows=time_ms(lambda: bucket.bucket_stats_cuda(
-            lbid, lx[None], lv[None]), reps=3),
+            lbid, lx[None], lv[None], _form="row"), reps=3),
+        ring_ms_one_column=time_ms(lambda: bucket.bucket_stats_cuda(
+            bid, xs[:1], vs[:1], _form="ring")),
+        ring_ms_long_rows=time_ms(lambda: bucket.bucket_stats_cuda(
+            lbid, lx[None], lv[None], _form="ring"), reps=3),
         shape=f"[{C}, {K}, {L}] (1-minute buckets); one column; "
               f"[1, {Ks}, {Ls}]; long rows [1, {lx.shape[0]}, {lx.shape[1]}]")
     log(f"B bucket_stats: count/min/max bitwise, rest within 1e-5 (max abs "
@@ -1403,10 +1602,22 @@ def phase_b_bucket(pd, TSDF, left, right, left3, dev):
         f"{row['ms']:.4f} ms (one column {row['ms_one_column']:.4f}, "
         f"shared memory {row['ms_shared_memory']:.4f}, long rows "
         f"{row['ms_long_rows']:.4f}), plain {row['plain_ms']:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({by})")
+        f"{b_ms:.4f} ms ({by}); staged form at the default depth bitwise "
+        f"equal to the row form on every case (long-bucket rows left to "
+        f"the row form: {long_rows}), one column "
+        f"{row['ring_ms_one_column']:.4f} ms, long rows "
+        f"{row['ring_ms_long_rows']:.4f} ms")
+    rows = {"bucket_stats": row}
+    rows.update(ring_rows(
+        "bucket_stats", lambda: bucket.bucket_stats_cuda(bid, xs, vs,
+                                                         _form="ring"),
+        bucket.bucket_stats_cuda(bid, xs, vs, _form="row"),
+        bucket.bucket_stats_plain(bid, xs, vs), check_bucket_stats, row,
+        "tempo_tpu_torch/csrc/bucket_stats.cu",
+        lambda p: (C, L, p["tile"], p["depth"])))
     log(f"B launches while comparing (not counted): {dict(cuda_lib.launches)}")
     del ema
-    return {"bucket_stats": row}
+    return rows
 
 
 def compare_card_cpu(card, cpu, what: str) -> float:
@@ -1440,11 +1651,14 @@ def phase_h(pd, TSDF, left, right, n, n_series, c_seconds):
     to one shard) and on the CPU (float64).  Returns the first chain's
     launch counts."""
     from tempo_tpu_torch import dist, make_mesh
-    from tempo_tpu_torch.ops import cuda_lib
+    from tempo_tpu_torch.ops import cuda_lib, stream
 
     mesh = make_mesh()
     if mesh.shape != {"series": torch.cuda.device_count()}:
         raise AssertionError(f"default mesh {mesh.shape}")
+    if TSDF(left.head(1000), "event_ts", ["user"]).on_mesh().mesh != mesh:
+        raise AssertionError("on_mesh() without a mesh did not take "
+                             "make_mesh() over every visible card")
 
     def counted(fn):
         torch.cuda.synchronize()
@@ -1459,10 +1673,12 @@ def phase_h(pd, TSDF, left, right, n, n_series, c_seconds):
     steps = {}
     (ema, grouped), seconds, launches, events = counted(
         lambda: mesh_chain(TSDF, left, right, mesh, steps=steps))
-    missing = [k for k in ("asof_merge", "range_stats", "ema_ladder",
-                           "bucket_stats") if launches[k] == 0]
+    missing = [k for k in ("asof_merge", "range_stats_ring", "ema_ladder",
+                           "bucket_stats_ring") if launches[k] == 0]
     if missing:
         raise AssertionError(f"mesh chain never launched {missing}")
+    plans = {k: dict(stream.last_plan[k])
+             for k in ("range_stats", "bucket_stats")}
     if events != (2, 1):
         raise AssertionError(f"mesh chain packed/fetched {events}, not (2, 1)")
     if int(grouped["count_x"].sum()) != n:
@@ -1476,6 +1692,8 @@ def phase_h(pd, TSDF, left, right, n, n_series, c_seconds):
         f"{c_seconds:.3f} s; pack/fetch events {events}; launches {launches}")
     log("H steps (wall s, card synchronised after each): "
         + ", ".join(f"{k} {v:.3f}" for k, v in steps.items()))
+    log(f"H staged forms at the default depth "
+        f"(TEMPO_TPU_DMA_BUFFERS={stream.dma_buffers()}): {plans}")
 
     trades = trades_frame(pd, left)
     (filled, bars), tail_s, tail_launches, tail_events = counted(
@@ -1483,7 +1701,8 @@ def phase_h(pd, TSDF, left, right, n, n_series, c_seconds):
     if tail_events != (1, 2):
         raise AssertionError(f"resample/vwap chains packed/fetched "
                              f"{tail_events}, not (1, 2)")
-    if tail_launches["bucket_stats"] < 2 or tail_launches["asof_merge"] < 2:
+    if tail_launches["bucket_stats"] + tail_launches["bucket_stats_ring"] \
+            < 2 or tail_launches["asof_merge"] < 2:
         raise AssertionError(f"resample/interpolate/vwap launches "
                              f"{tail_launches}")
     if int(bars["volume"].sum()) != int(trades["volume"].sum()) \
@@ -1496,6 +1715,37 @@ def phase_h(pd, TSDF, left, right, n, n_series, c_seconds):
         f"({len(bars)} bars): {tail_s:.3f} s; pack/fetch events "
         f"{tail_events}; launches {tail_launches}")
     del ema
+    torch.cuda.empty_cache()
+
+    # the same chain at ring depth 4: bitwise the default run; then
+    # hourly buckets (about 2,400 lanes, past the staged form's tile):
+    # those rows take the row form
+    with dma_depth(4):
+        (ema4, grouped4), deep_s, deep_launches, _ = counted(
+            lambda: mesh_chain(TSDF, left, right, mesh))
+        deep_plans = {k: dict(stream.last_plan[k])
+                      for k in ("range_stats", "bucket_stats")}
+    if deep_launches["bucket_stats_ring"] == 0 \
+            or deep_launches["range_stats_ring"] == 0:
+        raise AssertionError(f"depth-4 chain skipped a staged form: "
+                             f"{deep_launches}")
+    pd.testing.assert_frame_equal(grouped4, grouped, check_exact=True)
+    log(f"H mesh chain at TEMPO_TPU_DMA_BUFFERS=4 (set in-process, "
+        f"restored): bitwise equal to the default run, {deep_s:.3f} s; "
+        f"{deep_plans}; launches {deep_launches}")
+    hourly, hour_s, hour_launches, _ = counted(
+        lambda: ema4.withGroupedStats(metricCols=["x"],
+                                      freq="1 hour").collect().df)
+    n_long = stream.last_plan["bucket_stats"].get("long_rows", 0)
+    if hour_launches["bucket_stats"] == 0 or n_long == 0 \
+            or int(hourly["count_x"].sum()) != n:
+        raise AssertionError(f"hourly grouped stats: launches "
+                             f"{hour_launches}, long rows {n_long}")
+    log(f"H withGroupedStats('1 hour') of x: {len(hourly)} bucket rows in "
+        f"{hour_s:.3f} s; {n_long} series rows hold a bucket longer than "
+        f"the staged tile ({stream.last_plan['bucket_stats']}) and took "
+        f"the row form; launches {hour_launches}")
+    del ema4
     torch.cuda.empty_cache()
 
     # 64 users: one shard, two shards of the same card, and the CPU
@@ -1522,7 +1772,16 @@ def phase_h(pd, TSDF, left, right, n, n_series, c_seconds):
         f"card float32 agrees with the CPU float64 (keys, timestamps, "
         f"counts equal, values within 1e-4, stddev as the variance; max "
         f"abs err {err:.3g})")
-    return launches
+    return add_counts(launches, tail_launches, deep_launches, hour_launches)
+
+
+def add_counts(*counts):
+    """Launch counters of several runs, summed by kernel."""
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
 
 
 def main(argv=None) -> int:
@@ -1591,21 +1850,27 @@ def main(argv=None) -> int:
     launches, c_seconds = phase_c(pd, TSDF, left, right, n, args.series)
     phase_d(d_args)
     launches2 = phase_e(TSDF, right, n, args.series)
-    launches3 = phase_f(pd, TSDF, left3, right3, n3, args.long_series)
+    launches3, long_launches = phase_f(pd, TSDF, left3, right3, n3,
+                                       args.long_series)
     del left3, right3
     torch.cuda.empty_cache()
     launches4, _ = phase_g(pd, TSDF, left, n, args.series)
     torch.cuda.empty_cache()
     launches5 = phase_h(pd, TSDF, left, right, n, args.series, c_seconds)
 
+    # launches: summed over the main-path runs (phases C, E, F, G's legacy
+    # step and H), each counted between a reset and a read
+    found = add_counts(launches, launches2, launches3, long_launches,
+                       launches4, launches5)
     kernels = []
-    for found, table in ((launches, rows), (launches2, rows2),
-                         (launches3, rows3), (launches4, rows4),
-                         (launches5, rows5)):
+    for table in (rows, rows2, rows3, rows4, rows5):
         for name, row in table.items():
             row = dict(row)
-            row["launches"] = found[name]
+            row["launches"] = found[row.get("counter", name)]
             kernels.append(row)
+    idle = [row["name"] for row in kernels if row["launches"] == 0]
+    if idle:
+        raise AssertionError(f"no main path launched {idle}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -30,6 +30,9 @@ KNOBS = {
         "budget, as the reference picks it)",
     "TEMPO_TPU_STREAM_MAX_ROWS":
         "row-extent ceiling of the runtime-width range-stats engine",
+    "TEMPO_TPU_DMA_BUFFERS":
+        "depth of the staging ring of the bucket-stats, range-stats and "
+        "resample-EMA kernels, clamped to [2, 8]; default 2",
     "TEMPO_TPU_SQL_STRICT":
         "strict SQL: selectExpr/filter raise StrictSqlFallback instead of "
         "falling back to pandas eval/query (per-call strict= wins)",

@@ -56,7 +56,7 @@ from tempo_tpu_torch.ops import rolling as rk
 from tempo_tpu_torch.ops import sortmerge as sm
 from tempo_tpu_torch.ops import stats as legacy
 from tempo_tpu_torch.ops import window
-from tempo_tpu_torch.parallel.mesh import Mesh, shard_map, unzip
+from tempo_tpu_torch.parallel.mesh import Mesh, default_mesh, shard_map, unzip
 
 logger = logging.getLogger(__name__)
 
@@ -294,13 +294,15 @@ class DistributedTSDF:
                   halo_fraction: float = 0.5) -> "DistributedTSDF":
         """Pack a host TSDF and cut it over the mesh's series axis (the
         ingest boundary, the analog of Spark's shuffle on the partition
-        columns): one host-to-device copy a shard.  With no mesh, one
-        shard on the frame's own device.  ``halo_fraction`` sizes the
-        time axis's halo in the reference and is accepted for the same
-        calls; without a time axis it has no effect."""
+        columns): one host-to-device copy a shard.  With no mesh,
+        ``parallel.default_mesh`` of the frame's device: every visible
+        card for a CUDA frame, one shard for a CPU frame.
+        ``halo_fraction`` sizes the time axis's halo in the reference and
+        is accepted for the same calls; without a time axis it has no
+        effect."""
         global _PACK_EVENTS
         if mesh is None:
-            mesh = Mesh(np.array([tsdf.device], dtype=object), ("series",))
+            mesh = default_mesh(tsdf.device)
         if series_axis not in mesh.axis_names:
             raise ValueError(f"mesh has no axis named {series_axis!r}")
         _time_axis_size(mesh, time_axis)
@@ -1106,13 +1108,14 @@ class DistributedTSDF:
             featureCols, lookbackWindowSize, exactSize, featureColName)
 
     def lookback_tensor(self, featureCols, lookbackWindowSize: int):
-        """The dense lookback tensor on the devices: per shard, a
-        ``([K_shard, L, w, F] values, [K_shard, L, w, F] validity)``
-        pair on its device, as lists in shard order.  Window slot j of
-        row t holds observation t - w + j (oldest first), zero with the
-        mask False where there is none.  Plain numeric device columns
-        only, and not on bucket-head views (their real rows are spread
-        over masked lanes); collect() and ``withLookbackFeatures``
+        """The dense lookback tensor: one ``([K_dev, L, w, F] values,
+        [K_dev, L, w, F] validity)`` pair on the mesh's first device, the
+        shards' stacks concatenated in shard order (K_dev the padded
+        series count), as the reference returns one array pair.  Window
+        slot j of row t holds observation t - w + j (oldest first), zero
+        with the mask False where there is none.  Plain numeric device
+        columns only, and not on bucket-head views (their real rows are
+        spread over masked lanes); collect() and ``withLookbackFeatures``
         compact first."""
         from tempo_tpu_torch.rolling import lookback_stack
 
@@ -1132,9 +1135,12 @@ class DistributedTSDF:
                 f"(available: {sorted(eligible)})")
         w = int(lookbackWindowSize)
         xs, vs = self._stack(cols)
-        return unzip(self._map(
+        vals, masks = unzip(self._map(
             lambda x, v: lookback_stack(x.permute(1, 2, 0),
                                         v.permute(1, 2, 0), w), xs, vs))
+        dev = self.mesh.axis_devices(self.series_axis)[0]
+        return (torch.cat([t.to(dev) for t in vals]),
+                torch.cat([t.to(dev) for t in masks]))
 
 
 # ----------------------------------------------------------------------

@@ -407,8 +407,10 @@ class TSDF:
         the mesh's series axis and returns a
         :class:`~tempo_tpu_torch.dist.DistributedTSDF` whose ops run on
         each shard's device and chain there until ``collect()``.  With no
-        mesh, one shard on this frame's device: the device-residency path
-        for chained ops.  A ``time_axis`` of size above 1 is not ported
+        mesh, as the reference: one ``series`` axis over every visible
+        card for a CUDA frame (``parallel.default_mesh``; on one card the
+        device-residency path for chained ops), one shard for a CPU
+        frame.  A ``time_axis`` of size above 1 is not ported
         (``NotImplementedError``); ``halo_fraction`` (the time axis's halo
         size) is accepted for the reference's calls and has no effect."""
         from tempo_tpu_torch.dist import DistributedTSDF

@@ -16,13 +16,23 @@ Counterpart of ``tempo_tpu/ops/pallas_bucket.py``:
 
 A CUDA tensor goes to the kernel, a CPU tensor to the plain version,
 which repeats the kernel's op sequence and ladders and is dtype-generic.
+
+Both kernels have a row form and a staged form (``ops/stream.py``, the
+counterpart of the reference's ``TEMPO_TPU_DMA_BUFFERS`` ring): the
+wrapper takes the staged form where its planner finds a plan, else the
+row form; the private keyword ``_form`` ("row" | "ring") forces one,
+for tests and ``chip_smoke.py``.  :func:`bucket_stats_windowed` emulates
+the staged bucket form's tile-local ladder in tensor code, so the CPU
+tests can pin its bits against the plain version.
 """
 
 from __future__ import annotations
 
+from typing import List, Optional
+
 import torch
 
-from tempo_tpu_torch.ops import cuda_lib, scan
+from tempo_tpu_torch.ops import cuda_lib, scan, stream
 
 
 def _integral_step(step) -> int:
@@ -60,9 +70,11 @@ def resample_ema_plain(secs: torch.Tensor, x: torch.Tensor,
 
 
 def resample_ema_cuda(secs: torch.Tensor, x: torch.Tensor,
-                      valid: torch.Tensor, step, alpha: float, scale=None):
+                      valid: torch.Tensor, step, alpha: float, scale=None, *,
+                      _form: Optional[str] = None):
     """Launch the fused kernel on int32 secs, float32 x and bool valid,
-    all [K, L] on one CUDA device."""
+    all [K, L] on one CUDA device: the staged form where
+    ``stream.resample_plan`` fits, else the row form."""
     step = _integral_step(step)
     if x.dtype != torch.float32 or x.dim() != 2:
         raise TypeError(f"resample_ema kernel takes float32 [K, L], got "
@@ -78,6 +90,16 @@ def resample_ema_cuda(secs: torch.Tensor, x: torch.Tensor,
     res = torch.empty_like(x)
     ema = torch.empty_like(x)
     if K == 0 or L == 0:
+        return res, ema
+    plan = stream.pick("resample_ema", stream.resample_plan(L), _form,
+                       f"L={L}")
+    if plan is not None:
+        cuda_lib.launch("resample_ema_ring", x.device,
+                        "tempo_resample_ema_ring", secs.data_ptr(),
+                        x.data_ptr(), valid.data_ptr(), step, float(alpha),
+                        1.0 if scale is None else float(scale),
+                        res.data_ptr(), ema.data_ptr(), K, L, plan.tile,
+                        plan.depth)
         return res, ema
     scratch = cuda_lib.ladder_scratch(K, L, 4, x.device)
     cuda_lib.launch("resample_ema", x.device, "tempo_resample_ema",
@@ -126,13 +148,21 @@ def _shift_fwd(a: torch.Tensor, span: int, fill: float) -> torch.Tensor:
     return torch.cat([a[..., span:], pad], dim=-1)
 
 
-def bucket_stats_plain(bid: torch.Tensor, xs: torch.Tensor,
-                       valids: torch.Tensor):
-    """``_bucket_math`` op for op as tensor code over [C, K, L] stacks
-    sharing one [K, L] id plane, in ``xs``'s dtype: the row centre, the
-    forward segmented Hillis-Steele scan of the five planes (identity and
-    flag 1 shifted in), the reverse tail broadcast (0 shifted in), then
-    the outputs."""
+def _bucket_center(xs: torch.Tensor, valids: torch.Tensor) -> torch.Tensor:
+    """Each row's centre, ``sum(valid ? x : 0) / max(n_valid, 1)``."""
+    dt, dev = xs.dtype, xs.device
+    zero = torch.zeros((), dtype=dt, device=dev)
+    one = torch.ones((), dtype=dt, device=dev)
+    nv = valids.to(dt).sum(-1, keepdim=True)
+    return torch.where(valids, xs, zero).sum(-1, keepdim=True) \
+        / torch.maximum(nv, one)
+
+
+def _bucket_ladder(bid, xs, valids, center, stop_early: bool = False):
+    """The two ladders and the outputs over the lanes given, around the
+    given centre ([C, K, 1]).  ``stop_early`` ends each ladder after the
+    first pass that leaves every flag set (the staged kernel's stop):
+    the passes after it would only copy."""
     dt, dev = xs.dtype, xs.device
     zero = torch.zeros((), dtype=dt, device=dev)
     one = torch.ones((), dtype=dt, device=dev)
@@ -141,9 +171,6 @@ def bucket_stats_plain(bid: torch.Tensor, xs: torch.Tensor,
     L = xs.shape[-1]
     f, g = _bucket_flags(bid, dt)
     validf = valids.to(dt)
-    xz = torch.where(valids, xs, zero)
-    nv = validf.sum(-1, keepdim=True)
-    center = xz.sum(-1, keepdim=True) / torch.maximum(nv, one)
     xc = torch.where(valids, xs - center, zero)
     planes = [validf, xc, xc * xc, torch.where(valids, xs, pinf),
               torch.where(valids, xs, -pinf)]
@@ -155,12 +182,16 @@ def bucket_stats_plain(bid: torch.Tensor, xs: torch.Tensor,
                   for p, (combine, ident) in zip(planes, ops)]
         f = torch.maximum(f, _shift_back(f, span, 1.0))
         span *= 2
+        if stop_early and bool((f > 0).all()):
+            break
     span = 1
     while span < L:
         planes = [torch.where(g > 0, p, _shift_fwd(p, span, 0.0))
                   for p in planes]
         g = torch.maximum(g, _shift_fwd(g, span, 0.0))
         span *= 2
+        if stop_early and bool((g > 0).all()):
+            break
     cnt, s1, s2, mn, mx = planes
     cnt1 = torch.maximum(cnt, one)
     mean = torch.where(cnt > 0, s1 / cnt1 + center, nan)
@@ -179,10 +210,76 @@ def bucket_stats_plain(bid: torch.Tensor, xs: torch.Tensor,
     }
 
 
+def bucket_stats_plain(bid: torch.Tensor, xs: torch.Tensor,
+                       valids: torch.Tensor):
+    """``_bucket_math`` op for op as tensor code over [C, K, L] stacks
+    sharing one [K, L] id plane, in ``xs``'s dtype: the row centre, the
+    forward segmented Hillis-Steele scan of the five planes (identity and
+    flag 1 shifted in), the reverse tail broadcast (0 shifted in), then
+    the outputs."""
+    return _bucket_ladder(bid, xs, valids, _bucket_center(xs, valids))
+
+
+def bucket_windows(bid_row: torch.Tensor, tile: int) -> Optional[List[int]]:
+    """The staged bucket form's window starts over one row of ids: 0,
+    then repeatedly the last bucket head in (s, s + tile], until a window
+    reaches the row's end; None where a bucket is longer than ``tile``
+    (the kernel leaves that row to the row form)."""
+    L = int(bid_row.shape[0])
+    starts, s = [0], 0
+    while s + tile < L:
+        seg = bid_row[s:s + tile + 1]
+        heads = torch.nonzero(seg[1:] != seg[:-1]).flatten()
+        if heads.numel() == 0:
+            return None
+        s += int(heads.max()) + 1
+        starts.append(s)
+    return starts
+
+
+def bucket_stats_windowed(bid: torch.Tensor, xs: torch.Tensor,
+                          valids: torch.Tensor, tile: int):
+    """The staged bucket form's arithmetic in tensor code: each row's
+    centre over the whole row, then the ladders over windows of at most
+    ``tile`` lanes that start at bucket heads (:func:`bucket_windows`),
+    each window writing the lanes up to the next start and stopping its
+    ladders once every lane is complete; a row with a bucket longer than
+    ``tile`` takes the whole-row ladder.  Tests hold it bitwise against
+    :func:`bucket_stats_plain`."""
+    C, K, L = xs.shape
+    center = _bucket_center(xs, valids)
+    out = {k: torch.empty_like(xs) for k in BUCKET_STATS}
+    for k in range(K):
+        starts = bucket_windows(bid[k], tile)
+        cuts = [(0, L, L)] if starts is None else [
+            (s, e, min(tile, L - s)) for s, e in zip(starts, starts[1:] + [L])]
+        for s, e, n in cuts:
+            got = _bucket_ladder(bid[k:k + 1, s:s + n],
+                                 xs[:, k:k + 1, s:s + n],
+                                 valids[:, k:k + 1, s:s + n],
+                                 center[:, k:k + 1],
+                                 stop_early=starts is not None)
+            for name in BUCKET_STATS:
+                out[name][:, k, s:e] = got[name][:, 0, :e - s]
+    return out
+
+
+def _bucket_row_form(bid, xs, valids, out) -> None:
+    C, K, L = xs.shape
+    scratch = cuda_lib.ladder_scratch(K, L, _BUCKET_PLANES, xs.device,
+                                      _BUCKET_STATIC_SMEM)
+    cuda_lib.launch("bucket_stats", xs.device, "tempo_bucket_stats",
+                    bid.data_ptr(), xs.data_ptr(), valids.data_ptr(),
+                    out.data_ptr(), cuda_lib.ptr(scratch), C, K, L)
+
+
 def bucket_stats_cuda(bid: torch.Tensor, xs: torch.Tensor,
-                      valids: torch.Tensor):
+                      valids: torch.Tensor, *, _form: Optional[str] = None):
     """Launch the bucket-stats kernel on an int32 [K, L] id plane and
-    float32 / bool [C, K, L] stacks, all on one CUDA device."""
+    float32 / bool [C, K, L] stacks, all on one CUDA device: the staged
+    form where ``stream.bucket_plan`` fits (rows with a bucket longer
+    than its tile then take the row form, one more launch), else the row
+    form."""
     if bid.dtype != torch.int32 or bid.dim() != 2:
         raise TypeError("bucket-stats kernel takes int32 [K, L] bucket ids")
     if xs.dtype != torch.float32 or xs.dim() != 3:
@@ -198,11 +295,26 @@ def bucket_stats_cuda(bid: torch.Tensor, xs: torch.Tensor,
     out = torch.empty((len(BUCKET_STATS), C, K, L), dtype=torch.float32,
                       device=xs.device)
     if C and K and L:
-        scratch = cuda_lib.ladder_scratch(K, L, _BUCKET_PLANES, xs.device,
-                                          _BUCKET_STATIC_SMEM)
-        cuda_lib.launch("bucket_stats", xs.device, "tempo_bucket_stats",
-                        bid.data_ptr(), xs.data_ptr(), valids.data_ptr(),
-                        out.data_ptr(), cuda_lib.ptr(scratch), C, K, L)
+        plan = stream.pick("bucket_stats", stream.bucket_plan(C, L), _form,
+                           f"C={C}, L={L}")
+        if plan is None:
+            _bucket_row_form(bid, xs, valids, out)
+        else:
+            long_rows = torch.empty(K, dtype=torch.int32, device=xs.device)
+            n_long = torch.zeros(1, dtype=torch.int32, device=xs.device)
+            cuda_lib.launch("bucket_stats_ring", xs.device,
+                            "tempo_bucket_stats_ring", bid.data_ptr(),
+                            xs.data_ptr(), valids.data_ptr(), out.data_ptr(),
+                            long_rows.data_ptr(), n_long.data_ptr(), C, K, L,
+                            plan.tile, plan.depth)
+            n = int(n_long.item())
+            stream.last_plan["bucket_stats"]["long_rows"] = n
+            if n:
+                rows = long_rows[:n].long()
+                sub = torch.empty((len(BUCKET_STATS), C, n, L),
+                                  dtype=torch.float32, device=xs.device)
+                _bucket_row_form(bid[rows], xs[:, rows], valids[:, rows], sub)
+                out[:, :, rows] = sub
     return {name: out[i] for i, name in enumerate(BUCKET_STATS)}
 
 

@@ -17,7 +17,10 @@ plain versions'.
 ``launches`` counts, per kernel, the launches made by the wrappers in
 ``ops/merge.py``, ``ops/window.py``, ``ops/stats.py``, ``ops/scan.py``
 and ``ops/bucket.py``: each adds one
-right after its launch returned without error, and nowhere else.
+right after its launch returned without error, and nowhere else.  The
+staged forms of three kernels (``ops/stream.py``) count apart from their
+row forms: ``bucket_stats_ring``, ``range_stats_ring`` and
+``resample_ema_ring``.
 Every wrapper launches through :func:`launch`, which makes the
 operands' device the current CUDA device first: a launch onto a stream
 of another device than the current one fails, and a shard of a
@@ -44,7 +47,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("asof_merge.cu", "range_stats.cu", "ema_ladder.cu",
            "index_scan.cu", "resample_ema.cu", "merge_rank.cu", "cumsum3.cu",
            "legacy_stats.cu", "bucket_stats.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "ring.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -55,7 +58,9 @@ launches: Dict[str, int] = {"asof_merge": 0, "range_stats": 0,
                             "first_valid_index": 0, "last_valid_scan": 0,
                             "resample_ema": 0, "asof_merge_lookback": 0,
                             "merge_rank": 0, "cumsum3": 0,
-                            "legacy_stats": 0, "bucket_stats": 0}
+                            "legacy_stats": 0, "bucket_stats": 0,
+                            "bucket_stats_ring": 0, "range_stats_ring": 0,
+                            "resample_ema_ring": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -73,6 +78,8 @@ _SIGNATURES = {
     "tempo_range_stats": [_P] * 6 + [_I] * 7 + [_P],
     "tempo_legacy_stats": [_P] * 5 + [_I] * 6 + [_P],
     "tempo_bucket_stats": [_P] * 5 + [_I] * 3 + [_P],
+    "tempo_bucket_stats_ring": [_P] * 6 + [_I] * 5 + [_P],
+    "tempo_range_stats_ring": [_P] * 6 + [_I] * 9 + [_P],
     "tempo_ema_ladder": [_P, _P, ctypes.c_float, _P, _P, _I, _I, _P],
     "tempo_ema_smem_limit": [],
     "tempo_last_valid_index": [_P, _P, _I, _I, _P],
@@ -80,7 +87,16 @@ _SIGNATURES = {
     "tempo_last_valid_scan": [_P] * 4 + [_I, _I, _P],
     "tempo_resample_ema": [_P] * 3 + [_I, ctypes.c_float, ctypes.c_float]
                           + [_P] * 3 + [_I, _I, _P],
+    "tempo_resample_ema_ring": [_P] * 3 + [_I, ctypes.c_float,
+                                           ctypes.c_float]
+                               + [_P] * 2 + [_I] * 4 + [_P],
     "tempo_error_string": [_I],
+}
+#: the staged forms' shared-memory totals, as the kernels compute them
+_SMEM_SIGNATURES = {
+    "tempo_bucket_ring_smem": [_I] * 4,
+    "tempo_range_ring_smem": [_I] * 5,
+    "tempo_resample_ring_smem": [_I] * 3,
 }
 
 
@@ -156,6 +172,10 @@ def lib() -> ctypes.CDLL:
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            for name, argtypes in _SMEM_SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_longlong
             handle.tempo_error_string.restype = ctypes.c_char_p
             _lib = handle
     return _lib

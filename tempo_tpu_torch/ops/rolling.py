@@ -202,11 +202,15 @@ def segment_stats(x: torch.Tensor, valid: torch.Tensor,
                   seg_ids: torch.Tensor, num_segments: int
                   ) -> Dict[str, torch.Tensor]:
     """Six grouped aggregates per segment of flat ``[n]`` rows
-    (withGroupedStats tsdf.py:750-754), as tensor ops on either device:
-    ``index_add_`` sums and ``scatter_reduce_`` min/max over the segment
-    ids.  On a CUDA tensor ``index_add_`` adds with atomics, in an order
-    that changes from run to run, so float32 sums there are exact only to
-    about ``n_seg * eps * sum|x|`` (n_seg the rows of a segment)."""
+    (withGroupedStats tsdf.py:750-754), as tensor ops on either device.
+    The ids are sorted (non-decreasing), as the reference's
+    ``segment_stats`` requires, so each segment is a contiguous run:
+    its bounds come from ``searchsorted`` and the sums from
+    ``torch.segment_reduce`` over them, which adds a segment's rows in a
+    fixed order (left to right on the CPU; on the card a segmented
+    reduction without atomics), so a call repeats bitwise.  Ids outside
+    ``[0, num_segments)`` are dropped, as the reference drops them.
+    ``min``/``max`` are ``scatter_reduce_``, exact in any order."""
     dt, dev = x.dtype, x.device
     seg = seg_ids.to(torch.int64)
     zero = torch.zeros((), dtype=dt, device=dev)
@@ -214,14 +218,18 @@ def segment_stats(x: torch.Tensor, valid: torch.Tensor,
     nan = torch.full((), float("nan"), dtype=dt, device=dev)
     pinf = torch.full((), float("inf"), dtype=dt, device=dev)
     xz = torch.where(valid, x, zero)
+    bounds = torch.searchsorted(
+        seg, torch.arange(num_segments + 1, dtype=torch.int64, device=dev))
 
     def seg_sum(v):
-        return torch.zeros(num_segments, dtype=dt, device=dev).index_add_(
-            0, seg, v)
+        return torch.segment_reduce(v[bounds[0]:bounds[-1]], "sum",
+                                    offsets=bounds - bounds[0], initial=0.0)
 
     def seg_reduce(v, fill, how):
+        inside = (seg >= 0) & (seg < num_segments)
         return torch.full((num_segments,), fill, dtype=dt,
-                          device=dev).scatter_reduce_(0, seg, v, how)
+                          device=dev).scatter_reduce_(
+            0, seg[inside], v[inside], how)
 
     cnt = seg_sum(valid.to(dt))
     s1 = seg_sum(xz)

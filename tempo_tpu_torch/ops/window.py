@@ -12,18 +12,23 @@ too small truncate frames; the ``clipped`` audit counts, per row and
 column, the lanes whose frame reaches past them.
 
 One kernel serves the TPU's unrolled and runtime-width forms: the
-bounds are scalars.  Outputs: ``mean``, ``count``, ``min``, ``max``,
-``sum``, ``stddev``, ``zscore`` as [C, K, L] (or [K, L] for a single
-column) and ``clipped`` as [C, K, 1] (or [K, 1]).
+bounds are scalars.  It has a row form and a staged form
+(``ops/stream.py``: lane tiles and their halo through the staging ring);
+the wrapper takes the staged form where ``stream.range_plan`` fits the
+halo, else the row form, and the private keyword ``_form`` ("row" |
+"ring") forces one, for tests and ``chip_smoke.py``.  Outputs:
+``mean``, ``count``, ``min``, ``max``, ``sum``, ``stddev``, ``zscore``
+as [C, K, L] (or [K, L] for a single column) and ``clipped`` as
+[C, K, 1] (or [K, 1]).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
-from tempo_tpu_torch.ops import cuda_lib
+from tempo_tpu_torch.ops import cuda_lib, stream
 
 STATS = ("mean", "count", "min", "max", "sum", "stddev", "zscore")
 
@@ -136,9 +141,11 @@ def _scale_vector(scales, C: int, dtype, device) -> torch.Tensor:
 
 
 def range_stats_cuda(secs, xs, valids, window, max_behind, max_ahead,
-                     window_ahead=0, scales=None) -> Dict[str, torch.Tensor]:
+                     window_ahead=0, scales=None, *,
+                     _form: Optional[str] = None) -> Dict[str, torch.Tensor]:
     """Launch the range-stats kernel: int32 [K, L] keys, float32 and
-    bool [C, K, L] stacks, all on one CUDA device."""
+    bool [C, K, L] stacks, all on one CUDA device; the staged form where
+    ``stream.range_plan`` fits, else the row form."""
     if secs.dtype != torch.int32 or secs.dim() != 2:
         raise TypeError("range-stats kernel takes int32 [K, L] keys "
                         "(rebased seconds)")
@@ -158,12 +165,20 @@ def range_stats_cuda(secs, xs, valids, window, max_behind, max_ahead,
                       device=xs.device)
     clipped = torch.empty((C, K, 1), dtype=torch.float32, device=xs.device)
     if C and K and L:
-        cuda_lib.launch(
-            "range_stats", xs.device, "tempo_range_stats",
-            secs.data_ptr(), xs.data_ptr(), valids.data_ptr(),
-            scale.data_ptr(), out.data_ptr(), clipped.data_ptr(),
-            _clamp_window(window), _clamp_window(window_ahead),
-            int(max_behind), int(max_ahead), C, K, L)
+        mb, ma = int(max_behind), int(max_ahead)
+        plan = stream.pick("range_stats", stream.range_plan(mb, ma, L),
+                           _form, f"bounds ({mb}, {ma}), L={L}")
+        args = (secs.data_ptr(), xs.data_ptr(), valids.data_ptr(),
+                scale.data_ptr(), out.data_ptr(), clipped.data_ptr(),
+                _clamp_window(window), _clamp_window(window_ahead), mb, ma,
+                C, K, L)
+        if plan is None:
+            cuda_lib.launch("range_stats", xs.device, "tempo_range_stats",
+                            *args)
+        else:
+            cuda_lib.launch("range_stats_ring", xs.device,
+                            "tempo_range_stats_ring", *args, plan.tile,
+                            plan.depth)
     else:
         clipped.zero_()
     stats = {name: out[i] for i, name in enumerate(STATS)}

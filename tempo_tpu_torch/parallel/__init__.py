@@ -11,6 +11,7 @@ ported.
 
 from tempo_tpu_torch.parallel.mesh import (
     Mesh,
+    default_mesh,
     device_guard,
     make_mesh,
     pad_series_axis,
@@ -18,5 +19,5 @@ from tempo_tpu_torch.parallel.mesh import (
     unzip,
 )
 
-__all__ = ["Mesh", "device_guard", "make_mesh", "pad_series_axis",
-           "shard_map", "unzip"]
+__all__ = ["Mesh", "default_mesh", "device_guard", "make_mesh",
+           "pad_series_axis", "shard_map", "unzip"]

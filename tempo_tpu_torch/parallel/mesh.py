@@ -91,6 +91,16 @@ def make_mesh(axes: Optional[Dict[str, int]] = None,
     return Mesh(arr.reshape(shape), tuple(axes.keys()))
 
 
+def default_mesh(device) -> Mesh:
+    """The mesh ``TSDF.on_mesh()`` takes when it is given none.  As the
+    reference's (``tempo_tpu/frame.py``: a 1-D ``('series',)`` mesh over
+    every local device), a CUDA frame's is :func:`make_mesh` over every
+    visible card; a CPU frame keeps one shard on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return make_mesh()
+    return Mesh(np.array([dev], dtype=object), ("series",))
+
 
 def pad_series_axis(arr: np.ndarray, n_shards: int, fill) -> np.ndarray:
     """Pad the leading axis to a multiple of ``n_shards`` so a [K, L]

@@ -203,9 +203,12 @@ def test_describe_autocorr_lookback_tensor(frames, meshes):
                        "mean_price", 2))
     vals, mask = pl.lookback_tensor(["price", "volume"], 4)
     jv, jmask = jl.lookback_tensor(["price", "volume"], 4)
-    assert torch.equal(torch.cat(mask), torch.from_numpy(np.asarray(jmask)))
-    torch.testing.assert_close(torch.cat(vals),
-                               torch.from_numpy(np.asarray(jv)),
+    # one [K_dev, L, w, F] pair, indexed as the reference's own test does
+    K = pl.layout.n_series
+    assert vals.shape == mask.shape == np.asarray(jv).shape
+    assert vals.shape[0] == sum(int(t.shape[0]) for t in pl.ts)
+    assert torch.equal(mask[:K], torch.from_numpy(np.array(jmask)[:K]))
+    torch.testing.assert_close(vals, torch.from_numpy(np.array(jv)),
                                rtol=0, atol=0, equal_nan=True)
     feats = pl.withLookbackFeatures(["price"], 3, exactSize=False).df
     want = jl.withLookbackFeatures(["price"], 3, exactSize=False).df

@@ -54,7 +54,9 @@ def test_kernel_sources_are_in_the_package_and_name_their_pallas_kernel():
                                       "first_valid_index", "last_valid_scan",
                                       "resample_ema", "asof_merge_lookback",
                                       "merge_rank", "cumsum3",
-                                      "legacy_stats", "bucket_stats"}
+                                      "legacy_stats", "bucket_stats",
+                                      "bucket_stats_ring", "range_stats_ring",
+                                      "resample_ema_ring"}
 
 
 WRAPPER_MODULES = ("merge", "window", "stats", "scan", "bucket")
