@@ -26,12 +26,16 @@ B. Hold each kernel against its plain PyTorch version on the card, in
    third slice's kernels, all bitwise, at phase F's packed shape: the
    lookback merge at ``max_lookback`` 0, 1, 4 and 16, ``skipNulls`` both
    ways (at 0 also against the merge kernel), its value form, a
-   tie-heavy case and, at a smaller shape, bin-packed rows (sid fence)
-   and a sequence tie-break, and its time on one series of 1,000,000
-   rows; the rank on the windowed engine's int32 seconds and on int64
-   nanoseconds, both sides, pads clamped (``torch.searchsorted`` is its
-   yardstick); ``cumsum3`` on a shared-memory row and on phase F's row,
-   which takes the global scratch (``torch.cumsum`` the yardstick).
+   tie-heavy case, runs of equal keys longer than a tile and, at smaller
+   shapes, bin-packed rows (sid fence; also with every series boundary on
+   a tile edge, at the kernel's tiles and at 16) and a sequence
+   tie-break (also at tiles of 4), and its time on one series of
+   1,000,000 rows; the rank on the windowed engine's int32 seconds and
+   on int64 nanoseconds, both sides, pads clamped (``torch.searchsorted``
+   is its yardstick); ``cumsum3`` on a one-tile row, a row of 8193
+   lanes (T * 2^3 + 1), the same with -0.0, NaN and +-inf, phase D's
+   [K, 8192] and phase F's row, against the plain ladder and the tiled
+   plain version, each timed beside ``torch.cumsum``.
    Then the fourth slice's legacy stats kernel: ``count``, ``min``,
    ``max`` and ``clipped`` bitwise, the rest as range stats are held, on
    the HHAR left frame's packed ``x`` with the row bounds of a 10 s and
@@ -280,6 +284,26 @@ def ring_rows(user, run, row_out, want, check, row, kernel_src, smem_args):
         f"{row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms; the kernel's "
         f"shared-memory total agrees with the planner's")
     return rows
+
+
+def stage_ms(fn, reps: int = 5) -> dict:
+    """Device milliseconds a call of ``fn()`` spends in each of its CUDA
+    kernels, by name (``torch.profiler`` over ``reps`` calls after a
+    warm-up); empty where the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+        if e.device_time_total > 0:
+            out[name] = e.device_time_total / reps / 1000.0
+    return out
 
 
 def bound_ms(nbytes: float, nops: float):
@@ -953,12 +977,15 @@ def packed_rows(rng, K, L, n_seg, span, packing):
     return ts, sid
 
 
-def check_lookback(merge, what, l_ts, r_ts, r_valids, *rest, ml, **kw):
-    """The lookback kernel against its plain version, every output
+def check_lookback(merge, what, l_ts, r_ts, r_valids, *rest, ml,
+                   _tile=None, **kw):
+    """The lookback kernel (at tiles of ``_tile`` merged positions, the
+    kernel's own by default) against its plain version, every output
     bitwise; ``rest`` are the optional operands after ``max_lookback``
     (values, sids, sequence keys).  Returns the kernel's outputs."""
     args = (l_ts, r_ts, r_valids, ml) + rest
-    got = merge.asof_merge_lookback_cuda(*args, **kw)
+    tile = {} if _tile is None else {"_tile": _tile}
+    got = merge.asof_merge_lookback_cuda(*args, **kw, **tile)
     want = merge.asof_merge_lookback_plain(*args, **kw)
     for g, w, out in zip(got, want, ("last_row_idx", "per_col_idx", "vals")):
         if g is not None or w is not None:
@@ -1003,6 +1030,14 @@ def phase_b_slice3(pd, left, right, dev, d_args):
     for skip in (True, False):
         check_lookback(merge, f"8 s ties, skipNulls {skip}", coarse(l_ts),
                        coarse(r_ts), r_valids, ml=4, skip_nulls=skip)
+    # a run of equal keys longer than a tile: timestamps floored to
+    # 2048 s put about 2,700 merged rows in a run, past the kernel's
+    # 1024-position tiles
+    run = lambda t: torch.where(t < int(packing.TS_PAD),
+                                t // (2048 * NS) * (2048 * NS), t)
+    for skip in (True, False):
+        check_lookback(merge, f"2048 s ties, skipNulls {skip}", run(l_ts),
+                       run(r_ts), r_valids, ml=LOOKBACK, skip_nulls=skip)
     # bin-packed rows (sid fence) and a sequence tie-break, smaller shape
     up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     lt_, ls_ = packed_rows(rng, 64, 4096, 8, 400, packing)
@@ -1014,6 +1049,20 @@ def phase_b_slice3(pd, left, right, dev, d_args):
         check_lookback(merge, f"bin-packed, skipNulls {skip}", up(lt_),
                        up(rt_), bv, bvals, up(ls_), up(rs_), ml=5,
                        skip_nulls=skip)
+    # bin-packed series of 512 rows a side: every series boundary falls
+    # on an edge of a 1024-position tile, and at tiles of 16 on many
+    lt_, ls_ = packed_rows(rng, 16, 8192, 16, 600, packing)
+    rt_, rs_ = packed_rows(rng, 16, 8192, 16, 600, packing)
+    ev = up(rng.random((2, 16, 8192)) > 0.2) & up(rt_ < packing.TS_PAD)
+    evals = torch.where(ev, torch.randn(ev.shape, generator=gen, device=dev),
+                        float("nan"))
+    for tile in (merge.LOOKBACK_TILE, 16):
+        for ml in (0, 3):
+            for skip in (True, False):
+                check_lookback(merge, f"series edges on tile edges, tile "
+                               f"{tile}, skipNulls {skip}", up(lt_), up(rt_),
+                               ev, evals, up(ls_), up(rs_), ml=ml,
+                               skip_nulls=skip, _tile=tile)
     sl = np.sort(rng.integers(0, 300, (16, 4096)), -1) * NS
     sr = np.sort(rng.integers(0, 300, (16, 4096)), -1) * NS
     seq = rng.integers(-3, 4, sr.shape).astype(np.float64)
@@ -1024,10 +1073,11 @@ def phase_b_slice3(pd, left, right, dev, d_args):
     sv = up(rng.random((1,) + sr.shape) > 0.2)
     svals = torch.where(sv, torch.randn(sv.shape, generator=gen, device=dev),
                         float("nan"))
-    for skip in (True, False):
-        check_lookback(merge, f"seq tie-break, skipNulls {skip}", up(sl),
-                       up(sr), sv, svals, None, None, l_key, r_key, ml=6,
-                       skip_nulls=skip)
+    for tile in (merge.LOOKBACK_TILE, 4):
+        for skip in (True, False):
+            check_lookback(merge, f"seq tie-break, tile {tile}, skipNulls "
+                           f"{skip}", up(sl), up(sr), sv, svals, None, None,
+                           l_key, r_key, ml=6, skip_nulls=skip, _tile=tile)
     # one series of 1,000,000 rows a side (bench.py config 9's shape)
     one_l = up(np.sort(rng.integers(0, 2_000_000, (1, 1_000_000)), -1) * NS)
     one_r = up(np.sort(rng.integers(0, 2_000_000, (1, 1_000_000)), -1) * NS)
@@ -1049,14 +1099,20 @@ def phase_b_slice3(pd, left, right, dev, d_args):
             l_ts, r_ts, r_valids, LOOKBACK), reps=3),
         bound_ms=b, bound_by=by, library_ms=None,
         ms_one_series_1m=ms_one,
+        stages_ms=stage_ms(lambda: merge.asof_merge_lookback_cuda(
+            l_ts, r_ts, r_valids, LOOKBACK)),
         shape=f"[{K}, {Ll}] x [{K}, {Lr}], C={C}, max_lookback {LOOKBACK}")
     log(f"B asof_merge_lookback: bitwise equal to plain at [{K}, {Ll}]x[{K}, "
         f"{Lr}] C={C}, max_lookback 0/1/4/{LOOKBACK} x skipNulls both ways "
         f"(at 0 also equal to the merge kernel), the value form, 8 s ties, "
-        f"bin-packed [64, 4096] and seq [16, 4096] rows, and [1, 1000000]; "
+        f"2048 s ties (runs longer than a tile), bin-packed [64, 4096] "
+        f"rows, [16, 8192] rows with series edges on tile edges (tiles "
+        f"{merge.LOOKBACK_TILE} and 16), seq [16, 4096] rows (tiles "
+        f"{merge.LOOKBACK_TILE} and 4), and [1, 1000000]; "
         f"kernel {rows['asof_merge_lookback']['ms']:.4f} ms, plain "
         f"{rows['asof_merge_lookback']['plain_ms']:.4f} ms, bound {b:.4f} ms; "
-        f"[1, 1000000] {ms_one:.4f} ms")
+        f"[1, 1000000] {ms_one:.4f} ms; launches by kernel (ms a call): "
+        f"{rows['asof_merge_lookback']['stages_ms']}")
     del l_ts, r_ts, r_valids, vals, one_l, one_r, one_v
 
     # -- rank on the windowed engine's seconds and on nanoseconds ------
@@ -1095,17 +1151,36 @@ def phase_b_slice3(pd, left, right, dev, d_args):
         f"{rows['merge_rank']['library_ms']:.4f} ms")
     del ns, start_q
 
-    # -- cumsum3: a shared-memory row and phase F's global-scratch row -
+    # -- cumsum3: edge rows, [K, 8192] and phase F's row ---------------
     x, valid = lt.packed_numeric("x")
     sx, sv = d_args[2], d_args[3]
-    if cuda_lib.ladder_scratch(*sx.shape, 6, dev) is not None \
-            or cuda_lib.ladder_scratch(*x.shape, 6, dev) is None:
-        raise AssertionError("cumsum3 cases do not cover both ladder forms")
-    for a, v, what in ((sx, sv, f"shared memory {list(sx.shape)}"),
-                       (x, valid, f"global scratch {list(x.shape)}")):
-        for g, w_, out in zip(scan.cumsum3_cuda(a, v), scan.cumsum3_plain(a, v),
-                              ("x", "x^2", "count")):
-            check_bitwise(g, w_, f"cumsum3 {out} ({what})")
+    odd = torch.randn((4, 1024 * 8 + 1), generator=gen, device=dev) * 100
+    odd_v = torch.rand(odd.shape, generator=gen, device=dev) > 0.2
+    special = odd.clone()
+    special[:, 0] = -0.0
+    special[:, 1::7] = -0.0
+    special[:, 3::101] = float("nan")
+    special[:, 5::211] = float("inf")
+    special[:, 9::307] = -float("inf")
+    special_v = odd_v.clone()
+    special_v[:, 0] = True
+    cases = [("one tile [4, 1000]", odd[:, :1000].contiguous(),
+              odd_v[:, :1000].contiguous()),
+             (f"T*2^3+1 {list(odd.shape)}", odd, odd_v),
+             (f"-0.0/NaN/inf {list(odd.shape)}", special, special_v),
+             (f"{list(sx.shape)}", sx, sv),
+             (f"phase F {list(x.shape)}", x, valid)]
+    sums_ms = {}
+    for what, a, v in cases:
+        got = scan.cumsum3_cuda(a, v)
+        for want, form in ((scan.cumsum3_plain(a, v), "plain"),
+                           (scan.cumsum3_tiled_plain(a, v), "tiled plain")):
+            for g, w_, out in zip(got, want, ("x", "x^2", "count")):
+                check_bitwise(g, w_, f"cumsum3 {out} ({what}) vs {form}")
+        az = torch.where(v, a, 0.0)
+        stacked = torch.stack([az, az * az, v.float()])
+        sums_ms[what] = (time_ms(lambda: scan.cumsum3_cuda(a, v)),
+                         time_ms(lambda: torch.cumsum(stacked, dim=-1)))
     Kx, L = x.shape
     xz = torch.where(valid, x, 0.0)
     planes = torch.stack([xz, xz * xz, valid.float()])
@@ -1118,13 +1193,21 @@ def phase_b_slice3(pd, left, right, dev, d_args):
         plain_ms=time_ms(lambda: scan.cumsum3_plain(x, valid), reps=3),
         bound_ms=b, bound_by=by,
         library_ms=time_ms(lambda: torch.cumsum(planes, dim=-1)),
-        ms_shared_memory_row=time_ms(lambda: scan.cumsum3_cuda(sx, sv)),
-        shape=f"[{Kx}, {L}] (global scratch)")
-    log(f"B cumsum3: bitwise equal to plain at {list(sx.shape)} (shared "
-        f"memory) and [{Kx}, {L}] (global scratch); kernel "
-        f"{rows['cumsum3']['ms']:.4f} ms ({rows['cumsum3']['ms_shared_memory_row']:.4f} "
-        f"ms at {list(sx.shape)}), plain {rows['cumsum3']['plain_ms']:.4f} ms, "
-        f"torch.cumsum {rows['cumsum3']['library_ms']:.4f} ms")
+        ms_8192_row=sums_ms[f"{list(sx.shape)}"][0],
+        library_ms_8192_row=sums_ms[f"{list(sx.shape)}"][1],
+        stages_ms=stage_ms(lambda: scan.cumsum3_cuda(x, valid)),
+        stages_ms_8192_row=stage_ms(lambda: scan.cumsum3_cuda(sx, sv)),
+        shape=f"[{Kx}, {L}]")
+    log(f"B cumsum3: bitwise (int32 bit views) equal to plain and to the "
+        f"tiled plain version on " + ", ".join(w for w, _, _ in cases)
+        + f"; kernel {rows['cumsum3']['ms']:.4f} ms at [{Kx}, {L}], plain "
+        f"{rows['cumsum3']['plain_ms']:.4f} ms, torch.cumsum "
+        f"{rows['cumsum3']['library_ms']:.4f} ms, bound {b:.4f} ms; "
+        + "; ".join(f"{w}: {k_:.4f} ms (torch.cumsum {c_:.4f})"
+                    for w, (k_, c_) in sums_ms.items())
+        + f"; stages (ms a call) {rows['cumsum3']['stages_ms']} at "
+        f"[{Kx}, {L}], {rows['cumsum3']['stages_ms_8192_row']} at "
+        f"{list(sx.shape)}")
     log(f"B launches while comparing (not counted): {dict(cuda_lib.launches)}")
     return rows
 

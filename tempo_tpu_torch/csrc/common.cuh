@@ -78,8 +78,8 @@ __device__ __forceinline__ int block_scan_max(int v, int* sh /* >= 32 */, int* t
 
 // ---------------------------------------------------------------------
 // Hillis-Steele ladders, one block per row: ema_ladder.cu and
-// resample_ema.cu (the exact-EMA ladder below), cumsum3.cu (three
-// prefix sums).  A ladder ping-pongs between float planes of L lanes:
+// resample_ema.cu (the exact-EMA ladder below; cumsum3.cu tiles its
+// ladder instead).  A ladder ping-pongs between float planes of L lanes:
 // in dynamic shared memory while they fit kEmaSmemLimit, else in the
 // block's slice of a global scratch of [K, n_planes, L] floats that the
 // wrapper allocates (cuda_lib.ladder_scratch makes the same decision).

@@ -17,7 +17,8 @@ Counterpart of ``tempo_tpu/join.py`` (reference tsdf.py:463-560):
 Engines past the single-program limit (``profiling.pick_join_engine``):
 ``chunked`` runs the lookback kernel (``ops/merge.asof_merge_lookback``,
 the port of the reference's lane-chunked kernel; on Hopper a row of any
-width is one search, so there is no chunk plan), which also carries
+width is cut into tiles inside the kernel, so there is no host chunk
+plan), which also carries
 ``maxLookback`` on every engine; ``bracket`` splits series into exact
 host time brackets and runs the merge kernel.  All engines give the
 same indices; a CPU tensor runs the plain versions.

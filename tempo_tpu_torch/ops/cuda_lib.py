@@ -72,9 +72,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "tempo_asof_merge": [_P] * 12 + [_I] * 5 + [_P],
-    "tempo_asof_merge_lookback": [_P] * 13 + [_I] * 6 + [_P],
+    "tempo_asof_merge_lookback": [_P] * 13 + [_I] * 7 + [_P],
     "tempo_merge_rank": [_P] * 3 + [_I] * 5 + [_P],
-    "tempo_cumsum3": [_P] * 6 + [_I, _I, _P],
+    "tempo_cumsum3": [_P] * 5 + [_I, _I, _P],
     "tempo_range_stats": [_P] * 6 + [_I] * 7 + [_P],
     "tempo_legacy_stats": [_P] * 5 + [_I] * 6 + [_P],
     "tempo_bucket_stats": [_P] * 5 + [_I] * 3 + [_P],
@@ -92,8 +92,10 @@ _SIGNATURES = {
                                + [_P] * 2 + [_I] * 4 + [_P],
     "tempo_error_string": [_I],
 }
-#: the staged forms' shared-memory totals, as the kernels compute them
+#: the staged forms' shared-memory totals, as the kernels compute them,
+#: and the longest row of the ``cumsum3`` kernel (64-bit results)
 _SMEM_SIGNATURES = {
+    "tempo_cumsum3_max_lanes": [],
     "tempo_bucket_ring_smem": [_I] * 4,
     "tempo_range_ring_smem": [_I] * 5,
     "tempo_resample_ring_smem": [_I] * 3,
@@ -209,6 +211,12 @@ def launch(kernel: str, device, entry: str, *args) -> None:
 def ptr(t) -> int:
     """Device pointer of a tensor, or None (NULL) for None."""
     return None if t is None else t.data_ptr()
+
+
+def cumsum3_max_lanes() -> int:
+    """Longest row the ``cumsum3`` kernel takes (its second stage holds a
+    row's residue classes in shared memory)."""
+    return lib().tempo_cumsum3_max_lanes()
 
 
 def ladder_scratch(K: int, L: int, n_planes: int, device,

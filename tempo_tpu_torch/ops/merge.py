@@ -10,8 +10,9 @@ Counterpart of ``tempo_tpu/ops/pallas_merge.py``:
 * ``asof_merge_lookback``: ``_make_chunked_kernel`` (through
   ``_chunked_call``) behind ``asof_merge_values_chunked`` and
   ``asof_merge_indices_chunked``, the join with Scala's ``maxLookback``
-  horizon; the TPU's merged-lane chunks have no counterpart, since the
-  Hopper kernel searches rows of any width;
+  horizon; the TPU's merged-lane chunks, carried in sequence, become
+  parallel merge-path tiles with a look-back carry
+  (``asof_merge_lookback_tiled_plain`` runs that design on the CPU);
 * ``merge_rank``: ``_make_rank_kernel`` (through ``_rank_call``) behind
   ``merge_rank_pallas``.
 
@@ -41,6 +42,9 @@ from tempo_tpu_torch.ops import cuda_lib, window_utils
 
 _I32_MIN = -(2**31)
 _I64_MIN = -(2**63)
+#: merged positions a tile of the lookback kernel (``csrc/asof_merge.cu``
+#: kTileMax)
+LOOKBACK_TILE = 1024
 
 
 def seq_kernel_form(seq: Optional[np.ndarray]) -> Optional[np.ndarray]:
@@ -204,9 +208,10 @@ def asof_merge_plain(l_ts, r_ts, r_valids, r_values=None, l_sid=None,
 
 
 def _join_cuda(l_ts, r_ts, r_valids, r_values, l_sid, r_sid, l_key, r_key,
-               skip_nulls, max_lookback=None):
+               skip_nulls, max_lookback=None, tile=None):
     """Check the operands and launch the merge kernel, or with
-    ``max_lookback`` given, the lookback kernel."""
+    ``max_lookback`` given, the lookback kernel over tiles of ``tile``
+    merged positions."""
     K, Ll = l_ts.shape
     Lr = r_ts.shape[-1]
     C = r_valids.shape[0]
@@ -236,26 +241,31 @@ def _join_cuda(l_ts, r_ts, r_valids, r_values, l_sid, r_sid, l_key, r_key,
     col_idx = torch.empty(C, K, Ll, dtype=torch.int32, device=dev)
     vals = (torch.empty(C, K, Ll, dtype=torch.float32, device=dev)
             if r_values is not None else None)
-    scan = (torch.empty(C, K, Lr, dtype=torch.int32, device=dev)
-            if skip_nulls and C else None)
     if K and Ll:
         p = cuda_lib.ptr
         head = (p(l_ts), p(r_ts), p(l_sid), p(r_sid), p(l_key), p(r_key),
-                p(r_valids), p(r_values), p(scan))
+                p(r_valids), p(r_values))
         tail = (p(last), p(col_idx), p(vals), K, Ll, Lr, C,
                 int(bool(skip_nulls)))
         if max_lookback is None:
+            scan = (torch.empty(C, K, Lr, dtype=torch.int32, device=dev)
+                    if skip_nulls and C else None)
             cuda_lib.launch("asof_merge", dev, "tempo_asof_merge", *head,
-                            *tail)
+                            p(scan), *tail)
         else:
             # positions stay below Ll + Lr < 2^31: a wider horizon caps
             # nothing, as the plain version's windows clamp to the row
             ml = min(max_lookback, 2**31 - 1)
-            rpos = (torch.empty(K, Lr, dtype=torch.int32, device=dev)
-                    if ml else None)
+            # per tile: its split and the position of the right row before
+            # it; per (column, tile): the carry-in and its position
+            ntiles = -(-(Ll + Lr) // tile)
+            split = torch.empty(2, K, ntiles + 1, dtype=torch.int32,
+                                device=dev)
+            carry = (torch.empty(2, C, K, ntiles, dtype=torch.int32,
+                                 device=dev) if skip_nulls and C else None)
             cuda_lib.launch("asof_merge_lookback", dev,
-                            "tempo_asof_merge_lookback", *head, p(rpos),
-                            *tail, ml)
+                            "tempo_asof_merge_lookback", *head, p(split),
+                            p(carry), *tail, ml, tile)
     return last, col_idx, vals
 
 
@@ -355,15 +365,143 @@ def asof_merge_lookback_plain(l_ts, r_ts, r_valids, max_lookback: int,
             _gather_values(r_values, col_idx))
 
 
+def _right_first(r, l):
+    """Whether right keys ``r`` come before left keys ``l`` (each a
+    (sid or None, ts, seq key or None) triple of like-shaped tensors) in
+    the merged order: right wins full ties."""
+    r_sid, r_ts, r_key = r
+    l_sid, l_ts, l_key = l
+    tie = r_ts == l_ts
+    if r_key is not None:
+        tie = tie & (r_key <= l_key)
+    first = (r_ts < l_ts) | tie
+    if r_sid is not None:
+        first = torch.where(r_sid != l_sid, r_sid < l_sid, first)
+    return first
+
+
+def _keys_at(keys, idx):
+    """The (sid, ts, seq) triple of a [K, L] side at [K, n] indices
+    (clamped into the row)."""
+    n = keys[1].shape[-1]
+    at = idx.clamp(0, max(n - 1, 0))
+    return tuple(None if k is None else torch.gather(k, 1, at) for k in keys)
+
+
+def _first_false(lo, hi, pred):
+    """Per element, the first m in [lo, hi) with ``pred(m)`` False
+    (``pred`` True on a prefix), by a binary search."""
+    lo, hi = lo.clone(), hi.clone()
+    while bool((lo < hi).any()):
+        active = lo < hi
+        mid = (lo + hi) // 2
+        ok = pred(mid)
+        lo = torch.where(active & ok, mid + 1, lo)
+        hi = torch.where(active & ~ok, mid, hi)
+    return lo
+
+
+def asof_merge_lookback_tiled_plain(l_ts, r_ts, r_valids, max_lookback: int,
+                                    r_values=None, l_sid=None, r_sid=None,
+                                    l_key=None, r_key=None,
+                                    skip_nulls: bool = True,
+                                    tile: int = LOOKBACK_TILE):
+    """:func:`asof_merge_lookback_plain`'s outputs by the lookback
+    kernel's merge-path tiles, as tensor code: each tile of ``tile``
+    merged positions finds its split by a co-rank search on its
+    diagonals, ranks its left and right rows against the other side's
+    slice alone (so merged positions come from the tile), and for
+    skipNulls takes each column's last valid right row before it from
+    an exclusive running max of the tiles' aggregates (the look-back
+    carry)."""
+    ml = _check_lookback(max_lookback)
+    K, Ll = l_ts.shape
+    Lr = r_ts.shape[-1]
+    C = r_valids.shape[0]
+    dev = l_ts.device
+    total = Ll + Lr
+    nt = -(-total // tile)
+    lk, rk = (l_sid, l_ts, l_key), (r_sid, r_ts, r_key)
+    row = lambda n: torch.arange(n, device=dev).expand(K, n)
+    # the splits: left rows among the first d merged positions
+    d = (torch.arange(nt + 1, device=dev) * tile).clamp(max=total).expand(K, -1)
+    split = _first_false(
+        (d - Lr).clamp(min=0), d.clamp(max=Ll),
+        lambda m: ~_right_first(_keys_at(rk, d - 1 - m), _keys_at(lk, m)))
+    d_right = d - split                        # right rows before each diagonal
+    # each left row's tile, and its right rows before it inside the tile
+    li = row(Ll)
+    ql = torch.searchsorted(split.contiguous(), li.contiguous(),
+                            right=True) - 1
+    j_lo_l = torch.gather(d_right, 1, ql)
+    j_hi_l = torch.gather(d_right, 1, ql + 1)
+    lkeys = _keys_at(lk, li)
+    lo = _first_false(j_lo_l, j_hi_l,
+                      lambda m: _right_first(_keys_at(rk, m), lkeys))
+    # each right row's tile, and the left rows strictly before it there
+    rj = row(Lr)
+    qr = torch.searchsorted(d_right.contiguous(), rj.contiguous(),
+                            right=True) - 1
+    rkeys = _keys_at(rk, rj)
+    lb = _first_false(torch.gather(split, 1, qr),
+                      torch.gather(split, 1, qr + 1),
+                      lambda m: ~_right_first(rkeys, _keys_at(lk, m)))
+    rpos = rj + lb
+    pos = li + lo
+
+    def stale(j):
+        return (ml > 0) & (pos - torch.gather(rpos, 1, j.clamp(min=0)) > ml)
+
+    def other(j):
+        if l_sid is None:
+            return torch.zeros_like(j, dtype=torch.bool)
+        return torch.gather(r_sid, 1, j.clamp(min=0)) != l_sid
+
+    base = lo - 1
+    base = torch.where((base >= 0) & other(base), -1, base)
+    last = torch.where((base >= 0) & stale(base), -1, base)
+    rvalid = _right_valid(r_valids, r_values)
+    cols = []
+    for c in range(C):
+        if skip_nulls:
+            cand = torch.where(rvalid[c], rj, -1)
+            agg = torch.full((K, nt), -1, dtype=cand.dtype, device=dev)
+            agg = agg.scatter_reduce(1, qr, cand, "amax")
+            carry = torch.cat([torch.full((K, 1), -1, dtype=agg.dtype,
+                                          device=dev),
+                               torch.cummax(agg, 1).values[:, :-1]], 1)
+            run = torch.cummax(cand, 1).values
+            run = torch.where(run >= torch.gather(d_right, 1, qr), run, -1)
+            lv = torch.maximum(torch.gather(carry, 1, qr), run)
+            j = torch.where(base >= j_lo_l,
+                            torch.gather(lv, 1, base.clamp(min=0)),
+                            torch.gather(carry, 1, ql))
+            j = torch.where(base >= 0, j, -1)
+            j = torch.where((j >= 0) & (other(j) | stale(j)), -1, j)
+        else:
+            ok = torch.gather(rvalid[c], 1, last.clamp(min=0))
+            j = torch.where((last >= 0) & ok, last, -1)
+        cols.append(j)
+    col_idx = _stack_cols(cols, K, Ll, dev)
+    return (last.to(torch.int32), col_idx.to(torch.int32),
+            _gather_values(r_values, col_idx))
+
+
 def asof_merge_lookback_cuda(l_ts, r_ts, r_valids, max_lookback: int,
                              r_values=None, l_sid=None, r_sid=None,
                              l_key=None, r_key=None,
-                             skip_nulls: bool = True):
+                             skip_nulls: bool = True,
+                             _tile: int = LOOKBACK_TILE):
     """Launch the lookback kernel (any ``max_lookback``, 0 included);
     same contract as :func:`asof_merge_lookback_plain`, with float32
-    values."""
+    values.  ``_tile`` (1 to ``LOOKBACK_TILE`` merged positions) is for
+    tests that put tile edges inside small cases."""
+    if not 1 <= _tile <= LOOKBACK_TILE:
+        raise ValueError(f"lookback tile must be 1..{LOOKBACK_TILE}, got "
+                         f"{_tile}")
     return _join_cuda(l_ts, r_ts, r_valids, r_values, l_sid, r_sid, l_key,
-                      r_key, skip_nulls, _check_lookback(max_lookback))
+                      r_key, skip_nulls, _check_lookback(max_lookback),
+                      int(_tile))
 
 
 def asof_merge_lookback(l_ts, r_ts, r_valids, max_lookback: int,

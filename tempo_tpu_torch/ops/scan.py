@@ -15,7 +15,9 @@ Counterpart of ``tempo_tpu/ops/pallas_kernels.py``:
   valid lane at or before each lane (0 before the first) and has-valid.
 * ``cumsum3`` (``_cumsum3_kernel``): inclusive prefix sums of masked x,
   masked x² and the valid count, by the TPU kernel's Hillis-Steele
-  ladder, so float32 sums round the same way.
+  ladder, so float32 sums round the same way.  The kernel tiles the
+  ladder (a tile-local stage, then a ladder along each residue class);
+  ``cumsum3_tiled_plain`` runs the same two stages as tensor code.
 
 A CUDA tensor goes to the kernel (``csrc/ema_ladder.cu``,
 ``csrc/index_scan.cu``, ``csrc/cumsum3.cu``), a CPU tensor to the plain
@@ -202,9 +204,53 @@ def cumsum3_plain(x: torch.Tensor, valid: torch.Tensor):
     return tuple(sums)
 
 
+def _ladder_levels(L: int) -> int:
+    """Levels of a Hillis-Steele ladder over ``L`` lanes (spans < L)."""
+    return max(int(L) - 1, 0).bit_length()
+
+
+def _shift_m(z: torch.Tensor, span: int) -> torch.Tensor:
+    """[K, M, T] moved by ``span`` along M, 0 in the gap."""
+    return _shift(z.transpose(1, 2), span, 0.0).transpose(1, 2)
+
+
+def cumsum3_tiled_plain(x: torch.Tensor, valid: torch.Tensor,
+                        tile_log2: int = 10):
+    """:func:`cumsum3_plain`'s sums by the kernel's two stages, bit for
+    bit: with T = 2^min(tile_log2, levels), stage 1 runs the ladder's
+    levels of spans < T on each tile of T lanes from the tile and the T
+    lanes before it alone (0 before the row's start); stage 2 runs the
+    levels of spans T, 2T, ... < L as a ladder along each residue class
+    ``i mod T``, 0 added where the class index m < span / T.  In
+    ``x``'s dtype."""
+    K, L = x.shape
+    t = min(int(tile_log2), _ladder_levels(L))
+    T = 1 << t
+    nt = -(-L // T)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    xz = torch.where(valid, x, zero)
+    out = []
+    for p in (xz, xz * xz, valid.to(x.dtype)):
+        row = torch.cat([torch.zeros(K, T, dtype=x.dtype, device=x.device),
+                         p, torch.zeros(K, nt * T - L, dtype=x.dtype,
+                                        device=x.device)], -1)
+        win = row.unfold(-1, 2 * T, T)          # [K, nt, 2T] tile + halo
+        span = 1
+        while span < T:
+            win = win + _shift(win, span, 0.0)
+            span *= 2
+        z = win[..., T:]                         # [K, nt, T]
+        span = 1
+        while span * T < L:
+            z = z + _shift_m(z, span)
+            span *= 2
+        out.append(z.reshape(K, nt * T)[:, :L])
+    return tuple(out)
+
+
 def cumsum3_cuda(x: torch.Tensor, valid: torch.Tensor):
-    """Launch the prefix-sum ladder kernel on float32 [K, L] CUDA
-    tensors."""
+    """Launch the tiled prefix-sum kernel on float32 [K, L] CUDA tensors
+    (one call, two launches for rows longer than 1024 lanes)."""
     if x.dtype != torch.float32 or x.dim() != 2:
         raise TypeError(f"cumsum3 kernel takes float32 [K, L], got {x.dtype} "
                         f"{tuple(x.shape)}")
@@ -217,10 +263,11 @@ def cumsum3_cuda(x: torch.Tensor, valid: torch.Tensor):
     out = tuple(torch.empty_like(x) for _ in range(3))
     if K == 0 or L == 0:
         return out
-    scratch = cuda_lib.ladder_scratch(K, L, 6, x.device)
+    if L > cuda_lib.cumsum3_max_lanes():
+        raise ValueError(f"cumsum3 kernel takes rows of at most "
+                         f"{cuda_lib.cumsum3_max_lanes()} lanes, got {L}")
     cuda_lib.launch("cumsum3", x.device, "tempo_cumsum3", x.data_ptr(),
-                    valid.data_ptr(), *(o.data_ptr() for o in out),
-                    cuda_lib.ptr(scratch), K, L)
+                    valid.data_ptr(), *(o.data_ptr() for o in out), K, L)
     return out
 
 
