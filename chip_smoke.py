@@ -12,16 +12,25 @@ A. Build the nine CUDA sources of ``tempo_tpu_torch/csrc`` (one nvcc
    and print the build seconds.
 B. Hold each kernel against its plain PyTorch version on the card, in
    float32, at the shapes the main paths give it: the merge join
-   bitwise, range stats bitwise for ``count``/``clipped`` and within
+   bitwise, against the plain version and the row walk's CPU mirror
+   (``asof_merge_walk_plain``), at the HHAR shape (index form, the row
+   walk), phase D's value form, bin-packed rows (sid fence) and a
+   sequence tie-break through both forms (row walk and tiles), skipNulls
+   both ways, and few long rows ([8, 25000], the tiles by the shape
+   pick); range stats bitwise for ``count``/``clipped`` and within
    1e-5 elsewhere (``stddev`` as the variance; also on a forward window with bounds small enough to
-   clip both ways), the EMA ladder bitwise.  Print kernel, plain and
-   library times (``torch.searchsorted`` for the join's last-row index,
-   timed here only as a yardstick; the port never calls it).  Then the
+   clip both ways); the EMA ladder bitwise against the plain version and
+   its tiled mirror (``ema_tiled_plain``), alpha 0.2 and 1, at the HHAR
+   shape, phase D's, the one-launch limit of 16,384 lanes and rows of
+   T * 2^j + 1 lanes with -0.0, NaN and +-inf (phase F's rows in the
+   third slice's part).  Print kernel, plain and library times
+   (``torch.searchsorted`` for the join's last-row index, timed here
+   only as a yardstick; the port never calls it).  Then the
    second slice's kernels, all bitwise: the valid-index scans on the
    masks of the 1-second interpolation grid of the right frame,
    ``last_valid_scan`` on its packed ``wx`` column, and ``resample_ema``
    at its packed shape, on seconds shifted before 1970, and on rows
-   long enough to take the global-scratch ladder (``torch.cummax`` of
+   long enough to take its global-scratch ladder (``torch.cummax`` of
    the candidate lanes is the last-valid-index yardstick).  Then the
    third slice's kernels, all bitwise, at phase F's packed shape: the
    lookback merge at ``max_lookback`` 0, 1, 4 and 16, ``skipNulls`` both
@@ -35,7 +44,8 @@ B. Hold each kernel against its plain PyTorch version on the card, in
    is its yardstick); ``cumsum3`` on a one-tile row, a row of 8193
    lanes (T * 2^3 + 1), the same with -0.0, NaN and +-inf, phase D's
    [K, 8192] and phase F's row, against the plain ladder and the tiled
-   plain version, each timed beside ``torch.cumsum``.
+   plain version, each timed beside ``torch.cumsum``; the EMA ladder's
+   two-stage form on phase F's rows, bitwise, timed and split by kernel.
    Then the fourth slice's legacy stats kernel: ``count``, ``min``,
    ``max`` and ``clipped`` bitwise, the rest as range stats are held, on
    the HHAR left frame's packed ``x`` with the row bounds of a 10 s and
@@ -418,13 +428,14 @@ def phase_b(pd, left, right, dev, d_args):
     K, Ll = l_ts.shape
     C, _, Lr = r_valids.shape
     got = merge.asof_merge_cuda(l_ts, r_ts, r_valids)
-    want = merge.asof_merge_plain(l_ts, r_ts, r_valids)
     merge_err = 0.0
-    for g, w, what in zip(got[:2], want[:2], ("last_row_idx", "per_col_idx")):
-        merge_err = max(merge_err, float((g - w).abs().max()))
-        if not torch.equal(g, w):
-            raise AssertionError(f"merge kernel differs from its plain "
-                                 f"version in {what}")
+    for want, form in ((merge.asof_merge_plain(l_ts, r_ts, r_valids), "plain"),
+                       (merge.asof_merge_walk_plain(l_ts, r_ts, r_valids),
+                        "walk plain")):
+        for g, w, what in zip(got[:2], want[:2],
+                              ("last_row_idx", "per_col_idx")):
+            merge_err = max(merge_err, float((g - w).abs().max()))
+            check_bitwise(g, w, f"merge {what} vs {form}")
     lib_last = torch.searchsorted(r_ts, l_ts, right=True) - 1
     if not torch.equal(lib_last.to(torch.int32), got[0]):
         raise AssertionError("merge kernel last_row_idx differs from "
@@ -432,31 +443,109 @@ def phase_b(pd, left, right, dev, d_args):
     # the one-program step's value form at phase D's shape
     dl_ts, _, _, _, dr_ts, dr_valids, dr_values = d_args
     vg = merge.asof_merge_values(dl_ts, dr_ts, dr_valids, dr_values)
-    vw = merge.asof_merge_plain(dl_ts, dr_ts, dr_valids, dr_values)
-    if not (torch.equal(vg[0].view(torch.int32), vw[2].view(torch.int32))
-            and torch.equal(vg[2], vw[0])):
-        raise AssertionError("merge kernel (value form) differs from its "
-                             "plain version")
+    for vw, form in ((merge.asof_merge_plain(dl_ts, dr_ts, dr_valids,
+                                             dr_values), "plain"),
+                     (merge.asof_merge_walk_plain(dl_ts, dr_ts, dr_valids,
+                                                  dr_values), "walk plain")):
+        check_bitwise(vg[0], vw[2], f"merge values (phase D) vs {form}")
+        check_bitwise(vg[2], vw[0], f"merge last_row_idx (phase D) vs {form}")
+    # bin-packed rows (sid fence: eight series of 512 rows a side, so
+    # series edges fall on the walk's 1024-position steps), a sequence
+    # tie-break, and both together, through the row walk and the tiles,
+    # skipNulls both ways
+    rng = np.random.default_rng(8)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    lt_, ls_ = packed_rows(rng, 64, 4096, 8, 400, packing)
+    rt_, rs_ = packed_rows(rng, 64, 4096, 8, 400, packing)
+    bv = up(rng.random((2, 64, 4096)) > 0.2) & up(rt_ < packing.TS_PAD)
+    bvals = torch.where(bv, torch.randn(bv.shape, generator=gen, device=dev),
+                        float("nan"))
+    sl = np.sort(rng.integers(0, 300, (16, 4096)), -1) * NS
+    sr = np.sort(rng.integers(0, 300, (16, 4096)), -1) * NS
+    seq = rng.integers(-3, 4, sr.shape).astype(np.float64)
+    seq[rng.random(sr.shape) < 0.25] = -np.inf      # NULLS FIRST
+    for k in range(seq.shape[0]):
+        seq[k] = seq[k][np.lexsort((seq[k], sr[k]))]
+    l_key, r_key = merge.seq_keys(None, up(seq), sl.shape, sr.shape)
+    sv = up(rng.random((1,) + sr.shape) > 0.2)
+    svals = torch.where(sv, torch.randn(sv.shape, generator=gen, device=dev),
+                        float("nan"))
+    # the same bin-packed right rows with a sequence: ties in ts within a
+    # series ordered by it
+    bseq = rng.integers(-3, 4, rt_.shape).astype(np.float64)
+    bseq[rng.random(rt_.shape) < 0.25] = -np.inf
+    for k in range(bseq.shape[0]):
+        bseq[k] = bseq[k][np.lexsort((bseq[k], rt_[k], rs_[k]))]
+    bl_key, br_key = merge.seq_keys(None, up(bseq), lt_.shape, rt_.shape)
+    small = [("bin-packed [64, 4096]", (up(lt_), up(rt_), bv, bvals, up(ls_),
+                                        up(rs_))),
+             ("seq tie-break [16, 4096]", (up(sl), up(sr), sv, svals, None,
+                                           None, l_key, r_key)),
+             ("bin-packed seq [64, 4096]", (up(lt_), up(rt_), bv, bvals,
+                                            up(ls_), up(rs_), bl_key,
+                                            br_key))]
+    for what, args in small:
+        for skip in (True, False):
+            want = merge.asof_merge_plain(*args, skip_nulls=skip)
+            walk = merge.asof_merge_walk_plain(
+                *args, skip_nulls=skip, step=cuda_lib.asof_walk_step())
+            for form in ("walk", "tiles"):
+                g = merge.asof_merge_cuda(*args, skip_nulls=skip, _form=form)
+                for i, out in enumerate(("last_row_idx", "per_col_idx",
+                                         "vals")):
+                    check_bitwise(g[i], want[i], f"merge {out} ({what}, "
+                                  f"{form}, skipNulls {skip}) vs plain")
+                    check_bitwise(g[i], walk[i], f"merge {out} ({what}, "
+                                  f"{form}, skipNulls {skip}) vs walk plain")
+    # few long rows: [8, 25000] takes the tiles by the shape pick
+    few_l = up(np.sort(rng.integers(0, 50_000, (8, 25_000)), -1) * NS)
+    few_r = up(np.sort(rng.integers(0, 50_000, (8, 25_000)), -1) * NS)
+    few_v = up(rng.random((2, 8, 25_000)) > 0.05)
+    few = merge.asof_merge_cuda(few_l, few_r, few_v)
+    for want, form in ((merge.asof_merge_plain(few_l, few_r, few_v), "plain"),
+                       (merge.asof_merge_walk_plain(few_l, few_r, few_v),
+                        "walk plain")):
+        for i in range(2):
+            check_bitwise(few[i], want[i], f"merge [8, 25000] [{i}] vs {form}")
     nbytes = K * Ll * 8 + K * Lr * 8 + C * K * Lr + K * Ll * 4 * (1 + C)
-    nops = K * Ll * math.ceil(math.log2(Lr + 1))
+    nops = (K * Ll + K * Lr) * 3
     b, by = bound_ms(nbytes, nops)
+    walk_ms = lambda *a, **kw: time_ms(lambda: merge.asof_merge_cuda(*a, **kw))
     rows["asof_merge"] = dict(
         name="asof_merge", route="cuda",
         source="tempo_tpu_torch/csrc/asof_merge.cu",
         replaces="tempo_tpu/ops/pallas_merge.py:251",
         max_abs_err=merge_err,
-        ms=time_ms(lambda: merge.asof_merge_cuda(l_ts, r_ts, r_valids)),
+        ms=walk_ms(l_ts, r_ts, r_valids),
         plain_ms=time_ms(lambda: merge.asof_merge_plain(l_ts, r_ts, r_valids),
                          reps=3),
         bound_ms=b, bound_by=by,
         library_ms=time_ms(lambda: torch.searchsorted(r_ts, l_ts, right=True)),
-        shape=f"[{K}, {Ll}] x [{K}, {Lr}], C={C}")
-    log(f"B merge: bitwise equal to plain at [{K}, {Ll}]x[{K}, {Lr}] C={C} "
-        f"and at phase D's shape (value form); kernel "
-        f"{rows['asof_merge']['ms']:.4f} ms, plain "
-        f"{rows['asof_merge']['plain_ms']:.4f} ms, torch.searchsorted "
-        f"{rows['asof_merge']['library_ms']:.4f} ms")
-    del l_ts, r_ts, r_valids, got, want, lib_last
+        ms_tiles_form=walk_ms(l_ts, r_ts, r_valids, _form="tiles"),
+        ms_value_form_phase_d=walk_ms(dl_ts, dr_ts, dr_valids, dr_values),
+        ms_few_rows=walk_ms(few_l, few_r, few_v),
+        ms_few_rows_walk=walk_ms(few_l, few_r, few_v, _form="walk"),
+        library_ms_few_rows=time_ms(lambda: torch.searchsorted(
+            few_r, few_l, right=True)),
+        stages_ms_few_rows=stage_ms(lambda: merge.asof_merge_cuda(
+            few_l, few_r, few_v)),
+        shape=f"[{K}, {Ll}] x [{K}, {Lr}], C={C} (row walk); phase D "
+              f"{list(dl_ts.shape)} value form; few rows [8, 25000] "
+              f"(tiles)")
+    row = rows["asof_merge"]
+    log(f"B merge: bitwise equal to plain and to the walk plain version at "
+        f"[{K}, {Ll}]x[{K}, {Lr}] C={C}, at phase D's shape (value form), "
+        f"on {', '.join(w for w, _ in small)} (walk and tiles, skipNulls "
+        f"both ways) and at [8, 25000] (tiles); kernel {row['ms']:.4f} ms "
+        f"(tiles {row['ms_tiles_form']:.4f}), plain {row['plain_ms']:.4f} "
+        f"ms, torch.searchsorted {row['library_ms']:.4f} ms, bound "
+        f"{b:.4f} ms; phase D value form {row['ms_value_form_phase_d']:.4f} "
+        f"ms; [8, 25000] {row['ms_few_rows']:.4f} ms (walk "
+        f"{row['ms_few_rows_walk']:.4f}, torch.searchsorted "
+        f"{row['library_ms_few_rows']:.4f}; launches by kernel (ms a call) "
+        f"{row['stages_ms_few_rows']})")
+    del l_ts, r_ts, r_valids, got, lib_last, few_l, few_r, few_v, few
 
     # -- range stats at the HHAR shape (the left metric x) -----------
     lt = TSDF(left, "event_ts", ["user"], device=dev, dtype=torch.float32)
@@ -513,28 +602,50 @@ def phase_b(pd, left, right, dev, d_args):
         lambda p: (mb, ma, L, p["tile"], p["depth"])))
     del got, want, hh_row, hh_want
 
-    # -- exact EMA ladder at the HHAR shape ---------------------------
-    ema_err = check_ema(scan.ema_cuda(x, valid, 0.2),
-                        scan.ema_plain(x, valid, 0.2), "HHAR shape")
-    # rows past the shared-memory ladder take the global-scratch form
+    # -- exact EMA ladder at the HHAR shape and phase D's -------------
+    cases = [(f"HHAR {list(x.shape)}", x, valid),
+             (f"phase D {list(d_args[2].shape)}", d_args[2], d_args[3])]
+    # the one-launch form's longest rows ([K / 2, 16384]) and rows of
+    # T * 2^j + 1 lanes with -0.0, NaN and +-inf (two-stage past 16,384)
     lx = d_args[2].reshape(-1, 2 * d_args[2].shape[1])
-    lv = d_args[3].reshape(lx.shape)
-    check_ema(scan.ema_cuda(lx, lv, 0.2), scan.ema_plain(lx, lv, 0.2),
-              f"global-scratch form {list(lx.shape)}")
+    cases.append((f"one-launch limit {list(lx.shape)}", lx,
+                  d_args[3].reshape(lx.shape)))
+    egen = torch.Generator(device=dev).manual_seed(3)
+    for L_odd in (1025, 8193, 16385, 65537):
+        odd = torch.randn((4, L_odd), generator=egen, device=dev) * 100
+        odd_v = torch.rand(odd.shape, generator=egen, device=dev) > 0.2
+        odd[:, 0] = -0.0
+        odd[:, 1::7] = -0.0
+        odd[:, 3::101] = float("nan")
+        odd[:, 5::211] = float("inf")
+        odd[:, 9::307] = -float("inf")
+        odd_v[:, 0] = True
+        odd_v[-1] = False
+        cases.append((f"-0.0/NaN/inf {list(odd.shape)}", odd, odd_v))
+    for what, a, v in cases:
+        for alpha in (0.2, 1.0):
+            got = scan.ema_cuda(a, v, alpha)
+            check_ema(got, scan.ema_plain(a, v, alpha), f"{what}, alpha {alpha}")
+            check_ema(got, scan.ema_tiled_plain(a, v, alpha),
+                      f"{what}, alpha {alpha} (tiled plain)")
     levels = math.ceil(math.log2(max(L, 2)))
     b, by = bound_ms(Kw * L * (4 + 1 + 4), Kw * L * 3 * levels)
     rows["ema_ladder"] = dict(
         name="ema_ladder", route="cuda",
         source="tempo_tpu_torch/csrc/ema_ladder.cu",
         replaces="tempo_tpu/ops/pallas_kernels.py:105",
-        max_abs_err=ema_err,
+        max_abs_err=0.0,
         ms=time_ms(lambda: scan.ema_cuda(x, valid, 0.2)),
         plain_ms=time_ms(lambda: scan.ema_plain(x, valid, 0.2), reps=3),
-        bound_ms=b, bound_by=by, library_ms=None, shape=f"[{Kw}, {L}]")
-    log(f"B ema_ladder: bitwise equal to plain at [{Kw}, {L}] and, through "
-        f"global scratch, at {list(lx.shape)}; kernel "
-        f"{rows['ema_ladder']['ms']:.4f} ms, plain "
-        f"{rows['ema_ladder']['plain_ms']:.4f} ms")
+        bound_ms=b, bound_by=by, library_ms=None,
+        ms_phase_d=time_ms(lambda: scan.ema_cuda(d_args[2], d_args[3], 0.2)),
+        shape=f"[{Kw}, {L}] (one launch); phase D {list(d_args[2].shape)}")
+    log(f"B ema_ladder: bitwise (int32 bit views) equal to plain and to the "
+        f"tiled plain version, alpha 0.2 and 1, on "
+        + ", ".join(w for w, _, _ in cases)
+        + f"; kernel {rows['ema_ladder']['ms']:.4f} ms at [{Kw}, {L}] "
+        f"(bound {b:.4f}), {rows['ema_ladder']['ms_phase_d']:.4f} ms at "
+        f"phase D's shape; plain {rows['ema_ladder']['plain_ms']:.4f} ms")
     log(f"B launches while comparing (not counted): {dict(cuda_lib.launches)}")
     return rows
 
@@ -1208,6 +1319,28 @@ def phase_b_slice3(pd, left, right, dev, d_args):
         + f"; stages (ms a call) {rows['cumsum3']['stages_ms']} at "
         f"[{Kx}, {L}], {rows['cumsum3']['stages_ms_8192_row']} at "
         f"{list(sx.shape)}")
+
+    # -- the EMA ladder's two-stage form on phase F's rows -------------
+    for alpha in (0.2, 1.0):
+        got = scan.ema_cuda(x, valid, alpha)
+        check_ema(got, scan.ema_plain(x, valid, alpha),
+                  f"phase F {list(x.shape)}, alpha {alpha}")
+        check_ema(got, scan.ema_tiled_plain(x, valid, alpha),
+                  f"phase F {list(x.shape)}, alpha {alpha} (tiled plain)")
+    b, by = bound_ms(Kx * L * (4 + 1 + 4), Kx * L * 3 * levels)
+    ema_f = dict(shape_phase_f=f"[{Kx}, {L}] (two stages)",
+                 ms_phase_f=time_ms(lambda: scan.ema_cuda(x, valid, 0.2)),
+                 plain_ms_phase_f=time_ms(lambda: scan.ema_plain(x, valid, 0.2),
+                                          reps=3),
+                 bound_ms_phase_f=b,
+                 stages_ms_phase_f=stage_ms(lambda: scan.ema_cuda(x, valid,
+                                                                  0.2)))
+    rows["_ema_phase_f"] = ema_f
+    log(f"B ema_ladder: bitwise equal to plain and to the tiled plain "
+        f"version at phase F's [{Kx}, {L}] (two stages), alpha 0.2 and 1; "
+        f"kernel {ema_f['ms_phase_f']:.4f} ms, plain "
+        f"{ema_f['plain_ms_phase_f']:.4f} ms, bound {b:.4f} ms; stages (ms "
+        f"a call) {ema_f['stages_ms_phase_f']}")
     log(f"B launches while comparing (not counted): {dict(cuda_lib.launches)}")
     return rows
 
@@ -1945,6 +2078,7 @@ def main(argv=None) -> int:
     # step and H), each counted between a reset and a read
     found = add_counts(launches, launches2, launches3, long_launches,
                        launches4, launches5)
+    rows["ema_ladder"].update(rows3.pop("_ema_phase_f"))
     kernels = []
     for table in (rows, rows2, rows3, rows4, rows5):
         for name, row in table.items():

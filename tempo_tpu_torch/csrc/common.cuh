@@ -5,6 +5,7 @@
 // returns cudaGetLastError() right after its launch.
 #pragma once
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -77,10 +78,10 @@ __device__ __forceinline__ int block_scan_max(int v, int* sh /* >= 32 */, int* t
 }
 
 // ---------------------------------------------------------------------
-// Hillis-Steele ladders, one block per row: ema_ladder.cu and
-// resample_ema.cu (the exact-EMA ladder below; cumsum3.cu tiles its
-// ladder instead).  A ladder ping-pongs between float planes of L lanes:
-// in dynamic shared memory while they fit kEmaSmemLimit, else in the
+// Hillis-Steele ladders, one block per row: resample_ema.cu (the
+// exact-EMA ladder below) and bucket_stats.cu's row form (ema_ladder.cu
+// and cumsum3.cu tile theirs).  A ladder ping-pongs between float planes
+// of L lanes: in dynamic shared memory while they fit kEmaSmemLimit, else in the
 // block's slice of a global scratch of [K, n_planes, L] floats that the
 // wrapper allocates (cuda_lib.ladder_scratch makes the same decision).
 //
@@ -142,4 +143,127 @@ inline cudaError_t ladder_smem(Kernel kernel, const void* scratch, int L, int n_
     *smem = sizeof(float) * (size_t)n_planes * L;
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)*smem);
+}
+
+// ---------------------------------------------------------------------
+// Stage 2 of a tiled Hillis-Steele ladder: cumsum3.cu (three sums) and
+// ema_ladder.cu (the EMA's (d, v)).  By the lemma in cumsum3.cu's header,
+// once a first stage has run the levels of spans < T = 2^kClassTileLog2,
+// the levels of spans T, 2T, ... < L are a ladder along each residue
+// class i mod T.  A block per (row, slab of R residue classes) copies its
+// classes (asynchronous 4-byte copies, runs of R consecutive floats) into
+// shared memory, runs those levels there two at a time where two remain
+// (the same tree: (X o X[-s]) o (X[-2s] o X[-3s]), each partner the
+// identity where it runs off the class), ping-ponging two buffers of P
+// planes, and writes planes kFirstOut .. P-1 back in place.  R is the
+// widest power of two <= T that keeps a slab at kClassSlab entries (one
+// class at least) and the buffers within kEmaSmemLimit.
+//
+// Op gives kPlanes (P), kFirstOut, ident(p) (the identity's plane p) and
+// combine(a, b) (a set to a after its partner b, every operation rounded
+// as the first stage rounds it).
+// ---------------------------------------------------------------------
+
+constexpr int kClassTileLog2 = 10;     // T: residue classes mod 1024
+constexpr int kClassThreads = 256;
+constexpr size_t kClassSlab = 2048;    // entries a block (at least one class)
+
+template <int P>
+struct ClassPlanes {
+    float* p[P];
+};
+
+template <class Op>
+__global__ void __launch_bounds__(kClassThreads)
+class_ladder(ClassPlanes<Op::kPlanes> planes, int L, int log_r, int M) {
+    constexpr int P = Op::kPlanes;
+    extern __shared__ float smem[];
+    const int T = 1 << kClassTileLog2;
+    const int R = 1 << log_r;
+    const int n = M * R;
+    const size_t row = (size_t)(blockIdx.x / (T / R)) * L;
+    const int r0 = (int)(blockIdx.x % (T / R)) * R;
+    float* cur = smem;                     // plane p at [p n, (p + 1) n)
+    float* nxt = smem + P * (size_t)n;
+    auto lane_of = [&](int e) {
+        return r0 + (e & (R - 1)) + (long long)(e >> log_r) * T;
+    };
+
+    // asynchronous 4-byte copies, all in flight before the one wait
+    for (int e = threadIdx.x; e < n; e += kClassThreads) {
+        const long long i = lane_of(e);
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+            if (i < L) __pipeline_memcpy_async(cur + p * n + e, planes.p[p] + row + i,
+                                               sizeof(float));
+            else cur[p * n + e] = Op::ident(p);
+        }
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    // entry f of the buffer, or the identity where take is false
+    auto entry = [&](const float* buf, bool take, int f, float out[P]) {
+#pragma unroll
+        for (int p = 0; p < P; ++p) out[p] = take ? buf[p * n + f] : Op::ident(p);
+    };
+    long long span = 1;
+    while (span * T < L) {
+        const bool two = 2 * span * T < L;
+        const int m1 = (int)span;
+        for (int e = threadIdx.x; e < n; e += kClassThreads) {
+            const int m = e >> log_r;
+            float a[P], b[P];
+            entry(cur, true, e, a);
+            entry(cur, m >= m1, e - m1 * R, b);
+            Op::combine(a, b);
+            if (two) {
+                entry(cur, m >= 2 * m1, e - 2 * m1 * R, b);
+                if (m >= 2 * m1) {
+                    float c[P];
+                    entry(cur, m >= 3 * m1, e - 3 * m1 * R, c);
+                    Op::combine(b, c);
+                }
+                Op::combine(a, b);
+            }
+#pragma unroll
+            for (int p = 0; p < P; ++p) nxt[p * n + e] = a[p];
+        }
+        __syncthreads();
+        float* t = cur; cur = nxt; nxt = t;
+        span <<= two ? 2 : 1;
+    }
+    for (int e = threadIdx.x; e < n; e += kClassThreads) {
+        const long long i = lane_of(e);
+        if (i < L) {
+#pragma unroll
+            for (int p = Op::kFirstOut; p < P; ++p) planes.p[p][row + i] = cur[p * n + e];
+        }
+    }
+}
+
+// longest row stage 2 takes over P planes (its classes at R = 1)
+inline long long class_ladder_max_lanes(int P) {
+    return (long long)(kEmaSmemLimit / (2 * P * sizeof(float))) << kClassTileLog2;
+}
+
+// Stage 2 over K rows of L > T lanes, on the stream after stage 1.
+template <class Op>
+inline cudaError_t launch_class_ladder(ClassPlanes<Op::kPlanes> planes, int K, int L,
+                                       cudaStream_t st) {
+    constexpr size_t kEntry = 2 * Op::kPlanes * sizeof(float);   // both buffers
+    const int M = (L + (1 << kClassTileLog2) - 1) >> kClassTileLog2;
+    int log_r = kClassTileLog2;
+    while (log_r > 0 && (((size_t)M << log_r) > kClassSlab
+                         || kEntry * ((size_t)M << log_r) > (size_t)kEmaSmemLimit))
+        --log_r;
+    const size_t smem = kEntry * ((size_t)M << log_r);
+    if (smem > (size_t)kEmaSmemLimit) return cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(class_ladder<Op>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return err;
+    class_ladder<Op><<<(unsigned)((size_t)K << (kClassTileLog2 - log_r)), kClassThreads, smem,
+                       st>>>(planes, L, log_r, M);
+    return cudaGetLastError();
 }

@@ -48,35 +48,26 @@
 //     16 threads and m = 16 an add inside the thread.  Shared memory
 //     (lane index swizzled by segment: no bank conflicts either way) only
 //     carries the values between the phases and out to coalesced stores.
-//   stage 2, only for rows longer than 1024: one block per (row, slab of R
-//     residue classes), 256 threads, copies its classes for every m
-//     (asynchronous 4-byte copies, runs of R consecutive floats) into
-//     shared memory, runs the levels of spans T, 2T, ... < L there two at
-//     a time where two remain (the same tree, half the passes),
-//     ping-ponging two buffers (24 bytes an entry), and writes them back
-//     in place.  R is the widest power of two <= T that keeps a slab at
-//     kSlab = 2048 entries (one class at least, then as shared memory
-//     allows); a row longer than 9,685 * 1024 = 9,917,440 lanes does not
-//     fit even at R = 1 and is refused (the wrapper raises before the
+//   stage 2, only for rows longer than 1024: common.cuh's class_ladder
+//     over the three planes (a block per (row, slab of residue classes),
+//     the levels of spans T, 2T, ... < L in shared memory two at a time
+//     where two remain, 24 bytes an entry, written back in place); a row
+//     longer than 9,685 * 1024 = 9,917,440 lanes does not fit even at one
+//     class a block and is refused (the wrapper raises before the
 //     launch).
 //
 // Traffic at phase F's [128, 102056]: x and valid read about 1.33 times
 // (the halo), the sums written, read and written again: about 43 bytes
 // a lane, against the function's 17.
-#include <cuda_pipeline.h>
-
 #include "common.cuh"
 
 namespace {
 
-constexpr int kTileLog2 = 10;                 // T of rows longer than 1024
 constexpr int kSegs = 128;                    // 32-lane segments a stage-1 block holds
 constexpr int kThreads1 = 512;
 constexpr int kRun = kSegs / (kThreads1 / 32);   // segments a warp takes in a full tile
 constexpr int kChunks = 16;                   // threads a segment column in the column phase
 constexpr int kEnt = kSegs / kChunks;         // segments a thread holds there
-constexpr int kThreads2 = 256;
-constexpr size_t kSlab = 2048;                // stage-2 entries a block (at least one class)
 
 // shared-memory slot of lane l of segment g: rows of 32 floats, the lane
 // index swizzled so that both a row (a warp over l) and the column
@@ -237,80 +228,28 @@ cumsum3_tiles(const float* __restrict__ x, const uint8_t* __restrict__ valid,
     }
 }
 
-// Stage 2: one block per (row, slab of R residue classes), the levels of
-// spans T, 2T, ... < L along each class, two at a time where two remain
-// (the same tree: (V + V[-s]) + (V[-2s] + V[-3s]), each term 0 where it
-// runs off the class), ping-ponging two buffers of 3 * M * R floats.
-__global__ void __launch_bounds__(kThreads2)
-cumsum3_classes(float* __restrict__ s1, float* __restrict__ s2, float* __restrict__ cnt, int L,
-                int log_r, int M) {
-    extern __shared__ float smem[];
-    const int T = 1 << kTileLog2;
-    const int R = 1 << log_r;
-    const int n = M * R;
-    const size_t k = blockIdx.x / (T / R);
-    const int r0 = (int)(blockIdx.x % (T / R)) * R;
-    const size_t row = k * L;
-    float* plane[3] = {s1, s2, cnt};
-    float* cur = smem;
-    float* nxt = smem + 3 * (size_t)n;
-
-    // asynchronous 4-byte copies, all in flight before the one wait
-    for (int e = threadIdx.x; e < n; e += kThreads2) {
-        const long long i = r0 + (e & (R - 1)) + (long long)(e >> log_r) * T;
+// Stage 2's combine (common.cuh's class_ladder): the three sums, 0 the
+// identity.
+struct SumPlanes {
+    static constexpr int kPlanes = 3;
+    static constexpr int kFirstOut = 0;
+    __device__ static float ident(int) { return 0.f; }
+    __device__ static void combine(float a[3], const float b[3]) {
 #pragma unroll
-        for (int p = 0; p < 3; ++p) {
-            if (i < L) __pipeline_memcpy_async(cur + p * n + e, plane[p] + row + i, sizeof(float));
-            else cur[p * n + e] = 0.f;
-        }
+        for (int p = 0; p < 3; ++p) a[p] = __fadd_rn(a[p], b[p]);
     }
-    __pipeline_commit();
-    __pipeline_wait_prior(0);
-    __syncthreads();
-    long long span = 1;
-    while (span * T < L) {
-        const bool two = 2 * span * T < L;
-        const int m1 = (int)span;
-        for (int e = threadIdx.x; e < n; e += kThreads2) {
-            const int m = e >> log_r;
-#pragma unroll
-            for (int p = 0; p < 3; ++p) {
-                const float* v = cur + p * n;
-                float out = __fadd_rn(v[e], m >= m1 ? v[e - m1 * R] : 0.f);
-                if (two) {
-                    const float back = m >= 2 * m1
-                        ? __fadd_rn(v[e - 2 * m1 * R], m >= 3 * m1 ? v[e - 3 * m1 * R] : 0.f)
-                        : 0.f;
-                    out = __fadd_rn(out, back);
-                }
-                nxt[p * n + e] = out;
-            }
-        }
-        __syncthreads();
-        float* tmp = cur; cur = nxt; nxt = tmp;
-        span <<= two ? 2 : 1;
-    }
-    for (int e = threadIdx.x; e < n; e += kThreads2) {
-        const long long i = r0 + (e & (R - 1)) + (long long)(e >> log_r) * T;
-        if (i < L) {
-#pragma unroll
-            for (int p = 0; p < 3; ++p) plane[p][row + i] = cur[p * n + e];
-        }
-    }
-}
+};
 
 }  // namespace
 
 // longest row the two stages take (stage 2's classes at R = 1)
-extern "C" long long tempo_cumsum3_max_lanes() {
-    return (long long)(kEmaSmemLimit / (2 * 3 * sizeof(float))) << kTileLog2;
-}
+extern "C" long long tempo_cumsum3_max_lanes() { return class_ladder_max_lanes(3); }
 
 extern "C" int tempo_cumsum3(const void* x, const void* valid, void* s1, void* s2, void* cnt,
                              int K, int L, void* stream) {
     int levels = 0;
     while ((1LL << levels) < L) ++levels;        // spans 1 .. 2^(levels-1) < L
-    const int t = min(levels, kTileLog2);
+    const int t = min(levels, kClassTileLog2);
     // a row past 1024 lanes takes tiles of 3072 outputs, one a block;
     // shorter rows share a block, kSegs / S of them
     const int tiles = L > (1 << t) ? (L + (kSegs * 32 - (1 << t)) - 1) / (kSegs * 32 - (1 << t)) : 1;
@@ -319,22 +258,8 @@ extern "C" int tempo_cumsum3(const void* x, const void* valid, void* s1, void* s
     cumsum3_tiles<<<(unsigned)blocks, kThreads1, 0, (cudaStream_t)stream>>>(
         (const float*)x, (const uint8_t*)valid, (float*)s1, (float*)s2, (float*)cnt, K, L, t,
         tiles, S);
-    cudaError_t err;
-    err = cudaGetLastError();
-    if (err != cudaSuccess || levels <= kTileLog2) return (int)err;
-
-    // slabs of about kSlab entries (R <= T), fewer where a class is long
-    const int M = (L + (1 << kTileLog2) - 1) >> kTileLog2;
-    int log_r = kTileLog2;
-    while (log_r > 0 && (((size_t)M << log_r) > kSlab
-                         || 2 * 3 * sizeof(float) * ((size_t)M << log_r) > (size_t)kEmaSmemLimit))
-        --log_r;
-    const size_t smem2 = 2 * 3 * sizeof(float) * ((size_t)M << log_r);
-    if (smem2 > (size_t)kEmaSmemLimit) return (int)cudaErrorInvalidValue;
-    err = cudaFuncSetAttribute(cumsum3_classes, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem2);
-    if (err != cudaSuccess) return (int)err;
-    cumsum3_classes<<<(unsigned)((size_t)K << (kTileLog2 - log_r)), kThreads2, smem2,
-                      (cudaStream_t)stream>>>((float*)s1, (float*)s2, (float*)cnt, L, log_r, M);
-    return (int)cudaGetLastError();
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || levels <= kClassTileLog2) return (int)err;
+    return (int)launch_class_ladder<SumPlanes>({{(float*)s1, (float*)s2, (float*)cnt}}, K, L,
+                                               (cudaStream_t)stream);
 }

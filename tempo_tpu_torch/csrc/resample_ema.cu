@@ -10,7 +10,8 @@
 //   res    = head ? xs : NaN
 //   ema    = the exact EMA over the head-masked samples: (d, v) =
 //            (1 - alpha, alpha * xs) at heads, (1, 0) elsewhere, through
-//            the ladder of common.cuh (the one ema_ladder.cu runs)
+//            the ladder of common.cuh (ema_ladder.cu runs the same
+//            association in registers)
 //
 // JAX's // on int32 floors, and C's / truncates toward zero, so seconds
 // before 1970 are floored explicitly.  Pad lanes carry seconds that

@@ -71,7 +71,7 @@ build_log: List[str] = []
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "tempo_asof_merge": [_P] * 12 + [_I] * 5 + [_P],
+    "tempo_asof_merge": [_P] * 11 + [_I] * 5 + [_P],
     "tempo_asof_merge_lookback": [_P] * 13 + [_I] * 7 + [_P],
     "tempo_merge_rank": [_P] * 3 + [_I] * 5 + [_P],
     "tempo_cumsum3": [_P] * 5 + [_I, _I, _P],
@@ -93,9 +93,14 @@ _SIGNATURES = {
     "tempo_error_string": [_I],
 }
 #: the staged forms' shared-memory totals, as the kernels compute them,
-#: and the longest row of the ``cumsum3`` kernel (64-bit results)
+#: the merge walk's step and column limit, and the row limits of the
+#: ``cumsum3`` and EMA kernels (64-bit results)
 _SMEM_SIGNATURES = {
+    "tempo_asof_walk_step": [],
+    "tempo_asof_walk_cols": [],
     "tempo_cumsum3_max_lanes": [],
+    "tempo_ema_row_max": [],
+    "tempo_ema_max_lanes": [],
     "tempo_bucket_ring_smem": [_I] * 4,
     "tempo_range_ring_smem": [_I] * 5,
     "tempo_resample_ring_smem": [_I] * 3,
@@ -213,15 +218,39 @@ def ptr(t) -> int:
     return None if t is None else t.data_ptr()
 
 
+def asof_walk_step() -> int:
+    """Merged positions a step of the merge kernel's row walk."""
+    return lib().tempo_asof_walk_step()
+
+
+def asof_walk_cols() -> int:
+    """Most right columns the merge kernel's row walk takes (a validity
+    bit each in a 32-bit word)."""
+    return lib().tempo_asof_walk_cols()
+
+
 def cumsum3_max_lanes() -> int:
     """Longest row the ``cumsum3`` kernel takes (its second stage holds a
     row's residue classes in shared memory)."""
     return lib().tempo_cumsum3_max_lanes()
 
 
+def ema_row_max() -> int:
+    """Longest row the EMA kernel takes in one launch (a row in one
+    block); longer rows take its two tiled stages."""
+    return lib().tempo_ema_row_max()
+
+
+def ema_max_lanes() -> int:
+    """Longest row the EMA kernel takes (its second stage holds a row's
+    residue classes in shared memory)."""
+    return lib().tempo_ema_max_lanes()
+
+
 def ladder_scratch(K: int, L: int, n_planes: int, device,
                    static_bytes: int = 0):
-    """Global scratch of a Hillis-Steele ladder kernel (``common.cuh``):
+    """Global scratch of a whole-row Hillis-Steele ladder kernel
+    (``common.cuh``: the resample EMA and bucket stats):
     None while its ``n_planes`` float planes of ``L`` lanes, beside the
     kernel's ``static_bytes`` of static shared memory, fit one block's
     shared memory, else [K, n_planes, L] float32."""

@@ -6,7 +6,13 @@ Counterpart of ``tempo_tpu/ops/pallas_merge.py``:
 * ``asof_merge``: the Pallas kernel ``_make_kernel`` (through
   ``_merge_call``) behind ``asof_merge_values_pallas`` and
   ``asof_merge_indices_pallas``, including the sequence re-encoding of
-  ``seq_kernel_form``;
+  ``seq_kernel_form``; the kernel walks each row's merged stream in
+  steps of ``cuda_lib.asof_walk_step()`` positions with each column's
+  carry (``asof_merge_walk_plain`` runs that design on the CPU), and
+  calls with fewer rows than ``WALK_ROWS_PER_SM`` a streaming
+  multiprocessor (or more than ``cuda_lib.asof_walk_cols()`` right
+  columns) go to the lookback kernel's tiles at ``max_lookback = 0``
+  instead;
 * ``asof_merge_lookback``: ``_make_chunked_kernel`` (through
   ``_chunked_call``) behind ``asof_merge_values_chunked`` and
   ``asof_merge_indices_chunked``, the join with Scala's ``maxLookback``
@@ -45,6 +51,9 @@ _I64_MIN = -(2**63)
 #: merged positions a tile of the lookback kernel (``csrc/asof_merge.cu``
 #: kTileMax)
 LOOKBACK_TILE = 1024
+#: rows a streaming multiprocessor below which the merge join runs on
+#: the lookback kernel's tiles (a row walk is one block a row)
+WALK_ROWS_PER_SM = 3
 
 
 def seq_kernel_form(seq: Optional[np.ndarray]) -> Optional[np.ndarray]:
@@ -208,10 +217,12 @@ def asof_merge_plain(l_ts, r_ts, r_valids, r_values=None, l_sid=None,
 
 
 def _join_cuda(l_ts, r_ts, r_valids, r_values, l_sid, r_sid, l_key, r_key,
-               skip_nulls, max_lookback=None, tile=None):
-    """Check the operands and launch the merge kernel, or with
-    ``max_lookback`` given, the lookback kernel over tiles of ``tile``
-    merged positions."""
+               skip_nulls, max_lookback=None, tile=None, form=None):
+    """Check the operands and launch the merge kernel's row walk, or the
+    lookback kernel over tiles of ``tile`` merged positions: with
+    ``max_lookback`` given, or at 0 for a merge join of too few rows to
+    fill the card by a block a row (counted as ``asof_merge``).  A merge
+    join's ``form`` ("walk" or "tiles") overrides that pick."""
     K, Ll = l_ts.shape
     Lr = r_ts.shape[-1]
     C = r_valids.shape[0]
@@ -247,15 +258,27 @@ def _join_cuda(l_ts, r_ts, r_valids, r_values, l_sid, r_sid, l_key, r_key,
                 p(r_valids), p(r_values))
         tail = (p(last), p(col_idx), p(vals), K, Ll, Lr, C,
                 int(bool(skip_nulls)))
-        if max_lookback is None:
-            scan = (torch.empty(C, K, Lr, dtype=torch.int32, device=dev)
-                    if skip_nulls and C else None)
+        if max_lookback is None and form is None:
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            form = ("walk" if K >= WALK_ROWS_PER_SM * sms
+                    and C <= cuda_lib.asof_walk_cols()
+                    else "tiles")
+        if form == "walk":
+            if C > cuda_lib.asof_walk_cols():
+                raise ValueError(f"the merge kernel's row walk takes at most "
+                                 f"{cuda_lib.asof_walk_cols()} right "
+                                 f"columns, got {C}")
             cuda_lib.launch("asof_merge", dev, "tempo_asof_merge", *head,
-                            p(scan), *tail)
+                            *tail)
         else:
-            # positions stay below Ll + Lr < 2^31: a wider horizon caps
-            # nothing, as the plain version's windows clamp to the row
-            ml = min(max_lookback, 2**31 - 1)
+            # few rows: the lookback kernel's tiles at max_lookback = 0
+            # (the same join); positions stay below Ll + Lr < 2^31, so a
+            # wider horizon caps nothing, as the plain version's windows
+            # clamp to the row
+            counter = "asof_merge" if max_lookback is None else \
+                "asof_merge_lookback"
+            ml = min(max_lookback or 0, 2**31 - 1)
+            tile = tile or LOOKBACK_TILE
             # per tile: its split and the position of the right row before
             # it; per (column, tile): the carry-in and its position
             ntiles = -(-(Ll + Lr) // tile)
@@ -263,7 +286,7 @@ def _join_cuda(l_ts, r_ts, r_valids, r_values, l_sid, r_sid, l_key, r_key,
                                 device=dev)
             carry = (torch.empty(2, C, K, ntiles, dtype=torch.int32,
                                  device=dev) if skip_nulls and C else None)
-            cuda_lib.launch("asof_merge_lookback", dev,
+            cuda_lib.launch(counter, dev,
                             "tempo_asof_merge_lookback", *head, p(split),
                             p(carry), *tail, ml, tile)
     return last, col_idx, vals
@@ -271,11 +294,16 @@ def _join_cuda(l_ts, r_ts, r_valids, r_values, l_sid, r_sid, l_key, r_key,
 
 def asof_merge_cuda(l_ts, r_ts, r_valids, r_values=None, l_sid=None,
                     r_sid=None, l_key=None, r_key=None,
-                    skip_nulls: bool = True):
-    """Launch the merge kernel; same contract as
-    :func:`asof_merge_plain`, with float32 values."""
+                    skip_nulls: bool = True, _form=None):
+    """Launch the merge kernel (the row walk, or the lookback tiles for
+    few rows); same contract as :func:`asof_merge_plain`, with float32
+    values.  ``_form`` ("walk" or "tiles") forces a form, for tests and
+    ``chip_smoke.py``."""
+    if _form not in (None, "walk", "tiles"):
+        raise ValueError(f"merge form must be 'walk' or 'tiles', got "
+                         f"{_form!r}")
     return _join_cuda(l_ts, r_ts, r_valids, r_values, l_sid, r_sid, l_key,
-                      r_key, skip_nulls)
+                      r_key, skip_nulls, form=_form)
 
 
 def asof_merge(l_ts, r_ts, r_valids, r_values=None, l_sid=None, r_sid=None,
@@ -483,6 +511,88 @@ def asof_merge_lookback_tiled_plain(l_ts, r_ts, r_valids, max_lookback: int,
             j = torch.where((last >= 0) & ok, last, -1)
         cols.append(j)
     col_idx = _stack_cols(cols, K, Ll, dev)
+    return (last.to(torch.int32), col_idx.to(torch.int32),
+            _gather_values(r_values, col_idx))
+
+
+def asof_merge_walk_plain(l_ts, r_ts, r_valids, r_values=None, l_sid=None,
+                          r_sid=None, l_key=None, r_key=None,
+                          skip_nulls: bool = True, step: int = 1024):
+    """:func:`asof_merge_plain`'s outputs by the merge kernel's row walk,
+    as tensor code: every row walks its merged stream in steps of
+    ``step`` positions (the kernel's is ``cuda_lib.asof_walk_step()``;
+    the result does not depend on it) from (i_lo, j_lo), the left and
+    right rows before the step, ranking the step's positions against the
+    next ``step`` rows of each side alone (a co-rank search at each
+    position); each column's last valid right row before the step is the
+    carry, and a running max over the step's right rows from it gives
+    each left row its last valid row.  The walk of a row ends with its
+    last left row."""
+    K, Ll = l_ts.shape
+    Lr = r_ts.shape[-1]
+    C = r_valids.shape[0]
+    dev = l_ts.device
+    lk, rk = (l_sid, l_ts, l_key), (r_sid, r_ts, r_key)
+    rvalid = _right_valid(r_valids, r_values)
+    i64 = dict(dtype=torch.int64, device=dev)
+    # one spare slot a row takes the writes of positions that are none
+    last = torch.full((K, Ll + 1), -1, **i64)
+    cols = torch.full((C, K, Ll + 1), -1, **i64)
+    carry = torch.full((C, K), -1, **i64)
+    i_lo = torch.zeros(K, **i64)
+    j_lo = torch.zeros(K, **i64)
+    pos = torch.arange(step + 1, **i64)
+    rc = lambda t: t.clamp(0, max(Lr - 1, 0))   # a gather's right row
+    if not Lr:
+        i_lo = torch.full_like(i_lo, Ll)        # no right rows: all -1
+    while bool((i_lo < Ll).any()):
+        live = i_lo < Ll
+        nla = (Ll - i_lo).clamp(max=step)
+        nra = (Lr - j_lo).clamp(max=step)
+        n = torch.where(live, torch.clamp(nla + nra, max=step), 0)[:, None]
+        P = torch.minimum(pos.expand(K, -1), n)
+        li = _first_false(
+            (P - nra[:, None]).clamp(min=0), torch.minimum(P, nla[:, None]),
+            lambda m: ~_right_first(_keys_at(rk, j_lo[:, None] + P - 1 - m),
+                                    _keys_at(lk, i_lo[:, None] + m)))
+        nl = torch.gather(li, 1, n)[:, 0]
+        nr = n[:, 0] - nl
+        q = pos[:step].expand(K, -1)
+        is_left = (q < n) & (li[:, 1:] > li[:, :-1])
+        e = li[:, :-1]                              # left row of position q
+        at = torch.where(is_left, i_lo[:, None] + e, Ll)
+        base = j_lo[:, None] + q - e - 1            # its last right row
+        if l_sid is not None:
+            l_s = torch.gather(l_sid, 1, at.clamp(max=Ll - 1))
+            other = torch.gather(r_sid, 1, rc(base)) != l_s
+            base = torch.where((base >= 0) & other, -1, base)
+        last.scatter_(1, at, torch.where(is_left, base, -1))
+        # the step's right rows j_lo + m, m < nr
+        rj = j_lo[:, None] + q
+        in_step = q < nr[:, None]
+        for c in range(C):
+            if skip_nulls:
+                ok = torch.gather(rvalid[c], 1, rc(rj))
+                cand = torch.where(in_step & ok, rj, -1)
+                lv = torch.maximum(torch.cummax(cand, 1).values,
+                                   carry[c][:, None])
+                j = torch.where(base >= j_lo[:, None],
+                                torch.gather(lv, 1, (base - j_lo[:, None])
+                                             .clamp(min=0)),
+                                carry[c][:, None])
+                j = torch.where(base >= 0, j, -1)
+                if l_sid is not None:
+                    other = torch.gather(r_sid, 1, rc(j)) != l_s
+                    j = torch.where((j >= 0) & other, -1, j)
+                carry[c] = torch.maximum(carry[c], cand.max(1).values)
+            else:
+                ok = torch.gather(rvalid[c], 1, rc(base))
+                j = torch.where((base >= 0) & ok, base, -1)
+            cols[c].scatter_(1, at, torch.where(is_left, j, -1))
+        i_lo = i_lo + nl
+        j_lo = j_lo + nr
+    last = last[:, :Ll]
+    col_idx = cols[..., :Ll]
     return (last.to(torch.int32), col_idx.to(torch.int32),
             _gather_values(r_values, col_idx))
 

@@ -7,7 +7,9 @@ Counterpart of ``tempo_tpu/ops/pallas_kernels.py``:
   y_{t-1} + a x_t``; rows with ``valid`` False carry the previous value
   forward.  Both forms combine the recurrence's (d, v) pairs by the
   same Hillis-Steele ladder with the same association as the TPU
-  kernel, so f32 results round the same way.
+  kernel, so f32 results round the same way.  The kernel holds a row
+  in one block's registers up to 16,384 lanes and tiles longer rows in
+  two stages; ``ema_tiled_plain`` runs those forms as tensor code.
 * ``last_valid_index_scan`` / ``first_valid_index_scan``
   (``_last/_first_valid_index_kernel``): the running max of ``valid ?
   lane : -1`` and the reverse running min of ``valid ? lane : L``, int32.
@@ -38,25 +40,76 @@ def _shift(a: torch.Tensor, span: int, identity: float) -> torch.Tensor:
     return torch.cat([pad, a[..., :-span]], dim=-1)
 
 
-def ema_plain(x: torch.Tensor, valid: torch.Tensor, alpha: float
-              ) -> torch.Tensor:
-    """The ladder as tensor code, in ``x``'s dtype."""
+def _ema_planes(x, valid, alpha):
     a = torch.tensor(alpha, dtype=x.dtype, device=x.device)
     d = torch.where(valid, 1 - a, torch.ones_like(x))
     v = torch.where(valid, a * x, torch.zeros_like(x))
-    span = 1
-    while span < x.shape[-1]:
-        d_prev = _shift(d, span, 1.0)
-        v_prev = _shift(v, span, 0.0)
+    return d, v
+
+
+def _affine_levels(d, v, span, end, shift):
+    """The EMA ladder's levels of spans ``span``, 2 ``span``, ... <
+    ``end`` on (d, v), ``shift(a, span, identity)`` moving a plane."""
+    while span < end:
+        d_prev = shift(d, span, 1.0)
+        v_prev = shift(v, span, 0.0)
         v = v + d * v_prev
         d = d * d_prev
         span *= 2
-    return v
+    return d, v
+
+
+def ema_plain(x: torch.Tensor, valid: torch.Tensor, alpha: float
+              ) -> torch.Tensor:
+    """The ladder as tensor code, in ``x``'s dtype."""
+    d, v = _ema_planes(x, valid, alpha)
+    return _affine_levels(d, v, 1, x.shape[-1], _shift)[1]
+
+
+def ema_tiled_plain(x: torch.Tensor, valid: torch.Tensor, alpha: float,
+                    tile_log2: int = 10, window_log2: int = 13,
+                    row_log2: int = 14) -> torch.Tensor:
+    """:func:`ema_plain`'s values by the kernel's forms, bit for bit: a
+    row of at most 2^``row_log2`` lanes runs the whole ladder at once
+    (the one-launch form); a longer row, with T = 2^``tile_log2``, runs
+    stage 1, the levels of spans < T on windows of 2^``window_log2``
+    lanes (a T-lane halo, the identity (1, 0) before the row's start,
+    then the window's outputs), and stage 2, the levels of spans T, 2T,
+    ... < L as a ladder along each residue class ``i mod T``, the
+    identity where the class index m < span / T.  In ``x``'s dtype."""
+    K, L = x.shape
+    d, v = _ema_planes(x, valid, alpha)
+    if L <= 1 << row_log2:
+        return _affine_levels(d, v, 1, L, _shift)[1]
+    T, W = 1 << tile_log2, 1 << window_log2
+    step = W - T
+    nt = -(-L // step)
+    wins = []
+    for p, ident in ((d, 1.0), (v, 0.0)):
+        row = torch.cat([torch.full((K, T), ident, dtype=x.dtype,
+                                    device=x.device), p,
+                         torch.full((K, nt * step - L), ident,
+                                    dtype=x.dtype, device=x.device)], -1)
+        wins.append(row.unfold(-1, W, step))        # [K, nt, W]
+    wd, wv = _affine_levels(*wins, 1, T, _shift)
+    M = -(-L // T)
+    planes = []
+    for p, ident in ((wd, 1.0), (wv, 0.0)):
+        flat = p[..., T:].reshape(K, nt * step)[:, :L]
+        pad = torch.full((K, M * T - L), ident, dtype=x.dtype,
+                         device=x.device)
+        planes.append(torch.cat([flat, pad], -1).view(K, M, T))
+    _, cv = _affine_levels(*planes, 1, M,
+                           lambda z, s, i: _shift(z.transpose(1, 2), s,
+                                                  i).transpose(1, 2))
+    return cv.reshape(K, M * T)[:, :L]
 
 
 def ema_cuda(x: torch.Tensor, valid: torch.Tensor, alpha: float
              ) -> torch.Tensor:
-    """Launch the ladder kernel on [K, L] float32 CUDA tensors."""
+    """Launch the ladder kernel on [K, L] float32 CUDA tensors (one call:
+    one launch for rows of at most ``cuda_lib.ema_row_max()`` lanes, two
+    past it, the second reading the first's d plane)."""
     if x.dtype != torch.float32 or x.dim() != 2:
         raise TypeError(f"ema kernel takes float32 [K, L], got {x.dtype} "
                         f"{tuple(x.shape)}")
@@ -70,10 +123,13 @@ def ema_cuda(x: torch.Tensor, valid: torch.Tensor, alpha: float
     out = torch.empty_like(x)
     if K == 0 or L == 0:
         return out
-    scratch = cuda_lib.ladder_scratch(K, L, 4, x.device)
+    if L > cuda_lib.ema_max_lanes():
+        raise ValueError(f"ema kernel takes rows of at most "
+                         f"{cuda_lib.ema_max_lanes()} lanes, got {L}")
+    dplane = torch.empty_like(x) if L > cuda_lib.ema_row_max() else None
     cuda_lib.launch("ema_ladder", x.device, "tempo_ema_ladder",
                     x.data_ptr(), valid.data_ptr(), float(alpha),
-                    out.data_ptr(), cuda_lib.ptr(scratch), K, L)
+                    out.data_ptr(), cuda_lib.ptr(dplane), K, L)
     return out
 
 
