@@ -29,9 +29,12 @@ B. Hold each kernel against its plain PyTorch version on the card, in
    second slice's kernels, all bitwise: the valid-index scans on the
    masks of the 1-second interpolation grid of the right frame,
    ``last_valid_scan`` on its packed ``wx`` column, and ``resample_ema``
-   at its packed shape, on seconds shifted before 1970, and on rows
-   long enough to take its global-scratch ladder (``torch.cummax`` of
-   the candidate lanes is the last-valid-index yardstick).  Then the
+   (both forms, also against its tiled mirror ``resample_ema_tiled_plain``)
+   at its packed shape, on seconds shifted before 1970 with a scale, on
+   phase F's long rows (steps 60 and 7), and on rows of 16,384 lanes (the
+   one-launch limit) and 16,385 (two launches), each timed
+   (``torch.cummax`` of the candidate lanes is the last-valid-index
+   yardstick).  Then the
    third slice's kernels, all bitwise, at phase F's packed shape: the
    lookback merge at ``max_lookback`` 0, 1, 4 and 16, ``skipNulls`` both
    ways (at 0 also against the merge kernel), its value form, a
@@ -56,11 +59,15 @@ B. Hold each kernel against its plain PyTorch version on the card, in
    inputs (the HHAR left frame's 1-minute bucket ids over x, the joined
    right_wx and EMA_x, from the mesh chain on the card: [3, 1024,
    12760]), on x alone, on x with 30% more nulls, on a [64, 4096] case
-   with pad lanes, an all-null and an all-pad row (shared-memory ladder)
-   and on phase F's long rows (global-scratch ladder); no library call
-   computes it.  Every case also runs the staged form at the default
-   ring depth, bitwise equal to the row form (rows with a bucket longer
-   than the staged tile left to the row form, and counted).
+   with pad lanes, an all-null and an all-pad row, on x in hourly buckets
+   (about 2,400 lanes) and on phase F's long rows in 1-minute buckets and
+   in one bucket a row; no library call computes it.  Every case also
+   holds the row form bitwise against its tiled mirror
+   (``bucket_stats_tiled_plain``, run on the card with the kernel's
+   centres) and runs the staged form at the default ring depth, bitwise
+   equal to the row form (rows with a bucket longer than the staged tile
+   left to the row form, and counted); the row form is timed at each
+   shape and split by kernel.
    Then the staging ring (``csrc/ring.cuh``, the port of
    ``pallas_stream._make_ring_kernel``) in each of its three users at its
    main-path shape (range stats at phase C's [1, 1024, 12760], the
@@ -107,8 +114,8 @@ F. The third slice at full width: the same 13,062,475 rows a side over
    a quick run (2 series of 200,000 rows) measured 1.3e-3.  Then, on
    the same long rows, a six-hour ``withRangeStats`` (about 14,400 rows
    of extent: no ring slot holds the halo) and ``resampleEMA("1
-   minute", "x")`` (the row's ladder alone passes shared memory), both
-   counted: they must take the row forms.
+   minute", "x")`` (past the ladder's one-launch limit, two launches),
+   both counted: they must take the row forms.
 G. The fourth slice on the HHAR left frame (13,062,475 rows, 1024
    series), each step timed with the card synchronised and the counters
    zeroed before and read after: ``withRangeStats`` (10 s) under
@@ -299,20 +306,24 @@ def ring_rows(user, run, row_out, want, check, row, kernel_src, smem_args):
 def stage_ms(fn, reps: int = 5) -> dict:
     """Device milliseconds a call of ``fn()`` spends in each of its CUDA
     kernels, by name (``torch.profiler`` over ``reps`` calls after a
-    warm-up); empty where the profiler records no device time."""
+    warm-up; a second session where the first records no device time,
+    as a session now and then does); empty where neither records any."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     out = {}
-    for e in prof.key_averages():
-        name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
-        if e.device_time_total > 0:
-            out[name] = e.device_time_total / reps / 1000.0
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+            if e.device_time_total > 0:
+                out[name] = e.device_time_total / reps / 1000.0
+        if out:
+            break
     return out
 
 
@@ -660,12 +671,13 @@ def check_bitwise(got, want, what: str) -> None:
         raise AssertionError(f"{what}: kernel differs from its plain version")
 
 
-def phase_b_slice2(right, dev):
+def phase_b_slice2(right, left3, dev):
     """The second slice's kernels against their plain versions; returns
-    their rows of the result line (``launches`` filled in by phase E)."""
+    their rows of the result line (``launches`` filled in by phase E;
+    the resample EMA also on phase F's long rows, ``left3``)."""
     from tempo_tpu_torch import TSDF, interpol, packing
     from tempo_tpu_torch import resample as rs
-    from tempo_tpu_torch.ops import bucket, cuda_lib, scan
+    from tempo_tpu_torch.ops import bucket, cuda_lib, scan, stream
 
     rows = {}
     rt = TSDF(right, "event_ts", ["user"], device=dev)
@@ -729,39 +741,65 @@ def phase_b_slice2(right, dev):
     log(f"B last_valid_scan: bitwise equal to plain at [{Kx}, {L}]; kernel "
         f"{rows['last_valid_scan']['ms']:.4f} ms")
 
-    # -- fused resample + EMA at the packed shape ----------------------
+    # -- fused resample + EMA ----------------------------------------
     real = rt.packed_mask()
     secs64 = rt.packed_ts() // packing.NS_PER_S
     secs = torch.from_numpy(secs64.astype(np.int32)).to(dev)
     # seconds before 1970 (floor division matters), pads left at 0
     neg = torch.from_numpy(
         np.where(real, secs64 - 1_500_000_007, 0).astype(np.int32)).to(dev)
-    # rows joined f at a time, past the ladder's shared memory (16 B a
-    # lane), take its global-scratch form
-    f = 1 << math.ceil(math.log2((cuda_lib.lib().tempo_ema_smem_limit()
-                                  // 16 + 1) / L))
-    k_long = Kx // f * f
+    # phase F's long rows, as resampleEMA packs them
+    lt3 = TSDF(left3, "event_ts", ["user"], device=dev, dtype=torch.float32)
+    fx, fv = lt3.packed_numeric("x")
+    fsecs = torch.from_numpy((lt3.packed_ts() // packing.NS_PER_S)
+                             .astype(np.int32)).to(dev)
+    KF, LF = fx.shape
+    # rows at the one-launch limit and one lane past it: HHAR rows joined
+    # two at a time, cut to length
+    row_max = cuda_lib.ema_row_max()
+    if stream.EMA_ROW_MAX != row_max:
+        raise AssertionError(f"the planner's one-launch limit "
+                             f"{stream.EMA_ROW_MAX} is not the kernel's "
+                             f"{row_max}")
+    k2 = Kx // 2 * 2
 
-    def long(t):
-        return t[:k_long].reshape(k_long // f, f * L)
+    def joined(t, n):
+        return t[:k2].reshape(k2 // 2, 2 * L)[:, :n].contiguous()
 
     cases = [(secs, x, v, 60, None, "HHAR shape"),
              (neg, x, v, 60, 1.5, "negative seconds, scale 1.5"),
-             (long(secs), long(x), long(v), 7, None,
-              f"global-scratch form [{k_long // f}, {f * L}], step 7")]
+             (fsecs, fx, fv, 60, None, f"phase F's rows [{KF}, {LF}]"),
+             (fsecs, fx, fv, 7, 1.5, "phase F's rows, step 7, scale 1.5"),
+             (joined(secs, row_max), joined(x, row_max), joined(v, row_max),
+              7, None, f"[{k2 // 2}, {row_max}] (the one-launch limit)"),
+             (joined(neg, row_max + 1), joined(x, row_max + 1),
+              joined(v, row_max + 1), 7, None,
+              f"[{k2 // 2}, {row_max + 1}] (two launches), negative "
+              f"seconds, step 7")]
     for s_, x_, v_, step, scale, what in cases:
         want = bucket.resample_ema_plain(s_, x_, v_, step, 0.2, scale)
-        # the staged form needs the row's ladder in shared memory: not on
-        # the global-scratch rows
-        forms = ("row", "ring") if s_.shape[1] == L else ("row",)
+        mirror = bucket.resample_ema_tiled_plain(s_, x_, v_, step, 0.2, scale)
+        # the staged form takes rows of at most the one-launch limit
+        forms = ("row", "ring") if s_.shape[1] <= row_max else ("row",)
         for form in forms:
             got = bucket.resample_ema_cuda(s_, x_, v_, step, 0.2, scale,
                                            _form=form)
             for i, out in enumerate(("res", "ema")):
                 check_bitwise(got[i], want[i],
                               f"resample_ema {out} ({what}, {form})")
-    levels = math.ceil(math.log2(max(L, 2)))
-    b, by = bound_ms(Kx * L * 17, Kx * L * (3 * levels + 6))
+                check_bitwise(got[i], mirror[i],
+                              f"resample_ema {out} ({what}, {form}) against "
+                              f"its tiled mirror")
+    del want, mirror, got
+
+    def resample_bound(K_, L_):
+        levels = math.ceil(math.log2(max(L_, 2)))
+        return bound_ms(K_ * L_ * 17, K_ * L_ * (3 * levels + 6))
+
+    b, by = resample_bound(Kx, L)
+    bf, _ = resample_bound(KF, LF)
+    m_s, m_x, m_v = (joined(t, row_max) for t in (secs, x, v))
+    p_s, p_x, p_v = (joined(t, row_max + 1) for t in (secs, x, v))
     rows["resample_ema"] = dict(
         name="resample_ema", route="cuda",
         source="tempo_tpu_torch/csrc/resample_ema.cu",
@@ -770,11 +808,30 @@ def phase_b_slice2(right, dev):
                                                     _form="row")),
         plain_ms=time_ms(lambda: bucket.resample_ema_plain(secs, x, v, 60,
                                                            0.2), reps=3),
-        bound_ms=b, bound_by=by, library_ms=None, shape=f"[{Kx}, {L}]")
-    log(f"B resample_ema: res and ema bitwise equal to plain at "
-        f"{'; '.join(c[-1] for c in cases)}; kernel "
-        f"{rows['resample_ema']['ms']:.4f} ms, plain "
-        f"{rows['resample_ema']['plain_ms']:.4f} ms")
+        bound_ms=b, bound_by=by, library_ms=None, shape=f"[{Kx}, {L}]",
+        ms_phase_f=time_ms(lambda: bucket.resample_ema_cuda(
+            fsecs, fx, fv, 60, 0.2)),
+        plain_ms_phase_f=time_ms(lambda: bucket.resample_ema_plain(
+            fsecs, fx, fv, 60, 0.2), reps=3),
+        bound_ms_phase_f=bf, shape_phase_f=f"[{KF}, {LF}]",
+        stages_ms_phase_f=stage_ms(lambda: bucket.resample_ema_cuda(
+            fsecs, fx, fv, 60, 0.2)),
+        ms_row_max=time_ms(lambda: bucket.resample_ema_cuda(
+            m_s, m_x, m_v, 60, 0.2, _form="row")),
+        ms_row_max_plus_1=time_ms(lambda: bucket.resample_ema_cuda(
+            p_s, p_x, p_v, 60, 0.2)),
+        shape_row_max=f"[{k2 // 2}, {row_max}] and [{k2 // 2}, "
+                      f"{row_max + 1}]")
+    row = rows["resample_ema"]
+    log(f"B resample_ema: res and ema bitwise equal to plain and to the "
+        f"tiled mirror, both forms, at {'; '.join(c[-1] for c in cases)}; "
+        f"kernel {row['ms']:.4f} ms (bound {b:.4f}), phase F's rows "
+        f"{row['ms_phase_f']:.4f} ms (bound {bf:.4f}; stages "
+        f"{row['stages_ms_phase_f']}), {row_max} lanes "
+        f"{row['ms_row_max']:.4f} ms, {row_max + 1} lanes "
+        f"{row['ms_row_max_plus_1']:.4f} ms; plain {row['plain_ms']:.4f} ms, "
+        f"phase F's rows {row['plain_ms_phase_f']:.4f} ms")
+    del fx, fv, fsecs, lt3, m_s, m_x, m_v, p_s, p_x, p_v
     rows.update(ring_rows(
         "resample_ema",
         lambda: bucket.resample_ema_cuda(secs, x, v, 60, 0.2, _form="ring"),
@@ -1421,9 +1478,9 @@ def phase_f(pd, TSDF, left, right, n, n_series):
 def long_row_forms(TSDF, left, n):
     """Two ops on phase F's long rows whose staged forms do not fit: a
     six-hour ``withRangeStats`` (about 14,400 rows of extent: no slot
-    holds the halo) and ``resampleEMA`` (the row's ladder alone passes
-    shared memory).  Both must take the row forms; returns the launch
-    counts."""
+    holds the halo) and ``resampleEMA`` (rows past the ladder's one-launch
+    limit, which the staged form does not take).  Both must take the row
+    forms; returns the launch counts."""
     from tempo_tpu_torch.ops import cuda_lib, stream
 
     lt = TSDF(left, "event_ts", ["user"])
@@ -1734,6 +1791,26 @@ def check_bucket_stats(got, want, what: str) -> float:
     return check_range_stats(got, want, f"bucket stats ({what})")
 
 
+def check_centre(centre, x, v, what: str) -> None:
+    """Raise unless the kernel's row centres ([C, K]) are within the
+    bound of two float32 sums of the same n terms in different orders of
+    the plain version's: |difference| <= 2 (n - 1) 2^-24 sum|x| / n, plus
+    an ulp of each quotient."""
+    from tempo_tpu_torch.ops import bucket
+
+    want = bucket._bucket_center(x, v)[..., 0]
+    n = v.sum(-1).clamp(min=1).to(torch.float64)
+    mass = torch.where(v, x, 0.0).abs().sum(-1, dtype=torch.float64)
+    ulp = torch.finfo(torch.float32).eps * want.abs().to(torch.float64)
+    bound = 2 * (n - 1) * 2.0 ** -24 * mass / n + 2 * ulp
+    diff = (centre.to(torch.float64) - want.to(torch.float64)).abs()
+    if not bool((diff <= bound).all()):
+        raise AssertionError(f"bucket stats ({what}): the kernel's centres "
+                             f"differ from the plain version's by "
+                             f"{float(diff.max()):.3g}, past a float32 sum's "
+                             f"bound")
+
+
 def phase_b_bucket(pd, TSDF, left, right, left3, dev):
     """The bucket-stats kernel against its plain version on the card;
     returns its row of the result line (``launches`` filled in by phase
@@ -1755,7 +1832,7 @@ def phase_b_bucket(pd, TSDF, left, right, left3, dev):
     sparse = vs[:1] & (torch.rand(vs[:1].shape, generator=gen, device=dev)
                        > 0.3)
     cases.append(("HHAR x, 30% more nulls", bid, xs[:1], sparse))
-    # pad lanes, an all-null row and an all-pad row, in shared memory
+    # pad lanes, an all-null row and an all-pad row
     Ks, Ls = 64, 4096
     sb = torch.sort(torch.randint(0, 200, (Ks, Ls), generator=gen,
                                   device=dev), dim=-1).values.to(torch.int32)
@@ -1768,34 +1845,70 @@ def phase_b_bucket(pd, TSDF, left, right, left3, dev):
     sb[2] = 2**31 - 1
     sv[0, 2] = False
     sx[0, 2] = float("nan")
-    cases.append((f"[{Ks}, {Ls}] pads, all-null and all-pad rows "
-                  f"(shared memory)", sb, sx, sv))
-    # phase F's long rows: the global-scratch ladder
+    cases.append((f"[{Ks}, {Ls}] pads, all-null and all-pad rows",
+                  sb, sx, sv))
+    # phase F's long rows in 1-minute buckets; then long buckets: HHAR's
+    # x in hourly buckets (about 2,400 lanes, past the staged tile), and
+    # phase F's long rows in one bucket a row
     lt3 = TSDF(left3, "event_ts", ["user"], device=dev, dtype=torch.float32)
     lts = torch.from_numpy(lt3.packed_ts()).to(dev)
     lmask = torch.from_numpy(lt3.packed_mask()).to(dev)
     lx, lv = lt3.packed_numeric("x")
     _, _, lbid = dist._bucket_heads(lts, lmask, 60 * NS)
+    _, _, hbid = dist._bucket_heads(ts, mask, 3600 * NS)
+    _, _, obid = dist._bucket_heads(lts, lmask, 365 * DAY * NS)
     cases.append((f"long rows {list(lx.shape)}", lbid, lx[None], lv[None]))
-    err, long_rows = 0.0, {}
-    for what, b, x, v in cases:
+    cases.append(("HHAR x, hourly buckets", hbid, xs[:1], vs[:1]))
+    cases.append((f"long rows {list(lx.shape)}, one bucket a row", obid,
+                  lx[None], lv[None]))
+    # In buckets of thousands of lanes, sum = s1 + count * centre carries
+    # count times the centre's rounding difference (the plain version sums
+    # the row in another order), past 1e-5: the last two cases hold mean,
+    # sum, stddev and zscore only through the bitwise checks below.
+    short = len(cases) - 2
+    err, err_long, long_rows = 0.0, 0.0, {}
+    for n_case, (what, b, x, v) in enumerate(cases):
         want = bucket.bucket_stats_plain(b, x, v)
         row_out = bucket.bucket_stats_cuda(b, x, v, _form="row")
-        err = max(err, check_bucket_stats(row_out, want, what))
+        for k in ("count", "min", "max"):
+            check_bitwise(row_out[k], want[k], f"bucket stats {k} ({what})")
+        if n_case < short:
+            err = max(err, check_bucket_stats(row_out, want, what))
+        else:
+            err_long = max(err_long, max(
+                float((row_out[k] - want[k]).abs().nan_to_num(0).max())
+                for k in ("mean", "sum")))
+        # every output bitwise equal to the row form's CPU mirror, run on
+        # the card around the kernel's own centres, whose difference from
+        # the plain version's centres is a float32 summation's
+        out = torch.empty((len(bucket.BUCKET_STATS),) + tuple(x.shape),
+                          device=dev)
+        centre = bucket._bucket_row_form(b.contiguous(), x.contiguous(),
+                                         v.contiguous(), out)
+        check_same({k: out[i] for i, k in enumerate(bucket.BUCKET_STATS)},
+                   row_out, f"bucket stats row form ({what}) run twice")
+        check_same(row_out, bucket.bucket_stats_tiled_plain(
+            b, x, v, 10, center=centre),
+            f"bucket stats row form ({what}) against its tiled mirror")
+        check_centre(centre, x, v, what)
         ring_out = bucket.bucket_stats_cuda(b, x, v, _form="ring")
         check_same(ring_out, row_out, f"bucket stats staged form ({what})")
         long_rows[what] = stream.last_plan["bucket_stats"]["long_rows"]
-    del want, row_out, ring_out
+    del want, row_out, ring_out, out
+
+    def bucket_bound(C_, K_, L_):
+        steps = math.ceil(math.log2(max(L_, 2)))
+        nbytes = K_ * L_ * 4 + C_ * K_ * L_ * (4 + 1) + 7 * C_ * K_ * L_ * 4
+        return bound_ms(nbytes, C_ * K_ * L_ * (steps * 13 + 25))
 
     C, K, L = xs.shape
-    steps = 2 * math.ceil(math.log2(L))
-    nbytes = K * L * 4 + C * K * L * (4 + 1) + 7 * C * K * L * 4
-    nops = C * K * L * (steps * 13 + 25)
-    b_ms, by = bound_ms(nbytes, nops)
+    b_ms, by = bucket_bound(C, K, L)
+    KL, LL = lx.shape
     row = dict(
         name="bucket_stats", route="cuda",
         source="tempo_tpu_torch/csrc/bucket_stats.cu",
         replaces="tempo_tpu/ops/pallas_bucket.py:173", max_abs_err=err,
+        max_abs_err_long_buckets=err_long,
         ms=time_ms(lambda: bucket.bucket_stats_cuda(bid, xs, vs,
                                                     _form="row")),
         plain_ms=time_ms(lambda: bucket.bucket_stats_plain(bid, xs, vs),
@@ -1803,24 +1916,48 @@ def phase_b_bucket(pd, TSDF, left, right, left3, dev):
         bound_ms=b_ms, bound_by=by, library_ms=None,
         ms_one_column=time_ms(lambda: bucket.bucket_stats_cuda(
             bid, xs[:1], vs[:1], _form="row")),
-        ms_shared_memory=time_ms(lambda: bucket.bucket_stats_cuda(
+        ms_hourly_one_column=time_ms(lambda: bucket.bucket_stats_cuda(
+            hbid, xs[:1], vs[:1], _form="row")),
+        plain_ms_hourly_one_column=time_ms(lambda: bucket.bucket_stats_plain(
+            hbid, xs[:1], vs[:1]), reps=3),
+        bound_ms_one_column=bucket_bound(1, K, L)[0],
+        stages_ms_hourly_one_column=stage_ms(lambda: bucket.bucket_stats_cuda(
+            hbid, xs[:1], vs[:1], _form="row")),
+        ms_small_rows=time_ms(lambda: bucket.bucket_stats_cuda(
             sb, sx, sv, _form="row")),
         ms_long_rows=time_ms(lambda: bucket.bucket_stats_cuda(
-            lbid, lx[None], lv[None], _form="row"), reps=3),
+            lbid, lx[None], lv[None], _form="row")),
+        ms_one_bucket_rows=time_ms(lambda: bucket.bucket_stats_cuda(
+            obid, lx[None], lv[None], _form="row")),
+        plain_ms_one_bucket_rows=time_ms(lambda: bucket.bucket_stats_plain(
+            obid, lx[None], lv[None]), reps=3),
+        bound_ms_long_rows=bucket_bound(1, KL, LL)[0],
+        stages_ms_one_bucket_rows=stage_ms(lambda: bucket.bucket_stats_cuda(
+            obid, lx[None], lv[None], _form="row")),
         ring_ms_one_column=time_ms(lambda: bucket.bucket_stats_cuda(
             bid, xs[:1], vs[:1], _form="ring")),
         ring_ms_long_rows=time_ms(lambda: bucket.bucket_stats_cuda(
-            lbid, lx[None], lv[None], _form="ring"), reps=3),
-        shape=f"[{C}, {K}, {L}] (1-minute buckets); one column; "
-              f"[1, {Ks}, {Ls}]; long rows [1, {lx.shape[0]}, {lx.shape[1]}]")
-    log(f"B bucket_stats: count/min/max bitwise, rest within 1e-5 (max abs "
-        f"err {err:.3g}) on {'; '.join(c[0] for c in cases)}; kernel "
-        f"{row['ms']:.4f} ms (one column {row['ms_one_column']:.4f}, "
-        f"shared memory {row['ms_shared_memory']:.4f}, long rows "
-        f"{row['ms_long_rows']:.4f}), plain {row['plain_ms']:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({by}); staged form at the default depth bitwise "
-        f"equal to the row form on every case (long-bucket rows left to "
-        f"the row form: {long_rows}), one column "
+            lbid, lx[None], lv[None], _form="ring")),
+        shape=f"[{C}, {K}, {L}] (1-minute buckets); one column (1-minute "
+              f"and hourly buckets); [1, {Ks}, {Ls}]; long rows [1, {KL}, "
+              f"{LL}] (1-minute buckets, one bucket a row)")
+    log(f"B bucket_stats: count/min/max bitwise on "
+        f"{'; '.join(c[0] for c in cases)}; the rest within 1e-5 on the "
+        f"first {short} (max abs err {err:.3g}; {err_long:.3g} on the long "
+        f"buckets); every output of the row form bitwise equal to its "
+        f"tiled mirror with the kernel's centres (each within a float32 "
+        f"summation's bound of the plain centre), and the staged form's at "
+        f"the default depth "
+        f"(long-bucket rows left to the row form: {long_rows}); row form "
+        f"{row['ms']:.4f} ms (one column {row['ms_one_column']:.4f}, hourly "
+        f"{row['ms_hourly_one_column']:.4f}, stages "
+        f"{row['stages_ms_hourly_one_column']}; [1, {Ks}, {Ls}] "
+        f"{row['ms_small_rows']:.4f}; long rows {row['ms_long_rows']:.4f}, "
+        f"one bucket a row {row['ms_one_bucket_rows']:.4f}, stages "
+        f"{row['stages_ms_one_bucket_rows']}), plain {row['plain_ms']:.4f} "
+        f"ms (hourly one column {row['plain_ms_hourly_one_column']:.4f}, one "
+        f"bucket a row {row['plain_ms_one_bucket_rows']:.4f}), bound "
+        f"{b_ms:.4f} ms ({by}); staged one column "
         f"{row['ring_ms_one_column']:.4f} ms, long rows "
         f"{row['ring_ms_long_rows']:.4f} ms")
     rows = {"bucket_stats": row}
@@ -2058,7 +2195,7 @@ def main(argv=None) -> int:
         f"{time.perf_counter() - t0:.2f} s")
 
     rows = phase_b(pd, left, right, dev, d_args)
-    rows2 = phase_b_slice2(right, dev)
+    rows2 = phase_b_slice2(right, left3, dev)
     rows3 = phase_b_slice3(pd, left3, right3, dev, d_args)
     rows4 = phase_b_slice4(left, dev, d_args)
     rows5 = phase_b_bucket(pd, TSDF, left, right, left3, dev)

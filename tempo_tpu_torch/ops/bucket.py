@@ -21,9 +21,13 @@ Both kernels have a row form and a staged form (``ops/stream.py``, the
 counterpart of the reference's ``TEMPO_TPU_DMA_BUFFERS`` ring): the
 wrapper takes the staged form where its planner finds a plan, else the
 row form; the private keyword ``_form`` ("row" | "ring") forces one,
-for tests and ``chip_smoke.py``.  :func:`bucket_stats_windowed` emulates
-the staged bucket form's tile-local ladder in tensor code, so the CPU
-tests can pin its bits against the plain version.
+for tests and ``chip_smoke.py``.  The CPU mirrors run each form's
+arithmetic in tensor code, so the CPU tests can pin its bits against the
+plain version: :func:`bucket_stats_windowed` the staged bucket form's
+tile-local ladders, :func:`bucket_stats_tiled_plain` the bucket row
+form's tiled forward ladder and tail gather, :func:`resample_ema_tiled_plain`
+the resample EMA's register ladder (both forms).  The card's main path
+uses none of them.
 """
 
 from __future__ import annotations
@@ -69,12 +73,33 @@ def resample_ema_plain(secs: torch.Tensor, x: torch.Tensor,
     return res, scan.ema_plain(xs, head, alpha)
 
 
+def resample_ema_tiled_plain(secs: torch.Tensor, x: torch.Tensor,
+                             valid: torch.Tensor, step, alpha: float,
+                             scale=None, tile_log2: int = 10,
+                             window_log2: int = 13, row_log2: int = 14):
+    """:func:`resample_ema_plain`'s (res, ema) by the kernel's launches,
+    bit for bit: res as the fill writes it, the EMA over the bucket heads
+    by the register ladder's forms (``scan.ema_tiled_plain``: one launch
+    up to 2^``row_log2`` lanes, else a tile-local stage over windows and
+    a ladder along each residue class mod 2^``tile_log2``)."""
+    step = _integral_step(step)
+    xs = x * torch.as_tensor(1.0 if scale is None else scale, dtype=x.dtype,
+                             device=x.device)
+    head = heads(secs, valid, step)
+    res = torch.where(head, xs, torch.full((), float("nan"), dtype=x.dtype,
+                                           device=x.device))
+    return res, scan.ema_tiled_plain(xs, head, alpha, tile_log2, window_log2,
+                                     row_log2)
+
+
 def resample_ema_cuda(secs: torch.Tensor, x: torch.Tensor,
                       valid: torch.Tensor, step, alpha: float, scale=None, *,
                       _form: Optional[str] = None):
     """Launch the fused kernel on int32 secs, float32 x and bool valid,
     all [K, L] on one CUDA device: the staged form where
-    ``stream.resample_plan`` fits, else the row form."""
+    ``stream.resample_plan`` fits, else the row form (one launch up to
+    ``cuda_lib.ema_row_max()`` lanes, two past it, the second reading the
+    first's d plane)."""
     step = _integral_step(step)
     if x.dtype != torch.float32 or x.dim() != 2:
         raise TypeError(f"resample_ema kernel takes float32 [K, L], got "
@@ -91,6 +116,9 @@ def resample_ema_cuda(secs: torch.Tensor, x: torch.Tensor,
     ema = torch.empty_like(x)
     if K == 0 or L == 0:
         return res, ema
+    if L > cuda_lib.ema_max_lanes():
+        raise ValueError(f"resample_ema kernel takes rows of at most "
+                         f"{cuda_lib.ema_max_lanes()} lanes, got {L}")
     plan = stream.pick("resample_ema", stream.resample_plan(L), _form,
                        f"L={L}")
     if plan is not None:
@@ -101,11 +129,11 @@ def resample_ema_cuda(secs: torch.Tensor, x: torch.Tensor,
                         res.data_ptr(), ema.data_ptr(), K, L, plan.tile,
                         plan.depth)
         return res, ema
-    scratch = cuda_lib.ladder_scratch(K, L, 4, x.device)
+    dplane = torch.empty_like(x) if L > cuda_lib.ema_row_max() else None
     cuda_lib.launch("resample_ema", x.device, "tempo_resample_ema",
                     secs.data_ptr(), x.data_ptr(), valid.data_ptr(), step,
                     float(alpha), 1.0 if scale is None else float(scale),
-                    res.data_ptr(), ema.data_ptr(), cuda_lib.ptr(scratch),
+                    res.data_ptr(), ema.data_ptr(), cuda_lib.ptr(dplane),
                     K, L)
     return res, ema
 
@@ -121,10 +149,8 @@ def resample_ema(secs: torch.Tensor, x: torch.Tensor, valid: torch.Tensor,
 
 
 BUCKET_STATS = ("mean", "count", "min", "max", "sum", "stddev", "zscore")
-# the ladder's float planes (two sets of count, s1, s2, min, max, flag)
-# and the static shared memory of the kernel's block reduction
-_BUCKET_PLANES = 12
-_BUCKET_STATIC_SMEM = 256
+# the row form's window: 3072 outputs after a halo of T = 1024 lanes
+_BUCKET_WINDOW = 3072
 
 
 def _bucket_flags(bid: torch.Tensor, dtype):
@@ -158,41 +184,40 @@ def _bucket_center(xs: torch.Tensor, valids: torch.Tensor) -> torch.Tensor:
         / torch.maximum(nv, one)
 
 
-def _bucket_ladder(bid, xs, valids, center, stop_early: bool = False):
-    """The two ladders and the outputs over the lanes given, around the
-    given centre ([C, K, 1]).  ``stop_early`` ends each ladder after the
-    first pass that leaves every flag set (the staged kernel's stop):
-    the passes after it would only copy."""
+def _bucket_fill(bid, xs, valids, center):
+    """The forward ladder's element as six planes (flag, count, centred
+    sum and sum of squares, min, max), the head flags from ``bid``."""
+    dt, dev = xs.dtype, xs.device
+    zero = torch.zeros((), dtype=dt, device=dev)
+    pinf = torch.full((), float("inf"), dtype=dt, device=dev)
+    f = _bucket_flags(bid, dt)[0].expand(xs.shape)
+    xc = torch.where(valids, xs - center, zero)
+    return [f, valids.to(dt), xc, xc * xc, torch.where(valids, xs, pinf),
+            torch.where(valids, xs, -pinf)]
+
+
+# the value planes' combine and identity (the flag's identity is 1)
+_SEG_OPS = [(torch.add, 0.0)] * 3 + [(torch.minimum, float("inf")),
+                                     (torch.maximum, float("-inf"))]
+
+
+def _seg_level(planes, span, shift):
+    """One level of the forward segmented ladder on (flag, five value
+    planes): a head keeps its values, else each takes its partner's in
+    (``shift(a, span, identity)`` moves a plane); the flag takes the
+    max, 1 shifted in."""
+    f, vals = planes[0], planes[1:]
+    out = [torch.where(f > 0, p, combine(p, shift(p, span, ident)))
+           for p, (combine, ident) in zip(vals, _SEG_OPS)]
+    return [torch.maximum(f, shift(f, span, 1.0))] + out
+
+
+def _bucket_outputs(cnt, s1, s2, mn, mx, center, xs, valids):
+    """The seven outputs from each lane's bucket totals."""
     dt, dev = xs.dtype, xs.device
     zero = torch.zeros((), dtype=dt, device=dev)
     one = torch.ones((), dtype=dt, device=dev)
     nan = torch.full((), float("nan"), dtype=dt, device=dev)
-    pinf = torch.full((), float("inf"), dtype=dt, device=dev)
-    L = xs.shape[-1]
-    f, g = _bucket_flags(bid, dt)
-    validf = valids.to(dt)
-    xc = torch.where(valids, xs - center, zero)
-    planes = [validf, xc, xc * xc, torch.where(valids, xs, pinf),
-              torch.where(valids, xs, -pinf)]
-    ops = [(torch.add, 0.0)] * 3 + [(torch.minimum, float("inf")),
-                                    (torch.maximum, float("-inf"))]
-    span = 1
-    while span < L:
-        planes = [torch.where(f > 0, p, combine(p, _shift_back(p, span, ident)))
-                  for p, (combine, ident) in zip(planes, ops)]
-        f = torch.maximum(f, _shift_back(f, span, 1.0))
-        span *= 2
-        if stop_early and bool((f > 0).all()):
-            break
-    span = 1
-    while span < L:
-        planes = [torch.where(g > 0, p, _shift_fwd(p, span, 0.0))
-                  for p in planes]
-        g = torch.maximum(g, _shift_fwd(g, span, 0.0))
-        span *= 2
-        if stop_early and bool((g > 0).all()):
-            break
-    cnt, s1, s2, mn, mx = planes
     cnt1 = torch.maximum(cnt, one)
     mean = torch.where(cnt > 0, s1 / cnt1 + center, nan)
     total = s1 + cnt * center
@@ -208,6 +233,32 @@ def _bucket_ladder(bid, xs, valids, center, stop_early: bool = False):
         "stddev": std,
         "zscore": torch.where(valids, (xs - mean) / std, nan),
     }
+
+
+def _bucket_ladder(bid, xs, valids, center, stop_early: bool = False):
+    """The two ladders and the outputs over the lanes given, around the
+    given centre ([C, K, 1]).  ``stop_early`` ends each ladder after the
+    first pass that leaves every flag set (the staged kernel's stop):
+    the passes after it would only copy."""
+    L = xs.shape[-1]
+    planes = _bucket_fill(bid, xs, valids, center)
+    span = 1
+    while span < L:
+        planes = _seg_level(planes, span, _shift_back)
+        span *= 2
+        if stop_early and bool((planes[0] > 0).all()):
+            break
+    g = _bucket_flags(bid, xs.dtype)[1]
+    planes = planes[1:]
+    span = 1
+    while span < L:
+        planes = [torch.where(g > 0, p, _shift_fwd(p, span, 0.0))
+                  for p in planes]
+        g = torch.maximum(g, _shift_fwd(g, span, 0.0))
+        span *= 2
+        if stop_early and bool((g > 0).all()):
+            break
+    return _bucket_outputs(*planes, center, xs, valids)
 
 
 def bucket_stats_plain(bid: torch.Tensor, xs: torch.Tensor,
@@ -264,13 +315,68 @@ def bucket_stats_windowed(bid: torch.Tensor, xs: torch.Tensor,
     return out
 
 
-def _bucket_row_form(bid, xs, valids, out) -> None:
+def bucket_stats_tiled_plain(bid: torch.Tensor, xs: torch.Tensor,
+                             valids: torch.Tensor, tile_log2: int = 10,
+                             center: Optional[torch.Tensor] = None):
+    """:func:`bucket_stats_plain`'s outputs by the row form's launches,
+    bit for bit, around ``center`` ([C, K]; each row's centre where None):
+    with T = 2^``tile_log2``, the forward ladder's levels of spans < T on
+    each tile of T lanes from the tile and the T lanes before it alone
+    (the identity before the row's start), then the levels of spans T,
+    2T, ... < L as a ladder along each residue class ``i mod T`` (the
+    identity where the class index m < span / T); then each lane reads
+    the five planes at its bucket's tail (the lane before the next id
+    change) and forms the outputs.  Levels past the ladder's own (spans
+    >= L) leave every lane as it is: its flag is set by then."""
     C, K, L = xs.shape
-    scratch = cuda_lib.ladder_scratch(K, L, _BUCKET_PLANES, xs.device,
-                                      _BUCKET_STATIC_SMEM)
-    cuda_lib.launch("bucket_stats", xs.device, "tempo_bucket_stats",
+    dt, dev = xs.dtype, xs.device
+    center = (_bucket_center(xs, valids) if center is None
+              else center.reshape(C, K, 1).to(dt))
+    T = 1 << int(tile_log2)
+    nt = -(-L // T)
+    idents = [1.0] + [ident for _, ident in _SEG_OPS]
+    wins = []
+    for p, ident in zip(_bucket_fill(bid, xs, valids, center), idents):
+        row = torch.cat([torch.full((C, K, T), ident, dtype=dt, device=dev),
+                         p, torch.full((C, K, nt * T - L), ident, dtype=dt,
+                                       device=dev)], -1)
+        wins.append(row.unfold(-1, 2 * T, T))      # [C, K, nt, 2T]
+    span = 1
+    while span < T:
+        wins = _seg_level(wins, span, _shift_back)
+        span *= 2
+    z = [w[..., T:] for w in wins]                  # [C, K, nt, T]
+    span = 1
+    while span * T < L:
+        z = _seg_level(z, span, lambda a, s, i: _shift_back(
+            a.transpose(-1, -2), s, i).transpose(-1, -2))
+        span *= 2
+    lanes = torch.arange(L, device=dev).expand(K, L)
+    tail = torch.where(_bucket_flags(bid, dt)[1] > 0, lanes, L)
+    tail = torch.cummin(tail.flip(-1), -1).values.flip(-1).expand(C, K, L)
+    planes = [torch.gather(p.reshape(C, K, nt * T)[..., :L], -1, tail)
+              for p in z[1:]]
+    return _bucket_outputs(*planes, center, xs, valids)
+
+
+def _bucket_row_form(bid, xs, valids, out) -> torch.Tensor:
+    """The row form's launches into ``out``; returns the [C, K] centres
+    it used."""
+    C, K, L = xs.shape
+    if L > cuda_lib.bucket_max_lanes():
+        raise ValueError(f"bucket-stats kernel takes rows of at most "
+                         f"{cuda_lib.bucket_max_lanes()} lanes, got {L}")
+    dev = xs.device
+    planes = torch.empty((6, C, K, L), dtype=torch.float32, device=dev)
+    centre = torch.empty((C, K), dtype=torch.float32, device=dev)
+    live = torch.zeros((C, K), dtype=torch.int32, device=dev)
+    first_tail = torch.empty((K, -(-L // _BUCKET_WINDOW)), dtype=torch.int32,
+                             device=dev)
+    cuda_lib.launch("bucket_stats", dev, "tempo_bucket_stats",
                     bid.data_ptr(), xs.data_ptr(), valids.data_ptr(),
-                    out.data_ptr(), cuda_lib.ptr(scratch), C, K, L)
+                    out.data_ptr(), planes.data_ptr(), centre.data_ptr(),
+                    live.data_ptr(), first_tail.data_ptr(), C, K, L)
+    return centre
 
 
 def bucket_stats_cuda(bid: torch.Tensor, xs: torch.Tensor,

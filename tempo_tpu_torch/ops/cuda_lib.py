@@ -77,11 +77,10 @@ _SIGNATURES = {
     "tempo_cumsum3": [_P] * 5 + [_I, _I, _P],
     "tempo_range_stats": [_P] * 6 + [_I] * 7 + [_P],
     "tempo_legacy_stats": [_P] * 5 + [_I] * 6 + [_P],
-    "tempo_bucket_stats": [_P] * 5 + [_I] * 3 + [_P],
+    "tempo_bucket_stats": [_P] * 8 + [_I] * 3 + [_P],
     "tempo_bucket_stats_ring": [_P] * 6 + [_I] * 5 + [_P],
     "tempo_range_stats_ring": [_P] * 6 + [_I] * 9 + [_P],
     "tempo_ema_ladder": [_P, _P, ctypes.c_float, _P, _P, _I, _I, _P],
-    "tempo_ema_smem_limit": [],
     "tempo_last_valid_index": [_P, _P, _I, _I, _P],
     "tempo_first_valid_index": [_P, _P, _I, _I, _P],
     "tempo_last_valid_scan": [_P] * 4 + [_I, _I, _P],
@@ -94,13 +93,14 @@ _SIGNATURES = {
 }
 #: the staged forms' shared-memory totals, as the kernels compute them,
 #: the merge walk's step and column limit, and the row limits of the
-#: ``cumsum3`` and EMA kernels (64-bit results)
+#: ``cumsum3``, EMA and bucket-stats kernels (64-bit results)
 _SMEM_SIGNATURES = {
     "tempo_asof_walk_step": [],
     "tempo_asof_walk_cols": [],
     "tempo_cumsum3_max_lanes": [],
     "tempo_ema_row_max": [],
     "tempo_ema_max_lanes": [],
+    "tempo_bucket_max_lanes": [],
     "tempo_bucket_ring_smem": [_I] * 4,
     "tempo_range_ring_smem": [_I] * 5,
     "tempo_resample_ring_smem": [_I] * 3,
@@ -236,24 +236,18 @@ def cumsum3_max_lanes() -> int:
 
 
 def ema_row_max() -> int:
-    """Longest row the EMA kernel takes in one launch (a row in one
-    block); longer rows take its two tiled stages."""
+    """Longest row the EMA and resample-EMA kernels take in one launch (a
+    row in one block); longer rows take their two tiled stages."""
     return lib().tempo_ema_row_max()
 
 
 def ema_max_lanes() -> int:
-    """Longest row the EMA kernel takes (its second stage holds a row's
-    residue classes in shared memory)."""
+    """Longest row the EMA and resample-EMA kernels take (their second
+    stage holds a row's residue classes in shared memory)."""
     return lib().tempo_ema_max_lanes()
 
 
-def ladder_scratch(K: int, L: int, n_planes: int, device,
-                   static_bytes: int = 0):
-    """Global scratch of a whole-row Hillis-Steele ladder kernel
-    (``common.cuh``: the resample EMA and bucket stats):
-    None while its ``n_planes`` float planes of ``L`` lanes, beside the
-    kernel's ``static_bytes`` of static shared memory, fit one block's
-    shared memory, else [K, n_planes, L] float32."""
-    if 4 * n_planes * L + static_bytes <= lib().tempo_ema_smem_limit():
-        return None
-    return torch.empty((K, n_planes, L), dtype=torch.float32, device=device)
+def bucket_max_lanes() -> int:
+    """Longest row the bucket-stats row form takes (its second stage
+    holds a row's residue classes in shared memory)."""
+    return lib().tempo_bucket_max_lanes()

@@ -49,8 +49,13 @@ RANGE_TILES = (1024, 512, 256)
 RESAMPLE_TILES = (1024, 512, 256, 128)
 
 _BARRIERS = 8 * MAX_DEPTH         # one 8-byte mbarrier a slot
-_REDUCE = 32 * 4                  # a block reduction's scratch
+_REDUCE = 32 * 4                  # a block reduction's 32 words
 _BUCKET_PLANES = 12               # the bucket ladder's float planes
+_RESAMPLE_BEHIND = 33             # staged lanes before a resample tile
+#: longest row of the EMA ladder's one-launch form (``kRowMax`` in
+#: ``csrc/common.cuh``, ``cuda_lib.ema_row_max()`` on the card), the
+#: only form the resample-EMA staged form has
+EMA_ROW_MAX = 16_384
 
 #: kernel name -> the last call's choice: form, tile, depth (and, for
 #: bucket stats, the rows left to the row form by a bucket longer than
@@ -92,9 +97,9 @@ def _plane(nbytes: int) -> int:
 
 def bucket_ring_bytes(C: int, L: int, T: int, depth: int) -> int:
     """Shared memory of the bucket-stats staged form (``bucket_ring_layout``
-    in ``csrc/bucket_stats.cu``): barriers, reduction scratch, C centres,
-    the window starts, the ladder's 12 planes of T floats and ``depth``
-    slots of the ids and each column's x and valid."""
+    in ``csrc/bucket_stats.cu``): barriers, a block reduction's 32 words,
+    C centres, the window starts, the ladder's 12 planes of T floats and
+    ``depth`` slots of the ids and each column's x and valid."""
     max_windows = 2 * -(-L // T) - 1
     fixed = (_BARRIERS + _REDUCE + _align16(4 * C)
              + _align16(4 * (max_windows + 1))
@@ -119,10 +124,11 @@ def range_ring_bytes(mb: int, ma: int, L: int, T: int, depth: int) -> int:
 def resample_ring_bytes(L: int, T: int, depth: int) -> int:
     """Shared memory of the resample-EMA staged form
     (``resample_ring_layout`` in ``csrc/resample_ema.cu``): barriers, the
-    whole row's ladder (four planes of L floats) and ``depth`` slots of a
-    tile's secs (one lane more, behind), x and valid."""
-    slot = _plane(4 * (T + 1)) + _plane(4 * T) + _plane(T)
-    return _BARRIERS + 16 * _align16(L) + depth * slot
+    register ladder's two planes of 32 * ceil(L / 32) floats and ``depth``
+    slots of a tile's secs, x and valid with the 33 lanes before it."""
+    slot = (2 * _plane(4 * (T + _RESAMPLE_BEHIND))
+            + _plane(T + _RESAMPLE_BEHIND))
+    return _BARRIERS + 8 * 32 * -(-L // 32) + depth * slot
 
 
 def _plan(L: int, tiles: Sequence[int], nbytes,
@@ -167,8 +173,11 @@ def range_plan(mb: int, ma: int, L: int,
 
 def resample_plan(L: int,
                   depth: Optional[int] = None) -> Optional[RingPlan]:
-    """Plan of the resample-EMA staged form, or None (the row form: the
-    row's ladder and a slot do not fit shared memory together)."""
+    """Plan of the resample-EMA staged form, or None (the row form: a row
+    past ``EMA_ROW_MAX`` lanes, which the ladder takes in two launches, or
+    no slot fits beside the row's ladder)."""
+    if L > EMA_ROW_MAX:
+        return None
     return _plan(L, RESAMPLE_TILES,
                  lambda T, d: resample_ring_bytes(L, T, d),
                  depth)

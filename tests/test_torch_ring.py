@@ -70,13 +70,22 @@ def test_range_and_resample_plans():
     assert stream.range_plan(12_700, 0, 102_056, 8) is None
     assert stream.range_plan(12_600, 0, 102_056, 8) == stream.RingPlan(
         256, 2, stream.range_ring_bytes(12_600, 0, 102_056, 256, 2))
-    # phase E: the ladder takes 204,288 B of 232,448; tiles fill the rest
-    want = {2: (1024, 2), 3: (1024, 3), 4: (512, 4), 8: (256, 8)}
+    # phase E: the register ladder takes 102,144 B of 232,448 (8 B a
+    # lane); the widest tile fits beside it at every depth
+    want = {2: (1024, 2), 3: (1024, 3), 4: (1024, 4), 8: (1024, 8)}
     for depth, (tile, d) in want.items():
         p = stream.resample_plan(12760, depth)
         assert (p.tile, p.depth) == (tile, d)
         assert p.smem <= stream.SMEM_LIMIT
-    # past the ladder's shared memory: the row form
+        # a slot: secs and x over the tile and the 33 lanes behind it
+        # (4,228 B each), valid (1,057 B), each plane rounded up to 16 B
+        # with 16 B of alignment slack
+        assert p.smem - stream.resample_ring_bytes(12760, tile, 0) \
+            == d * (2 * (4240 + 16) + 1072 + 16)
+    # past the one-launch ladder (16,384 lanes), phase F's rows among
+    # them: the row form, at every depth
+    assert stream.resample_plan(16_384, 8).tile == 1024
+    assert stream.resample_plan(16_385, 2) is None
     assert stream.resample_plan(102_056, 2) is None
 
 
