@@ -17,9 +17,15 @@ B. Hold each kernel against its plain PyTorch version on the card, in
    walk), phase D's value form, bin-packed rows (sid fence) and a
    sequence tie-break through both forms (row walk and tiles), skipNulls
    both ways, and few long rows ([8, 25000], the tiles by the shape
-   pick); range stats bitwise for ``count``/``clipped`` and within
-   1e-5 elsewhere (``stddev`` as the variance; also on a forward window with bounds small enough to
-   clip both ways); the EMA ladder bitwise against the plain version and
+   pick); range stats, both forms, bitwise in all seven stats and
+   ``clipped`` against the plain version run at the kernel's own centres
+   (``_center_out``), at the HHAR shape, on a forward window with bounds
+   small enough to clip both ways, and (row form) on 8 of phase F's rows
+   at the six-hour bounds, and ``count``/``clipped`` bitwise, the rest
+   within 1e-5 (``stddev`` as the variance; ``sum`` within 2e-3 on the
+   six-hour rows) of the plain version's own centre, the row form timed
+   at the HHAR shape and at phase F's six-hour shape and split into its
+   two kernels; the EMA ladder bitwise against the plain version and
    its tiled mirror (``ema_tiled_plain``), alpha 0.2 and 1, at the HHAR
    shape, phase D's, the one-launch limit of 16,384 lanes and rows of
    T * 2^j + 1 lanes with -0.0, NaN and +-inf (phase F's rows in the
@@ -27,8 +33,11 @@ B. Hold each kernel against its plain PyTorch version on the card, in
    (``torch.searchsorted`` for the join's last-row index, timed here
    only as a yardstick; the port never calls it).  Then the
    second slice's kernels, all bitwise: the valid-index scans on the
-   masks of the 1-second interpolation grid of the right frame,
-   ``last_valid_scan`` on its packed ``wx`` column, and ``resample_ema``
+   masks of the 1-second interpolation grid of the right frame (rows of
+   19,304 bytes: every other one starts 8 bytes into a 16-byte word) and
+   on that mask cut into rows of 1003 lanes from byte 8,
+   ``last_valid_scan`` on its packed ``wx`` column and on rows of 1003
+   lanes from byte 8 of the mask and lane 2 of x, and ``resample_ema``
    (both forms, also against its tiled mirror ``resample_ema_tiled_plain``)
    at its packed shape, on seconds shifted before 1970 with a scale, on
    phase F's long rows (steps 60 and 7), and on rows of 16,384 lanes (the
@@ -355,10 +364,12 @@ def make_frames(pd, n_rows: int, n_series: int, seed: int = 0):
     return left, right, n
 
 
-def check_range_stats(got, want, what: str) -> float:
+def check_range_stats(got, want, what: str, sum_atol: float = 1e-5) -> float:
     """Raise unless kernel stats ``got`` match the plain ``want``:
     ``count`` and ``clipped`` bitwise, the rest within 1e-5 (abs + rel;
-    the centre's block reduction sums in another order).  ``stddev`` is
+    the centre's block reduction sums in another order; ``sum`` within
+    ``sum_atol`` + 1e-5 rel, for windows long enough that the centre's
+    rounding shows in a float32 sum of thousands of centred values).  ``stddev`` is
     compared as its square: both sides take ``s2 - s1*s1/n`` in float32,
     whose cancellation error (~1e-6 at these inputs, the same on both
     sides against float64) the square root blows up to ~1e-3 where the
@@ -388,7 +399,7 @@ def check_range_stats(got, want, what: str) -> float:
             raise AssertionError(f"{what}: range-stats kernel {k}: NaN "
                                  f"pattern differs from its plain version")
         diff = (g - wv).abs().nan_to_num(0.0)
-        tol = 1e-5 + 1e-5 * wv.abs().nan_to_num(0.0)
+        tol = (sum_atol if k == "sum" else 1e-5) + 1e-5 * wv.abs().nan_to_num(0.0)
         if bool((diff > tol).any()):
             raise AssertionError(f"{what}: range-stats kernel {k} off its "
                                  f"plain version by {float(diff.max())}")
@@ -425,12 +436,13 @@ def packed_join_inputs(pd, packing, left, right, dev):
     return l_ts, r_ts, up(np.stack(valids))
 
 
-def phase_b(pd, left, right, dev, d_args):
+def phase_b(pd, left, right, left3, dev, d_args):
     """Each kernel against its plain version; returns the kernels' rows
-    of the result line (``launches`` filled in by phase C)."""
+    of the result line (``launches`` filled in by phase C; ``left3`` is
+    phase F's left frame)."""
     from tempo_tpu_torch import TSDF, packing
     from tempo_tpu_torch import rolling as rolling_frame
-    from tempo_tpu_torch.ops import cuda_lib, merge, scan, window
+    from tempo_tpu_torch.ops import cuda_lib, merge, scan, stream, window
 
     rows = {}
 
@@ -559,17 +571,34 @@ def phase_b(pd, left, right, dev, d_args):
     del l_ts, r_ts, r_valids, got, lib_last, few_l, few_r, few_v, few
 
     # -- range stats at the HHAR shape (the left metric x) -----------
+    # Both forms bitwise in all seven stats and `clipped` against the
+    # plain version run at the kernel's own centres (``_center_out``),
+    # min and max included with the sign of zero (the card's torch
+    # min/max and the kernel's agree there); count and clipped also
+    # bitwise, the rest within 1e-5, against the plain version's centre.
+    def held(got, what, *a, **kw):
+        centre = torch.empty(got["count"].shape[:2], device=dev)
+        again = window.range_stats_cuda(*a, _center_out=centre, **kw)
+        check_same(again, got, f"range stats ({what}) run twice")
+        kw.pop("_form", None)
+        check_same(got, window.range_stats_plain(*a, _centers=centre, **kw),
+                   f"range stats ({what}) against the plain version at the "
+                   f"kernel's centres")
+
     lt = TSDF(left, "event_ts", ["user"], device=dev, dtype=torch.float32)
     x, valid = lt.packed_numeric("x")
     engine, rb, ts_long, w = rolling_frame.plan_range_engine(lt, 10)
     secs = torch.from_numpy(ts_long).to(dev)
     mb, ma = int(rb[0]), int(rb[1])
-    hh_row = window.range_stats_cuda(secs, x[None], valid[None], w, mb, ma,
-                                     _form="row")
-    hh_want = window.range_stats_plain(secs, x[None], valid[None], w, mb, ma)
+    hh_args = (secs, x[None], valid[None], w, mb, ma)
+    hh_row = window.range_stats_cuda(*hh_args, _form="row")
+    held(hh_row, "HHAR shape, row form", *hh_args, _form="row")
+    held(window.range_stats_cuda(*hh_args, _form="ring"),
+         "HHAR shape, staged form", *hh_args, _form="ring")
+    hh_want = window.range_stats_plain(*hh_args)
     err = check_range_stats(hh_row, hh_want, "HHAR shape")
     # look-ahead rows (a forward window) and truncation both ways, so the
-    # kernel's ahead loop and both halves of its clipped audit are held
+    # kernel's ahead walk and both halves of its clipped audit are held
     # against the plain version too, in both forms
     dsecs = d_args[1].to(torch.int32)
     dx, dv = d_args[2][None], d_args[3][None]
@@ -580,38 +609,76 @@ def phase_b(pd, left, right, dev, d_args):
     for form in ("row", "ring"):
         got = window.range_stats_cuda(dsecs, dx, dv, 10, 4, 2,
                                       window_ahead=6, _form=form)
+        held(got, f"truncating case, {form} form", dsecs, dx, dv, 10, 4, 2,
+             window_ahead=6, _form=form)
         err = max(err, check_range_stats(got, want,
                                          f"truncating case, {form} form"))
+    # phase F's long rows at the six-hour bounds (a halo of ~14,600 lanes
+    # against windows of 2048: the row form walks several windows)
+    lt6 = TSDF(left3, "event_ts", ["user"], device=dev, dtype=torch.float32)
+    x6, valid6 = lt6.packed_numeric("x")
+    engine6, rb6, ts6, w6 = rolling_frame.plan_range_engine(lt6, 6 * 3600)
+    secs6 = torch.from_numpy(ts6).to(dev)
+    mb6, ma6 = int(rb6[0]), int(rb6[1])
+    six_args = (secs6, x6[None], valid6[None], w6, mb6, ma6)
+    if stream.range_plan(mb6, ma6, x6.shape[1]) is not None:
+        raise AssertionError("six-hour range stats fit a staged plan")
+    eight = (secs6[:8], x6[None, :8], valid6[None, :8], w6, mb6, ma6)
+    six8 = window.range_stats_cuda(*eight)
+    held(six8, "8 of phase F's rows at six-hour bounds", *eight)
+    # against the plain version's own centre: windows of ~14,400 rows sum
+    # that many centred float32 values, so `sum` takes phase F's 2e-3
+    six_err = check_range_stats(six8, window.range_stats_plain(*eight),
+                                "8 of phase F's rows, six hours",
+                                sum_atol=2e-3)
     Kw, L = x.shape
     nbytes = Kw * L * (4 + 4 + 1) + 7 * Kw * L * 4 + Kw * 4
     nops = Kw * L * ((mb + ma) * 10 + 20)
     b, by = bound_ms(nbytes, nops)
+    K6, L6 = x6.shape
+    b6, by6 = bound_ms(K6 * L6 * (4 + 4 + 1) + 7 * K6 * L6 * 4 + K6 * 4,
+                       K6 * L6 * ((mb6 + ma6) * 10 + 20))
     rows["range_stats"] = dict(
         name="range_stats", route="cuda",
         source="tempo_tpu_torch/csrc/range_stats.cu",
         replaces="tempo_tpu/ops/pallas_window.py:312",
-        max_abs_err=err,
-        ms=time_ms(lambda: window.range_stats_cuda(secs, x[None], valid[None],
-                                                   w, mb, ma, _form="row")),
-        plain_ms=time_ms(lambda: window.range_stats_plain(
-            secs, x[None], valid[None], w, mb, ma), reps=3),
+        max_abs_err=err, max_abs_err_six_hour=six_err,
+        ms=time_ms(lambda: window.range_stats_cuda(*hh_args, _form="row")),
+        plain_ms=time_ms(lambda: window.range_stats_plain(*hh_args), reps=3),
         bound_ms=b, bound_by=by, library_ms=None,
+        stages_ms=stage_ms(lambda: window.range_stats_cuda(*hh_args,
+                                                           _form="row")),
+        ms_six_hour=time_ms(lambda: window.range_stats_cuda(*six_args),
+                            reps=3),
+        bound_ms_six_hour=b6, bound_by_six_hour=by6,
+        stages_ms_six_hour=stage_ms(
+            lambda: window.range_stats_cuda(*six_args), reps=2),
         shape=f"[1, {Kw}, {L}], window {w}s, rows {mb} behind/{ma} ahead, "
-              f"engine {engine}")
-    log(f"B range_stats: count/clipped bitwise, rest within 1e-5 "
-        f"(max abs err {err:.3g}) at [1, {Kw}, {L}] bounds ({mb}, {ma}) and "
-        f"at {list(dx.shape)} rangeBetween(-10, +6) bounds (4, 2) with "
-        f"{n_clipped} rows clipped; "
-        f"kernel {rows['range_stats']['ms']:.4f} ms, plain "
-        f"{rows['range_stats']['plain_ms']:.4f} ms")
+              f"engine {engine}",
+        shape_six_hour=f"[1, {K6}, {L6}], window {w6}s, rows {mb6} behind/"
+                       f"{ma6} ahead, engine {engine6}")
+    row = rows["range_stats"]
+    log(f"B range_stats: both forms bitwise equal to the plain version at "
+        f"the kernel's centres (all seven stats and clipped) at [1, {Kw}, "
+        f"{L}] bounds ({mb}, {ma}), at {list(dx.shape)} rangeBetween(-10, "
+        f"+6) bounds (4, 2) with {n_clipped} rows clipped, and (row form) on "
+        f"8 of phase F's rows at bounds ({mb6}, {ma6}); count/clipped "
+        f"bitwise, rest within 1e-5 of the plain version's own centre (max "
+        f"abs err {err:.3g}; six-hour rows {six_err:.3g}, sum within 2e-3); "
+        f"kernel {row['ms']:.4f} ms (stages "
+        f"{row['stages_ms']}), plain {row['plain_ms']:.4f} ms, bound "
+        f"{b:.4f} ms; six hours [1, {K6}, {L6}]: {row['ms_six_hour']:.4f} ms "
+        f"(stages {row['stages_ms_six_hour']}), bound {b6:.4f} ms ({by6})")
+    if cuda_lib.range_row_window() != window.ROW_WINDOW:
+        raise AssertionError("the row form's window differs from "
+                             "window.ROW_WINDOW")
     rows.update(ring_rows(
         "range_stats",
-        lambda: window.range_stats_cuda(secs, x[None], valid[None], w, mb,
-                                        ma, _form="ring"),
+        lambda: window.range_stats_cuda(*hh_args, _form="ring"),
         hh_row, hh_want, check_range_stats, rows["range_stats"],
         "tempo_tpu_torch/csrc/range_stats.cu",
         lambda p: (mb, ma, L, p["tile"], p["depth"])))
-    del got, want, hh_row, hh_want
+    del got, want, hh_row, hh_want, six8, lt6, x6, valid6, secs6
 
     # -- exact EMA ladder at the HHAR shape and phase D's -------------
     cases = [(f"HHAR {list(x.shape)}", x, valid),
@@ -688,7 +755,13 @@ def phase_b_slice2(right, left3, dev):
     grid = torch.from_numpy(real).to(dev)
     col = torch.from_numpy(valid.reshape(-1, valid.shape[-1])).to(dev)
     K, G = grid.shape
-    for mask, what in ((grid, "grid mask"), (col, "wx mask")):
+    # the grid's rows of 19,304 bytes start every other one 8 bytes into a
+    # 16-byte word; the last case starts its rows at 8 mod 16 and odd
+    # bytes with L = 1003, not a multiple of 16
+    n_odd = (K * G - 8) // 1003
+    odd = grid.reshape(-1)[8:8 + n_odd * 1003].view(n_odd, 1003)
+    for mask, what in ((grid, "grid mask"), (col, "wx mask"),
+                       (odd, "grid mask as rows of 1003 from byte 8")):
         check_bitwise(scan.last_valid_index_scan_cuda(mask),
                       scan.last_valid_index_scan_plain(mask),
                       f"last_valid_index on the {what}")
@@ -718,11 +791,12 @@ def phase_b_slice2(right, left3, dev):
             library_ms=None if lib_fn is None else time_ms(lib_fn),
             shape=f"[{K}, {G}] bool")
     log(f"B index scans: bitwise equal to plain on the grid mask [{K}, {G}] "
-        f"({int(real.sum())} real slots) and the wx mask {list(col.shape)}; "
+        f"({int(real.sum())} real slots), the wx mask {list(col.shape)} and "
+        f"the grid mask as {list(odd.shape)} from byte 8; "
         f"last {rows['last_valid_index']['ms']:.4f} ms, first "
         f"{rows['first_valid_index']['ms']:.4f} ms, torch.cummax "
         f"{rows['last_valid_index']['library_ms']:.4f} ms")
-    del grid, col, cand, lanes, sampled
+    del grid, col, cand, lanes, sampled, odd
 
     # -- forward fill on the packed wx column --------------------------
     x, v = rt.packed_numeric("wx")
@@ -730,6 +804,14 @@ def phase_b_slice2(right, left3, dev):
     got, want = scan.last_valid_scan_cuda(x, v), scan.last_valid_scan_plain(x, v)
     check_bitwise(got[0], want[0], "last_valid_scan values")
     check_bitwise(got[1], want[1], "last_valid_scan has-valid")
+    # rows of 1003 lanes starting at byte 8 of the mask and lane 2 of x
+    n_odd = (Kx * L - 8) // 1003
+    ox = x.reshape(-1)[2:2 + n_odd * 1003].view(n_odd, 1003)
+    ov = v.reshape(-1)[8:8 + n_odd * 1003].view(n_odd, 1003)
+    got, want = scan.last_valid_scan_cuda(ox, ov), \
+        scan.last_valid_scan_plain(ox, ov)
+    check_bitwise(got[0], want[0], "last_valid_scan values (rows of 1003)")
+    check_bitwise(got[1], want[1], "last_valid_scan has-valid (rows of 1003)")
     b, by = bound_ms(Kx * L * 10, Kx * L * 2)
     rows["last_valid_scan"] = dict(
         name="last_valid_scan", route="cuda",
@@ -738,7 +820,8 @@ def phase_b_slice2(right, left3, dev):
         ms=time_ms(lambda: scan.last_valid_scan_cuda(x, v)),
         plain_ms=time_ms(lambda: scan.last_valid_scan_plain(x, v), reps=3),
         bound_ms=b, bound_by=by, library_ms=None, shape=f"[{Kx}, {L}]")
-    log(f"B last_valid_scan: bitwise equal to plain at [{Kx}, {L}]; kernel "
+    log(f"B last_valid_scan: bitwise equal to plain at [{Kx}, {L}] and on "
+        f"rows of 1003 from byte 8 of the mask and lane 2 of x; kernel "
         f"{rows['last_valid_scan']['ms']:.4f} ms")
 
     # -- fused resample + EMA ----------------------------------------
@@ -2194,7 +2277,7 @@ def main(argv=None) -> int:
     log(f"F data: {n3} rows a side over {args.long_series} series in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    rows = phase_b(pd, left, right, dev, d_args)
+    rows = phase_b(pd, left, right, left3, dev, d_args)
     rows2 = phase_b_slice2(right, left3, dev)
     rows3 = phase_b_slice3(pd, left3, right3, dev, d_args)
     rows4 = phase_b_slice4(left, dev, d_args)

@@ -4,37 +4,72 @@
 // over _window_math (through _call: range_stats_unrolled[_packed] and
 // range_stats_stream[_packed]).  One kernel serves both the unrolled and
 // the runtime-width forms: the row bounds (mb behind, ma ahead) and the
-// key windows (w, wa) arrive as scalars.  One block per series row; the
-// block reads the row's key plane once and walks the C packed columns.
-// For each column it reduces the per-row centre, then one thread per
-// output lane loops j = 1..mb behind and 1..ma ahead and reproduces
-// _window_math's op sequence: validity folded into the s_lo / s_hi keys,
-// the forward bound saturated at BIG-1, sums and min/max accumulated on
-// centred values with the centre added back, and the `clipped` audit
-// (reduced to one count per row and column).  The accumulator lines use
-// round-to-nearest intrinsics (and the build passes -fmad=false), so no
-// multiply-add is contracted: count and clipped are bitwise equal to the
-// Pallas kernel, the rest differ only through the centre's summation
-// order.
+// key windows (w, wa) arrive as scalars.  Each output lane i reproduces
+// _window_math's op sequence: its centred value first, then j = 1 .. mb
+// behind and j = 1 .. ma ahead, validity folded into the s_lo / s_hi
+// keys, the forward bound saturated at BIG-1, sums and min/max taken on
+// centred values with the centre added back, and the `clipped` audit.
+// Every op is rounded (the __f*_rn intrinsics, -fmad=false).
 //
-// Two forms, picked on the host by ops/stream.range_plan:
+// Bound on H100: bytes where the bounds are narrow, operations where they
+// are wide.  The function reads a lane's key, value and validity and
+// writes seven f32 planes (37 B a lane: 0.144 ms at [1, 1024, 12760] and
+// 3.35 TB/s), and does ~10 operations a lane and neighbour (at phase F's
+// six-hour bounds, 14,575 rows behind over [1, 128, 102056], 28 ms at 67
+// TFLOP/s).  The instructions of the neighbour loop and of the epilogue
+// (four rounded divisions and a square root an output) set the pace, so
+// the design cuts them and keeps the card full:
 //
-// * the row form (range_stats_kernel): each lane reads its neighbours
-//   from global memory (through L1);
-// * the staged form (range_stats_ring_kernel): the block walks
-//   (column, lane tile) items; each tile of T lanes, with the halo of
-//   mb + 1 lanes behind and ma + 1 ahead that its lanes and their clip
-//   audit read, streams through ring.cuh's staging ring (keys, x, valid),
-//   and the same per-lane code (range_lane) reads it from shared memory.
-//   The centre is reduced from global memory at a column's first tile in
-//   the row form's order, so both forms give the same bits.  Where the
-//   halo makes no slot fit (row extents of about 12,600 rows and more),
-//   the planner takes the row form.
+//   (a) range_centres: a block per (column, row) (256 threads; 1024 past
+//       32,768 lanes) sums its row's valid x * scale in a fixed order
+//       (thread t: the groups of four lanes t, t + T, ... lane by lane,
+//       16-byte loads where aligned; then block_sum) into a [C, K] plane,
+//       and zeroes the row's clip count.  Both forms read it.
+//   (b) Each lane's values a walk needs are formed once, into a window
+//       in shared memory: the centred value c (0 where invalid), c*c with
+//       the validity in its sign bit (-0.0 where invalid: a valid c*c is
+//       +0 or more, and a NaN the card computes is 0x7fffffff, positive),
+//       the raw key and x * scale.  These are the rounded values the old
+//       per-step `centred(p)` recomputed, so the bits do not change.
+//       Window entry q sits at q + q / 8 (16-byte entries): the threads'
+//       stride-4 reads hit distinct banks.
+//   (c) Register blocking: a thread owns kLanes = 4 consecutive outputs
+//       (five accumulators each) and walks the neighbour offsets d from
+//       its first output in descending order for the behind loop
+//       (ascending ahead), one 16-byte shared load a step feeding every
+//       output whose j lies in 1 .. mb.  Each output still sees j = 1, 2,
+//       ... in order.  The triangles at both ends of the walk are unrolled
+//       with their active outputs known at compile time.  (Eight outputs a
+//       thread walk long halos faster but need 128 registers, which halves
+//       the blocks an SM holds and loses where the bounds are narrow.)
+//   (d) A step adds only where the neighbour is in the window: count, the
+//       sum of squares and min/max under the predicate, the sum by
+//       `inw ? c : 0` as before.  That keeps every bit: the count and the
+//       sum of squares are never -0.0, so their +0.0 terms change
+//       nothing; min/max skip NaN (fminf) and are set to the canonical
+//       NaN at the end exactly where the sum of squares is NaN (c*c is
+//       NaN iff c is); a step whose neighbour lies outside the row adds
+//       +0.0 to the sum, and those steps are the last of their loop, so
+//       they are one s1 + 0.0 at the end (it only turns -0.0 into +0.0).
 //
-// Bound on H100: bytes.  Each lane reads its key, value and validity once
-// and writes seven f32 stat planes; the (mb + ma) neighbour reads per lane
-// hit L1, and the arithmetic, ~10 flops per neighbour, stays far below
-// the f32 rate at the windows the frame layer derives (tens of rows).
+// Two forms, picked on the host by ops/stream.range_plan; both run the
+// same body on a window and are bitwise equal:
+//
+// * the row form (range_rows): a 256-thread block per (column, row, tile
+//   of 1024 outputs), so that phase F's 128 rows fill the card.  Its
+//   window of at most kRowWindow lanes holds the tile and its halo
+//   (mb + 1 lanes behind, ma + 1 ahead) when they fit; a wider halo is
+//   walked over several windows, each refilled from global memory with
+//   16-byte loads.  A row's tiles add their clip counts into its float
+//   `clipped` by atomics: integers below 2^24 add exactly in any order
+//   (the wrapper refuses longer rows).
+// * the staged form (range_ring_kernel): a block of T / kLanes threads
+//   per series row walks (column, lane tile) items; each tile's keys, x
+//   and valid over the tile and its halo stream through ring.cuh's
+//   staging ring, and the window is filled from the slot.  Where the
+//   window and slots do not fit, the planner takes the row form.
+//
+// A null `scale` means 1 (x * 1 keeps x's bits).
 #include "common.cuh"
 #include "ring.cuh"
 
@@ -42,217 +77,493 @@
 
 namespace {
 
-constexpr int kStatsThreads = 256;
+constexpr int kLanes = 4;                  // consecutive outputs a thread
+constexpr int kRowThreads = 256;           // the row form's block
+constexpr int kRowTile = kRowThreads * kLanes;
+constexpr int kRowWindow = 2048;           // lanes a row-form window holds at most
+constexpr int kCentreThreads = 1024;   // at most; 256 for rows up to 32,768 lanes
 
-// Lanes of a row in global memory: lane p at index p.
-struct RowLanes {
-    const int32_t* s;
-    const float* x;
-    const uint8_t* v;
-    __device__ __forceinline__ int32_t key(int p) const { return s[p]; }
-    __device__ __forceinline__ float val(int p) const { return x[p]; }
-    __device__ __forceinline__ bool ok(int p) const { return v[p] != 0; }
-};
-
-// Lanes [lo, hi) of a row staged in a ring slot: lane p at index p - lo.
-struct SlotLanes {
-    const int32_t* s;
-    const float* x;
-    const uint8_t* v;
-    int lo;
-    __device__ __forceinline__ int32_t key(int p) const { return s[p - lo]; }
-    __device__ __forceinline__ float val(int p) const { return x[p - lo]; }
-    __device__ __forceinline__ bool ok(int p) const { return v[p - lo] != 0; }
-};
+// shared-memory entries of a window of n lanes (entry q at q + q / 8)
+__host__ __device__ inline int win_entries(int n) { return n + (n >> 3) + 1; }
 
 struct RangeParams {
-    int w, wa, mb_loop, ma_loop, jb_behind, jb_ahead, L;
-    size_t stat_plane;
+    int w, wa;
+    int mb, ma;      // loop counts: the bounds clamped to L - 1
+    int hb, ha;      // the clip lanes i - hb, i + ha (hb = L: none)
+    int L;
 };
 
-__device__ __forceinline__ RangeParams range_params(int w, int wa, int mb, int ma, int C, int K,
-                                                    int L) {
+__host__ __device__ inline RangeParams range_params(int w, int wa, int mb, int ma, int L) {
     // a bound >= L has no row beyond it
-    return {w, wa, min(mb, L - 1), min(ma, L - 1), mb >= L - 1 ? L : mb + 1,
-            ma >= L - 1 ? L : ma + 1, L, (size_t)C * K * L};
+    return {w, wa, mb < L - 1 ? mb : L - 1, ma < L - 1 ? ma : L - 1, mb >= L - 1 ? L : mb + 1,
+            ma >= L - 1 ? L : ma + 1, L};
 }
 
-// The row's centre of column (x, valid) under `sc`: lane-strided sums over
-// the block, then block_sum.
+__device__ __forceinline__ float f32_inf() { return __int_as_float(0x7f800000); }
+__device__ __forceinline__ float neg_zero() { return __int_as_float((int)0x80000000); }
+
+// (c, c*c with validity in its sign, key, x * scale) of a lane
+__device__ __forceinline__ float4 lane_value(int32_t key, float x, bool ok, float sc,
+                                             float center) {
+    const float xs = __fmul_rn(x, sc);
+    const float c = ok ? __fsub_rn(xs, center) : 0.f;
+    return make_float4(c, ok ? __fmul_rn(c, c) : neg_zero(), __int_as_float(key), xs);
+}
+// a lane outside the row (never read by a step that counts)
+__device__ __forceinline__ float4 pad_value() {
+    return make_float4(0.f, neg_zero(), __int_as_float(INT_MAX), 0.f);
+}
+__device__ __forceinline__ bool v_ok(float4 v) { return __float_as_int(v.y) >= 0; }
+__device__ __forceinline__ int32_t v_key(float4 v) { return __float_as_int(v.z); }
+
+// The row's centre of column (x, valid) under `sc`: thread t sums the
+// groups of four lanes t, t + T, t + 2T, ... (T = blockDim.x) lane by lane,
+// then the tail lanes past the last whole group, then block_sum.  The order
+// depends on the lanes only; the loads are 16 bytes where aligned.
 __device__ __forceinline__ float range_center(const float* xr, const uint8_t* vr, float sc,
                                               int L, float* shf) {
     float nv = 0.f, sx = 0.f;
-    for (int i = threadIdx.x; i < L; i += blockDim.x) {
-        if (vr[i]) {
+    auto add = [&](bool ok, float xv) {
+        if (ok) {
             nv = __fadd_rn(nv, 1.f);
-            sx = __fadd_rn(sx, __fmul_rn(xr[i], sc));
+            sx = __fadd_rn(sx, __fmul_rn(xv, sc));
+        }
+    };
+    const int ng = L >> 2;
+    const bool vec = (((uintptr_t)xr & 15) == 0) && (((uintptr_t)vr & 3) == 0);
+#pragma unroll 4
+    for (int g = threadIdx.x; g < ng; g += blockDim.x) {
+        if (vec) {
+            const float4 x4 = reinterpret_cast<const float4*>(xr)[g];
+            const uchar4 v4 = reinterpret_cast<const uchar4*>(vr)[g];
+            add(v4.x, x4.x);
+            add(v4.y, x4.y);
+            add(v4.z, x4.z);
+            add(v4.w, x4.w);
+        } else {
+#pragma unroll
+            for (int u = 0; u < 4; ++u) add(vr[4 * g + u] != 0, xr[4 * g + u]);
         }
     }
+    const int i = 4 * ng + threadIdx.x;
+    if (i < L) add(vr[i] != 0, xr[i]);
     nv = block_sum(nv, shf);
     sx = block_sum(sx, shf);
     return __fdiv_rn(sx, fmaxf(nv, 1.f));
 }
 
-// Lane i's seven stats, written at out[o + i] (+ s * stat_plane); returns
-// its clip flag.
-template <class Lanes>
-__device__ __forceinline__ bool range_lane(const Lanes& in, int i, float sc, float center,
-                                           const RangeParams& q, float* out, size_t o) {
-    const int32_t BIG = INT_MAX;
-    const float INF = __int_as_float(0x7f800000);
-    const float NaN = tempo_nan();
-    const int L = q.L;
-    // centred value of row p: valid ? x*scale - center : 0
-    auto centred = [&](int p) -> float {
-        return in.ok(p) ? __fsub_rn(__fmul_rn(in.val(p), sc), center) : 0.f;
-    };
-    const int32_t si = in.key(i);
-    const bool vi = in.ok(i);
-    const float xi = __fmul_rn(in.val(i), sc);
-    const int32_t lo = wrap_sub(si, q.w);
-    const int32_t hi = min(wrap_add(si, min(q.wa, wrap_sub(BIG, si))), BIG - 1);
-
-    const float xc = centred(i);
-    float cnt = vi ? 1.f : 0.f;
-    float s1 = xc;
-    float s2 = __fmul_rn(xc, xc);
-    float mn = vi ? xc : INF;
-    float mx = vi ? xc : -INF;
-    for (int j = 1; j <= q.mb_loop; ++j) {
-        bool inw = false;
-        float xj = 0.f;
-        if (j <= i) {
-            const int p = i - j;
-            const int32_t s_lo = in.ok(p) ? in.key(p) : INT_MIN;
-            inw = s_lo >= lo;
-            xj = centred(p);
-        }
-        cnt = __fadd_rn(cnt, inw ? 1.f : 0.f);
-        s1 = __fadd_rn(s1, inw ? xj : 0.f);
-        s2 = __fadd_rn(s2, inw ? __fmul_rn(xj, xj) : 0.f);
-        mn = min_nan(mn, inw ? xj : INF);
-        mx = max_nan(mx, inw ? xj : -INF);
-    }
-    for (int j = 1; j <= q.ma_loop; ++j) {
-        bool inw = false;
-        float xj = 0.f;
-        if (i < L - j) {
-            const int p = i + j;
-            const int32_t s_hi = in.ok(p) ? in.key(p) : BIG;
-            inw = s_hi <= hi;
-            xj = centred(p);
-        }
-        cnt = __fadd_rn(cnt, inw ? 1.f : 0.f);
-        s1 = __fadd_rn(s1, inw ? xj : 0.f);
-        s2 = __fadd_rn(s2, inw ? __fmul_rn(xj, xj) : 0.f);
-        mn = min_nan(mn, inw ? xj : INF);
-        mx = max_nan(mx, inw ? xj : -INF);
-    }
-
-    const float cnt1 = fmaxf(cnt, 1.f);
-    const float mean = cnt > 0.f ? __fadd_rn(__fdiv_rn(s1, cnt1), center) : NaN;
-    const float total = __fadd_rn(s1, __fmul_rn(cnt, center));
-    const float var = cnt > 1.f
-        ? __fdiv_rn(__fsub_rn(s2, __fdiv_rn(__fmul_rn(s1, s1), cnt1)),
-                    fmaxf(__fsub_rn(cnt, 1.f), 1.f))
-        : NaN;
-    const float sd = cnt > 1.f ? __fsqrt_rn(max_nan(var, 0.f)) : NaN;
-    const size_t at = o + i;
-    const size_t sp = q.stat_plane;
-    out[0 * sp + at] = mean;
-    out[1 * sp + at] = cnt;
-    out[2 * sp + at] = cnt > 0.f ? __fadd_rn(mn, center) : NaN;
-    out[3 * sp + at] = cnt > 0.f ? __fadd_rn(mx, center) : NaN;
-    out[4 * sp + at] = cnt > 0.f ? total : NaN;
-    out[5 * sp + at] = sd;
-    out[6 * sp + at] = vi ? __fdiv_rn(__fsub_rn(xi, mean), sd) : NaN;
-
-    // truncation audit: the first row beyond either bound still in
-    // the frame's key range, with either end valid
-    bool clip = false;
-    {
-        int32_t sj = BIG;
-        bool vj = false;
-        if (i >= q.jb_behind) { sj = in.key(i - q.jb_behind); vj = in.ok(i - q.jb_behind); }
-        clip |= (sj >= lo) && (sj <= hi) && (vi || vj);
-    }
-    {
-        int32_t sj = BIG;
-        bool vj = false;
-        if (i < L - q.jb_ahead) { sj = in.key(i + q.jb_ahead); vj = in.ok(i + q.jb_ahead); }
-        clip |= (sj >= lo) && (sj <= hi) && (vi || vj);
-    }
-    return clip;
+// the column's scale (1 where the caller gave none: x * 1 keeps x's bits)
+__device__ __forceinline__ float scale_of(const float* scale, int c) {
+    return scale != nullptr ? scale[c] : 1.f;
 }
 
-__global__ void __launch_bounds__(kStatsThreads)
-range_stats_kernel(const int32_t* __restrict__ secs, const float* __restrict__ x,
-                   const uint8_t* __restrict__ valid, const float* __restrict__ scale,
-                   float* __restrict__ out, float* __restrict__ clipped, int w, int wa,
-                   int mb, int ma, int C, int K, int L) {
+__global__ void __launch_bounds__(kCentreThreads)
+range_centres(const float* __restrict__ x, const uint8_t* __restrict__ valid,
+              const float* __restrict__ scale, float* __restrict__ centre,
+              float* __restrict__ clipped, int K, int L) {
     __shared__ float shf[32];
-    __shared__ int shi[32];
-    const int k = blockIdx.x;
-    const RangeParams q = range_params(w, wa, mb, ma, C, K, L);
-
-    for (int c = 0; c < C; ++c) {
-        const size_t crow = ((size_t)c * K + k) * L;
-        const RowLanes in{secs + (size_t)k * L, x + crow, valid + crow};
-        const float sc = scale[c];
-        const float center = range_center(in.x, in.v, sc, L, shf);
-        int nclip = 0;
-        for (int i = threadIdx.x; i < L; i += blockDim.x)
-            nclip += range_lane(in, i, sc, center, q, out, crow) ? 1 : 0;
-        nclip = block_sum(nclip, shi);
-        if (threadIdx.x == 0) clipped[(size_t)c * K + k] = (float)nclip;
+    const size_t crow = (size_t)blockIdx.x * L;
+    const float c = range_center(x + crow, valid + crow, scale_of(scale, blockIdx.x / K), L, shf);
+    if (threadIdx.x == 0) {
+        centre[blockIdx.x] = c;
+        clipped[blockIdx.x] = 0.f;
     }
+}
+
+// A window: lanes [base, ...) at entries q + q / 8.
+struct Win {
+    const float4* w;
+    int base;
+    __device__ __forceinline__ float4 at(int p) const {
+        const int q = p - base;
+        return w[q + (q >> 3)];
+    }
+};
+
+struct Acc {
+    float cnt, s1, s2, mn, mx;
+};
+
+__device__ __forceinline__ void acc_step(Acc& a, float c, float c2, bool inw) {
+    if (inw) {
+        a.cnt = __fadd_rn(a.cnt, 1.f);
+        a.s2 = __fadd_rn(a.s2, c2);
+        a.mn = fminf(a.mn, c);
+        a.mx = fmaxf(a.mx, c);
+    }
+    a.s1 = __fadd_rn(a.s1, inw ? c : 0.f);
+}
+
+// A thread's kLanes outputs i0 + e.
+struct ThreadOutputs {
+    Acc a[kLanes];
+    int32_t lo[kLanes], hi[kLanes];
+    float xs[kLanes];
+    unsigned vbits, clip;
+    int i0;
+
+    __device__ __forceinline__ void own(const Win& win, const RangeParams& q) {
+        const int32_t BIG = INT_MAX;
+        const float INF = f32_inf();
+        vbits = 0;
+        clip = 0;
+#pragma unroll
+        for (int e = 0; e < kLanes; ++e) {
+            const float4 v = win.at(i0 + e);
+            const bool vi = v_ok(v);
+            const int32_t si = v_key(v);
+            lo[e] = wrap_sub(si, q.w);
+            hi[e] = min(wrap_add(si, min(q.wa, wrap_sub(BIG, si))), BIG - 1);
+            const float xc = v.x;
+            a[e] = {vi ? 1.f : 0.f, xc, __fmul_rn(xc, xc), vi ? xc : INF, vi ? xc : -INF};
+            xs[e] = v.w;
+            vbits |= (vi ? 1u : 0u) << e;
+        }
+    }
+
+    // the clip audit's lane at offset `off` (-hb or +ha) where it lies in
+    // the row and in the window's offsets [dl, dh]
+    __device__ __forceinline__ void clip_at(const Win& win, int off, int dl, int dh, int L) {
+#pragma unroll
+        for (int e = 0; e < kLanes; ++e) {
+            const int d = e + off;
+            const int p = i0 + d;
+            if (d >= dl && d <= dh && p >= 0 && p < L) {
+                const float4 v = win.at(p);
+                const int32_t sj = v_key(v);
+                const bool hit = (sj >= lo[e]) && (sj <= hi[e]) && (((vbits >> e) & 1u) || v_ok(v));
+                clip |= (hit ? 1u : 0u) << e;
+            }
+        }
+    }
+
+    // behind steps at offsets d in [dl, dh] (descending), neighbour i0 + d
+    __device__ __forceinline__ void behind(const Win& win, int dl, int dh, int mb) {
+        auto nb = [&](int d, int32_t* s) {
+            const float4 v = win.at(i0 + d);
+            *s = v_ok(v) ? v_key(v) : INT_MIN;
+            return v;
+        };
+        if (mb >= kLanes - 1) {
+#pragma unroll
+            for (int s = 0; s < kLanes - 1; ++s) {          // head: outputs e > d
+                const int d = kLanes - 2 - s;
+                if (d >= dl && d <= dh) {
+                    int32_t sl;
+                    const float4 v = nb(d, &sl);
+#pragma unroll
+                    for (int e = 0; e < kLanes; ++e)
+                        if (e > d) acc_step(a[e], v.x, v.y, sl >= lo[e]);
+                }
+            }
+            // all outputs: neighbour lanes i0 + min(dh, -1) down to the
+            // highest of i0 + dl, i0 + kLanes - 1 - mb and 0 (bounds taken
+            // as lanes: written as max(max(dl, kLanes - 1 - mb), -i0) they
+            // came out of the sm_90a build as -dl, and the loop never ran)
+            const int p_top = i0 + min(dh, -1);
+            int p_bot = i0 + dl;
+            if (i0 + kLanes - 1 - mb > p_bot) p_bot = i0 + kLanes - 1 - mb;
+            if (p_bot < 0) p_bot = 0;
+            for (int p = p_top; p >= p_bot; --p) {
+                const int d = p - i0;
+                int32_t sl;
+                const float4 v = nb(d, &sl);
+#pragma unroll
+                for (int e = 0; e < kLanes; ++e) acc_step(a[e], v.x, v.y, sl >= lo[e]);
+            }
+#pragma unroll
+            for (int s = 0; s < kLanes - 1; ++s) {          // tail: outputs e <= E - 2 - s
+                const int d = kLanes - 2 - mb - s;
+                if (d >= dl && d <= dh && i0 + d >= 0) {
+                    int32_t sl;
+                    const float4 v = nb(d, &sl);
+#pragma unroll
+                    for (int e = 0; e < kLanes; ++e)
+                        if (e <= kLanes - 2 - s) acc_step(a[e], v.x, v.y, sl >= lo[e]);
+                }
+            }
+        } else if (mb > 0) {
+            const int bot = max(dl, -mb);
+            for (int d = min(dh, kLanes - 2); d >= bot && i0 + d >= 0; --d) {
+                int32_t sl;
+                const float4 v = nb(d, &sl);
+#pragma unroll
+                for (int e = 0; e < kLanes; ++e)
+                    if (e - d >= 1 && e - d <= mb) acc_step(a[e], v.x, v.y, sl >= lo[e]);
+            }
+        }
+    }
+
+    // ahead steps at offsets d in [dl, dh] (ascending), neighbour i0 + d < L
+    __device__ __forceinline__ void ahead(const Win& win, int dl, int dh, int ma, int L) {
+        auto nb = [&](int d, int32_t* s) {
+            const float4 v = win.at(i0 + d);
+            *s = v_ok(v) ? v_key(v) : INT_MAX;
+            return v;
+        };
+        if (ma >= kLanes - 1) {
+#pragma unroll
+            for (int s = 0; s < kLanes - 1; ++s) {          // head: outputs e < d
+                const int d = s + 1;
+                if (d >= dl && d <= dh && i0 + d < L) {
+                    int32_t sh;
+                    const float4 v = nb(d, &sh);
+#pragma unroll
+                    for (int e = 0; e < kLanes; ++e)
+                        if (e < d) acc_step(a[e], v.x, v.y, sh <= hi[e]);
+                }
+            }
+            const int bot = max(dl, kLanes);
+            const int steps = min(min(dh, ma), L - 1 - i0) - bot + 1;
+            for (int n = 0; n < steps; ++n) {                 // all outputs
+                const int d = bot + n;
+                int32_t sh;
+                const float4 v = nb(d, &sh);
+#pragma unroll
+                for (int e = 0; e < kLanes; ++e) acc_step(a[e], v.x, v.y, sh <= hi[e]);
+            }
+#pragma unroll
+            for (int s = 0; s < kLanes - 1; ++s) {          // tail: outputs e > s
+                const int d = ma + 1 + s;
+                if (d >= dl && d <= dh && i0 + d < L) {
+                    int32_t sh;
+                    const float4 v = nb(d, &sh);
+#pragma unroll
+                    for (int e = 0; e < kLanes; ++e)
+                        if (e > s) acc_step(a[e], v.x, v.y, sh <= hi[e]);
+                }
+            }
+        } else if (ma > 0) {
+            const int top = min(dh, kLanes - 1 + ma);
+            for (int d = max(dl, 1); d <= top && i0 + d < L; ++d) {
+                int32_t sh;
+                const float4 v = nb(d, &sh);
+#pragma unroll
+                for (int e = 0; e < kLanes; ++e)
+                    if (d - e >= 1 && d - e <= ma) acc_step(a[e], v.x, v.y, sh <= hi[e]);
+            }
+        }
+    }
+
+    // The seven stats of each output below L into out[o + i] (+ s * sp),
+    // four outputs at a time; returns how many of them clipped.
+    __device__ __forceinline__ int finish(const RangeParams& q, float center, float* out,
+                                          size_t o, size_t sp) {
+        const float NaN = tempo_nan();
+        const int L = q.L;
+        int nclip = 0;
+        const bool aligned = ((L & 3) == 0) && ((sp & 3) == 0) && (((uintptr_t)out & 15) == 0);
+#pragma unroll
+        for (int g = 0; g < kLanes; g += 4) {
+            float r[7][4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+                const int e = g + u;
+                const int i = i0 + e;
+                Acc& z = a[e];
+                // the skipped steps past either end of the row: one s1 + 0.0
+                if (i < q.mb || i + q.ma >= L) z.s1 = __fadd_rn(z.s1, 0.f);
+                if (q.mb + q.ma > 0 && z.s2 != z.s2) {
+                    z.mn = NaN;
+                    z.mx = NaN;
+                }
+                const bool vi = (vbits >> e) & 1u;
+                const float cnt = z.cnt, s1 = z.s1;
+                const float cnt1 = fmaxf(cnt, 1.f);
+                const float mean = cnt > 0.f ? __fadd_rn(__fdiv_rn(s1, cnt1), center) : NaN;
+                const float total = __fadd_rn(s1, __fmul_rn(cnt, center));
+                const float var = cnt > 1.f
+                    ? __fdiv_rn(__fsub_rn(z.s2, __fdiv_rn(__fmul_rn(s1, s1), cnt1)),
+                                fmaxf(__fsub_rn(cnt, 1.f), 1.f))
+                    : NaN;
+                const float sd = cnt > 1.f ? __fsqrt_rn(max_nan(var, 0.f)) : NaN;
+                r[0][u] = mean;
+                r[1][u] = cnt;
+                r[2][u] = cnt > 0.f ? __fadd_rn(z.mn, center) : NaN;
+                r[3][u] = cnt > 0.f ? __fadd_rn(z.mx, center) : NaN;
+                r[4][u] = cnt > 0.f ? total : NaN;
+                r[5][u] = sd;
+                r[6][u] = vi ? __fdiv_rn(__fsub_rn(xs[e], mean), sd) : NaN;
+                if (i < L && ((clip >> e) & 1u)) ++nclip;
+            }
+            float* base = out + o + i0 + g;
+            const bool vec = aligned && i0 + g + 4 <= L;
+#pragma unroll
+            for (int s = 0; s < 7; ++s) {
+                float* dst = base + s * sp;
+                if (vec) {
+                    *reinterpret_cast<float4*>(dst) = make_float4(r[s][0], r[s][1], r[s][2], r[s][3]);
+                } else {
+#pragma unroll
+                    for (int u = 0; u < 4; ++u)
+                        if (i0 + g + u < L) dst[u] = r[s][u];
+                }
+            }
+        }
+        return nclip;
+    }
+};
+
+// The walk of a tile whose window holds offsets [-hb, kLanes - 1 + ha]
+// (one window: the staged form, and the row form where it fits).
+__device__ __forceinline__ int range_tile(const Win& win, int i0, const RangeParams& q,
+                                          float center, float* out, size_t crow, size_t sp) {
+    ThreadOutputs t;
+    t.i0 = i0;
+    const int dl = -q.hb, dh = kLanes - 1 + q.ha;
+    t.own(win, q);
+    t.behind(win, dl, dh, q.mb);
+    t.clip_at(win, -q.hb, dl, dh, q.L);
+    t.ahead(win, dl, dh, q.ma, q.L);
+    t.clip_at(win, q.ha, dl, dh, q.L);
+    return t.finish(q, center, out, crow, sp);
+}
+
+// Row form: a block per (column c, row k, tile of kRowTile outputs).
+__global__ void __launch_bounds__(kRowThreads, 4)
+range_rows(const int32_t* __restrict__ secs, const float* __restrict__ x,
+           const uint8_t* __restrict__ valid, const float* __restrict__ scale,
+           const float* __restrict__ centre, float* __restrict__ out,
+           float* __restrict__ clipped, RangeParams q, int C, int K, int nt, int cap) {
+    extern __shared__ float4 win_sm[];
+    const int L = q.L;
+    const int tile = blockIdx.x % nt;
+    const int ck = blockIdx.x / nt;
+    const int k = ck % K;
+    const int t0 = tile * kRowTile;
+    const int i0 = t0 + kLanes * threadIdx.x;
+    const size_t crow = (size_t)ck * L;
+    const int32_t* srow = secs + (size_t)k * L;
+    const float* xr = x + crow;
+    const uint8_t* vr = valid + crow;
+    const float sc = scale_of(scale, ck / K), center = centre[ck];
+    const size_t sp = (size_t)C * K * L;
+
+    // window of offsets [dl, dh]: lanes [t0 + dl, t0 + kRowTile - kLanes + dh],
+    // filled four lanes a thread (16-byte loads where the row allows)
+    const bool vec = ((L & 3) == 0) && (((uintptr_t)secs & 15) == 0) &&
+                     (((uintptr_t)x & 15) == 0) && (((uintptr_t)valid & 3) == 0);
+    auto fill = [&](int dl, int dh) {
+        const int base = t0 + dl;
+        const int n = kRowTile - kLanes + dh - dl + 1;
+        const int p0 = base & ~3;
+        for (int p = p0 + 4 * (int)threadIdx.x; p < base + n; p += 4 * kRowThreads) {
+            float4 v4[4];
+            if (vec && p >= 0 && p + 4 <= L) {
+                const int4 k4 = *reinterpret_cast<const int4*>(srow + p);
+                const float4 x4 = *reinterpret_cast<const float4*>(xr + p);
+                const uchar4 u4 = *reinterpret_cast<const uchar4*>(vr + p);
+                v4[0] = lane_value(k4.x, x4.x, u4.x != 0, sc, center);
+                v4[1] = lane_value(k4.y, x4.y, u4.y != 0, sc, center);
+                v4[2] = lane_value(k4.z, x4.z, u4.z != 0, sc, center);
+                v4[3] = lane_value(k4.w, x4.w, u4.w != 0, sc, center);
+            } else {
+#pragma unroll
+                for (int u = 0; u < 4; ++u) {
+                    const int pu = p + u;
+                    v4[u] = (pu >= 0 && pu < L)
+                        ? lane_value(srow[pu], xr[pu], vr[pu] != 0, sc, center)
+                        : pad_value();
+                }
+            }
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+                const int j = p + u - base;
+                if (j >= 0 && j < n) win_sm[j + (j >> 3)] = v4[u];
+            }
+        }
+        return Win{win_sm, base};
+    };
+
+    int nclip;
+    if (kRowTile + q.hb + q.ha <= cap) {
+        const Win win = fill(-q.hb, kLanes - 1 + q.ha);
+        __syncthreads();
+        nclip = range_tile(win, i0, q, center, out, crow, sp);
+    } else {
+        // a halo wider than the window: the behind offsets [-hb, kLanes - 1]
+        // in windows from the top down, then the ahead offsets [1, kLanes - 1
+        // + ha] from the bottom up, each window refilled
+        const int span = cap - (kRowTile - kLanes);
+        ThreadOutputs t;
+        t.i0 = i0;
+        bool first = true;
+        for (int dh = kLanes - 1; dh >= -q.hb;) {
+            const int dl = max(dh - span + 1, -q.hb);
+            if (!first) __syncthreads();
+            const Win win = fill(dl, dh);
+            __syncthreads();
+            if (first) t.own(win, q);
+            t.behind(win, dl, dh, q.mb);
+            t.clip_at(win, -q.hb, dl, dh, L);
+            first = false;
+            dh = dl - 1;
+        }
+        for (int dl = 1; dl <= kLanes - 1 + q.ha;) {
+            const int dh = min(dl + span - 1, kLanes - 1 + q.ha);
+            __syncthreads();
+            const Win win = fill(dl, dh);
+            __syncthreads();
+            t.ahead(win, dl, dh, q.ma, L);
+            t.clip_at(win, q.ha, dl, dh, L);
+            dl = dh + 1;
+        }
+        nclip = t.finish(q, center, out, crow, sp);
+    }
+    for (int o = 16; o > 0; o >>= 1) nclip += __shfl_down_sync(TEMPO_FULL_MASK, nclip, o);
+    if ((threadIdx.x & 31) == 0 && nclip) atomicAdd(clipped + ck, (float)nclip);
 }
 
 // Shared memory of the staged form, in bytes (ops/stream.range_ring_bytes
-// mirrors the total): the ring's barriers, a reduction scratch, then
-// `depth` slots of a tile's keys, x and valid over T lanes and the halo.
+// mirrors the total): the ring's barriers, a reduction scratch, the window
+// of the tile and its halo (T + hb + ha lanes), then `depth` slots of the
+// keys, x and valid of those lanes that lie in the row.
 struct RangeRingLayout {
-    int halo_b, halo_a;
-    size_t span, key_plane, v_plane, slot, slots, total;
+    int hb, ha, win_lanes;
+    size_t span, key_plane, v_plane, slot, win, slots, total;
 };
 
 __host__ __device__ inline RangeRingLayout range_ring_layout(int mb, int ma, int L, int T,
                                                              int depth) {
     RangeRingLayout y;
-    y.halo_b = mb >= L - 1 ? L : mb + 1;
-    y.halo_a = ma >= L - 1 ? L : ma + 1;
-    const long long span = (long long)T + y.halo_b + y.halo_a;
-    y.span = (size_t)(span < L ? span : L);
+    y.hb = mb >= L - 1 ? L : mb + 1;
+    y.ha = ma >= L - 1 ? L : ma + 1;
+    const long long lanes = (long long)T + y.hb + y.ha;
+    y.win_lanes = (int)(lanes < INT_MAX / 2 ? lanes : INT_MAX / 2);
+    y.span = (size_t)(lanes < L ? lanes : L);
     y.key_plane = ring::plane_bytes(4 * y.span);
     y.v_plane = ring::plane_bytes(y.span);
     y.slot = 2 * y.key_plane + y.v_plane;
-    y.slots = 8 * ring::kMaxDepth + 32 * 4;
+    y.win = 16 * (size_t)win_entries(y.win_lanes);
+    y.slots = 8 * ring::kMaxDepth + 32 * 4 + y.win;
     y.total = y.slots + (size_t)depth * y.slot;
     return y;
 }
 
-__global__ void __launch_bounds__(kStatsThreads)
-range_stats_ring_kernel(const int32_t* __restrict__ secs, const float* __restrict__ x,
-                        const uint8_t* __restrict__ valid, const float* __restrict__ scale,
-                        float* __restrict__ out, float* __restrict__ clipped, int w, int wa,
-                        int mb, int ma, int C, int K, int L, int T, int depth) {
+// Staged form: a block of T / kLanes threads per series row.
+__global__ void __launch_bounds__(kRowThreads)
+range_ring_kernel(const int32_t* __restrict__ secs, const float* __restrict__ x,
+                  const uint8_t* __restrict__ valid, const float* __restrict__ scale,
+                  const float* __restrict__ centre, float* __restrict__ out,
+                  float* __restrict__ clipped, RangeParams q, int C, int K, int T, int depth) {
     extern __shared__ __align__(16) unsigned char sm[];
-    const RangeRingLayout lay = range_ring_layout(mb, ma, L, T, depth);
+    const int L = q.L;
+    const RangeRingLayout lay = range_ring_layout(q.mb, q.ma, L, T, depth);
     const ring::Ring r{(uint64_t*)sm, depth};
-    float* shf = (float*)(sm + 8 * ring::kMaxDepth);
-    int* shi = (int*)shf;
+    int* shi = (int*)(sm + 8 * ring::kMaxDepth);
+    float4* win_sm = (float4*)(sm + 8 * ring::kMaxDepth + 32 * 4);
     const int k = blockIdx.x;
-    const RangeParams q = range_params(w, wa, mb, ma, C, K, L);
     const int32_t* srow = secs + (size_t)k * L;
     const size_t n_all = (size_t)C * K * L;
+    const size_t sp = n_all;
     const int nt = (L + T - 1) / T;
     ring::init(r);
 
-    // lanes [lo, hi) staged for tile t
+    // lanes [lo, hi) of the row staged for tile t
     auto span_of = [&](int t, int* lo, int* hi) {
         const long long t0 = (long long)t * T;
-        *lo = (int)(t0 > lay.halo_b ? t0 - lay.halo_b : 0);
-        const long long e = t0 + T + lay.halo_a;
+        *lo = (int)(t0 > q.hb ? t0 - q.hb : 0);
+        const long long e = t0 + T + q.ha;
         *hi = (int)(e < L ? e : L);
     };
     auto slot_base = [&](int slot) { return sm + lay.slots + (size_t)slot * lay.slot; };
@@ -267,42 +578,65 @@ range_stats_ring_kernel(const int32_t* __restrict__ secs, const float* __restric
         ring::stage(p + lay.key_plane, x + at, 4 * n, x + n_all, bar);
         ring::stage(p + 2 * lay.key_plane, valid + at, n, valid + n_all, bar);
     };
-    float sc = 0.f, center = 0.f;
     int nclip = 0;
     auto consume = [&](int i, int slot) {
         const int c = i / nt, t = i % nt;
         const size_t crow = ((size_t)c * K + k) * L;
-        if (t == 0) {
-            sc = scale[c];
-            center = range_center(x + crow, valid + crow, sc, L, shf);
-            nclip = 0;
-        }
+        const float sc = scale_of(scale, c), center = centre[(size_t)c * K + k];
         int lo, hi;
         span_of(t, &lo, &hi);
-        unsigned char* p = slot_base(slot);
-        const SlotLanes in{
-            (const int32_t*)(p + ((uintptr_t)(srow + lo) & 15)),
-            (const float*)(p + lay.key_plane + ((uintptr_t)(x + crow + lo) & 15)),
-            p + 2 * lay.key_plane + ((uintptr_t)(valid + crow + lo) & 15), lo};
-        const int end = min(L, (t + 1) * T);
-        for (int ii = t * T + threadIdx.x; ii < end; ii += blockDim.x)
-            nclip += range_lane(in, ii, sc, center, q, out, crow) ? 1 : 0;
+        const unsigned char* p = slot_base(slot);
+        const int32_t* ks = (const int32_t*)(p + ((uintptr_t)(srow + lo) & 15));
+        const float* xs = (const float*)(p + lay.key_plane + ((uintptr_t)(x + crow + lo) & 15));
+        const uint8_t* vs = p + 2 * lay.key_plane + ((uintptr_t)(valid + crow + lo) & 15);
+        const int t0 = t * T;
+        const int base = t0 - q.hb;
+        for (int j = threadIdx.x; j < lay.win_lanes; j += blockDim.x) {
+            const int pl = base + j;
+            win_sm[j + (j >> 3)] = (pl >= lo && pl < hi)
+                ? lane_value(ks[pl - lo], xs[pl - lo], vs[pl - lo] != 0, sc, center)
+                : pad_value();
+        }
+        __syncthreads();
+        nclip += range_tile(Win{win_sm, base}, t0 + kLanes * threadIdx.x, q, center, out, crow,
+                            sp);
         if (t == nt - 1) {
             const int total = block_sum(nclip, shi);
             if (threadIdx.x == 0) clipped[(size_t)c * K + k] = (float)total;
+            nclip = 0;
         }
     };
     ring::run(r, C * nt, load, consume);
 }
 
+cudaError_t launch_centres(const void* x, const void* valid, const void* scale, void* centre,
+                           void* clipped, int C, int K, int L, cudaStream_t st) {
+    range_centres<<<C * K, L > 32768 ? kCentreThreads : 256, 0, st>>>(
+        (const float*)x, (const uint8_t*)valid, (const float*)scale, (float*)centre,
+        (float*)clipped, K, L);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
+// Lanes a row-form window holds at most (the CPU mirror's window_cap).
+extern "C" long long tempo_range_row_window() { return kRowWindow; }
+
 extern "C" int tempo_range_stats(const void* secs, const void* x, const void* valid,
-                                 const void* scale, void* out, void* clipped, int w, int wa,
-                                 int mb, int ma, int C, int K, int L, void* stream) {
-    range_stats_kernel<<<K, kStatsThreads, 0, (cudaStream_t)stream>>>(
+                                 const void* scale, void* out, void* clipped, void* centre,
+                                 int w, int wa, int mb, int ma, int C, int K, int L,
+                                 void* stream) {
+    const cudaStream_t st = (cudaStream_t)stream;
+    cudaError_t err = launch_centres(x, valid, scale, centre, clipped, C, K, L, st);
+    if (err != cudaSuccess) return (int)err;
+    const RangeParams q = range_params(w, wa, mb, ma, L);
+    const int nt = (L + kRowTile - 1) / kRowTile;
+    const long long want = (long long)kRowTile + q.hb + q.ha;
+    const int cap = (int)(want < kRowWindow ? want : kRowWindow);
+    const size_t smem = 16 * (size_t)win_entries(cap);
+    range_rows<<<C * K * nt, kRowThreads, smem, st>>>(
         (const int32_t*)secs, (const float*)x, (const uint8_t*)valid, (const float*)scale,
-        (float*)out, (float*)clipped, w, wa, mb, ma, C, K, L);
+        (const float*)centre, (float*)out, (float*)clipped, q, C, K, nt, cap);
     return (int)cudaGetLastError();
 }
 
@@ -312,18 +646,22 @@ extern "C" long long tempo_range_ring_smem(int mb, int ma, int L, int T, int dep
 }
 
 extern "C" int tempo_range_stats_ring(const void* secs, const void* x, const void* valid,
-                                      const void* scale, void* out, void* clipped, int w,
-                                      int wa, int mb, int ma, int C, int K, int L, int T,
+                                      const void* scale, void* out, void* clipped, void* centre,
+                                      int w, int wa, int mb, int ma, int C, int K, int L, int T,
                                       int depth, void* stream) {
     const size_t smem = range_ring_layout(mb, ma, L, T, depth).total;
-    if (depth < 2 || depth > ring::kMaxDepth || T < kStatsThreads || T % kStatsThreads != 0 ||
-        smem > (size_t)kEmaSmemLimit)
+    if (depth < 2 || depth > ring::kMaxDepth || T < 32 * kLanes || T % (32 * kLanes) != 0 ||
+        T > kRowTile || smem > (size_t)kEmaSmemLimit)
         return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(
-        range_stats_ring_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaStream_t st = (cudaStream_t)stream;
+    cudaError_t err = launch_centres(x, valid, scale, centre, clipped, C, K, L, st);
     if (err != cudaSuccess) return (int)err;
-    range_stats_ring_kernel<<<K, kStatsThreads, smem, (cudaStream_t)stream>>>(
+    err = cudaFuncSetAttribute(range_ring_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    range_ring_kernel<<<K, T / kLanes, smem, st>>>(
         (const int32_t*)secs, (const float*)x, (const uint8_t*)valid, (const float*)scale,
-        (float*)out, (float*)clipped, w, wa, mb, ma, C, K, L, T, depth);
+        (const float*)centre, (float*)out, (float*)clipped, range_params(w, wa, mb, ma, L), C, K,
+        T, depth);
     return (int)cudaGetLastError();
 }

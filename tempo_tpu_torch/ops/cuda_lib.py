@@ -75,11 +75,11 @@ _SIGNATURES = {
     "tempo_asof_merge_lookback": [_P] * 13 + [_I] * 7 + [_P],
     "tempo_merge_rank": [_P] * 3 + [_I] * 5 + [_P],
     "tempo_cumsum3": [_P] * 5 + [_I, _I, _P],
-    "tempo_range_stats": [_P] * 6 + [_I] * 7 + [_P],
+    "tempo_range_stats": [_P] * 7 + [_I] * 7 + [_P],
     "tempo_legacy_stats": [_P] * 5 + [_I] * 6 + [_P],
     "tempo_bucket_stats": [_P] * 8 + [_I] * 3 + [_P],
     "tempo_bucket_stats_ring": [_P] * 6 + [_I] * 5 + [_P],
-    "tempo_range_stats_ring": [_P] * 6 + [_I] * 9 + [_P],
+    "tempo_range_stats_ring": [_P] * 7 + [_I] * 9 + [_P],
     "tempo_ema_ladder": [_P, _P, ctypes.c_float, _P, _P, _I, _I, _P],
     "tempo_last_valid_index": [_P, _P, _I, _I, _P],
     "tempo_first_valid_index": [_P, _P, _I, _I, _P],
@@ -92,9 +92,11 @@ _SIGNATURES = {
     "tempo_error_string": [_I],
 }
 #: the staged forms' shared-memory totals, as the kernels compute them,
-#: the merge walk's step and column limit, and the row limits of the
-#: ``cumsum3``, EMA and bucket-stats kernels (64-bit results)
+#: the merge walk's step and column limit, the row limits of the
+#: ``cumsum3``, EMA and bucket-stats kernels and the range-stats row
+#: form's window (64-bit results)
 _SMEM_SIGNATURES = {
+    "tempo_range_row_window": [],
     "tempo_asof_walk_step": [],
     "tempo_asof_walk_cols": [],
     "tempo_cumsum3_max_lanes": [],
@@ -245,6 +247,12 @@ def ema_max_lanes() -> int:
     """Longest row the EMA and resample-EMA kernels take (their second
     stage holds a row's residue classes in shared memory)."""
     return lib().tempo_ema_max_lanes()
+
+
+def range_row_window() -> int:
+    """Lanes the range-stats row form's shared-memory window holds; a tile
+    and its halo past it walk several windows."""
+    return lib().tempo_range_row_window()
 
 
 def bucket_max_lanes() -> int:

@@ -15,6 +15,9 @@ Counterpart of ``tempo_tpu/ops/pallas_kernels.py``:
   lane : -1`` and the reverse running min of ``valid ? lane : L``, int32.
 * ``last_valid_scan`` (``_last_valid_kernel``): the value at the last
   valid lane at or before each lane (0 before the first) and has-valid.
+  The three share one kernel (16-lane segments cut on the row's address,
+  a warp scan, a block combine and a carry over tiles);
+  ``index_scan_tiled_plain`` runs those levels as tensor code.
 * ``cumsum3`` (``_cumsum3_kernel``): inclusive prefix sums of masked x,
   masked x² and the valid count, by the TPU kernel's Hillis-Steele
   ladder, so float32 sums round the same way.  The kernel tiles the
@@ -168,6 +171,101 @@ def last_valid_scan_plain(x: torch.Tensor, valid: torch.Tensor):
     got = torch.gather(x, -1, idx.clamp(min=0).to(torch.int64))
     return torch.where(has, got, torch.zeros((), dtype=x.dtype,
                                              device=x.device)), has
+
+
+#: the index-scan kernel's block and the lanes a thread scans
+#: (``kThreads``, ``kSeg`` in ``csrc/index_scan.cu``)
+SCAN_THREADS, SCAN_SEG = 128, 16
+
+
+def index_scan_tiled_plain(valid: torch.Tensor, reverse: bool = False,
+                           x: torch.Tensor = None, *, offset: int = 0,
+                           threads: int = SCAN_THREADS, seg: int = SCAN_SEG):
+    """The valid-index scans (and, with ``x``, the forward fill's
+    ``(values, has)``) as the kernel cuts them, bit for bit: row k's
+    lanes start ``(offset + k L) % 16`` bytes into a 16-byte word, and
+    the segments of ``seg`` lanes follow those words (the row's first
+    segment holds the lanes up to the first boundary); each thread scans
+    a segment, each warp of 32 threads scans its threads' totals by
+    shuffles, a block of ``threads`` combines its warps, and a carry
+    joins its tiles, walked from the row's end when ``reverse``.  The fill
+    carries the pair (index, value) through every level.  Equal to
+    :func:`last_valid_index_scan_plain` (``reverse``:
+    :func:`first_valid_index_scan_plain`; ``x``:
+    :func:`last_valid_scan_plain`)."""
+    K, L = valid.shape
+    dev = valid.device
+    T = threads * seg
+    none = L if reverse else -1
+    off = (offset + torch.arange(K, device=dev) * L) % 16           # [K]
+    nt = -(-(L + 15) // T)
+    lane = torch.arange(nt * T, device=dev)[None] - off[:, None]     # [K, V]
+    inrow = (lane >= 0) & (lane < L)
+    q = lane.clamp(0, max(L - 1, 0))
+    ok = inrow & torch.gather(valid, 1, q)
+    xv = (torch.gather(x, 1, q) if x is not None
+          else torch.zeros(ok.shape, device=dev))
+    ok = ok.view(K, nt, threads // 32, 32, seg)
+    lane = lane.view(ok.shape)
+    xv = xv.view(ok.shape)
+
+    def better(a, b):
+        return a < b if reverse else a > b
+
+    def take(dst, src, where):
+        return tuple(torch.where(where, s, d) for d, s in zip(dst, src))
+
+    # each thread's segment, in walk order
+    m = (torch.full(ok.shape[:-1], none, device=dev),
+         torch.zeros(ok.shape[:-1], dtype=xv.dtype, device=dev))
+    run_i, run_v = torch.empty_like(lane), torch.empty_like(xv)
+    for jj in range(seg):
+        j = seg - 1 - jj if reverse else jj
+        m = take(m, (lane[..., j], xv[..., j]), ok[..., j])
+        run_i[..., j], run_v[..., j] = m
+    # the warp's inclusive scan by shuffles (from higher lanes in reverse)
+    w = torch.arange(32, device=dev)
+    for o in (1, 2, 4, 8, 16):
+        src = tuple(torch.roll(a, -o if reverse else o, dims=-1) for a in m)
+        inl = (w + o < 32) if reverse else (w >= o)
+        m = take(m, src, inl & better(src[0], m[0]))
+    ex = tuple(torch.roll(a, -1 if reverse else 1, dims=-1) for a in m)
+    first = w == (31 if reverse else 0)
+    ex = (torch.where(first, none, ex[0]), torch.where(first, 0.0, ex[1]))
+    wt = tuple(a[..., 31 if not reverse else 0] for a in m)           # [K, nt, W]
+    # the block's warps in walk order, then the carry over tiles
+    before = (torch.empty_like(ex[0]), torch.empty_like(ex[1]))
+    carry = (torch.full((K,), none, device=dev),
+             torch.zeros(K, dtype=xv.dtype, device=dev))
+    nw = threads // 32
+    for tt in range(nt):
+        s = nt - 1 - tt if reverse else tt
+        run = carry
+        for ww in range(nw):
+            wi = nw - 1 - ww if reverse else ww
+            before[0][:, s, wi], before[1][:, s, wi] = (
+                run[0][:, None].expand(-1, 32), run[1][:, None].expand(-1, 32))
+            src = (wt[0][:, s, wi], wt[1][:, s, wi])
+            run = take(run, src, better(src[0], run[0]))
+        carry = run
+    before = take(before, ex, better(ex[0], before[0]))
+    if x is None:
+        out = torch.where(better(run_i, before[0][..., None]), run_i,
+                          before[0][..., None])
+    else:
+        own = run_i != none
+        c = torch.where(own, run_i, before[0][..., None])
+        has = c >= 0
+        out = (torch.where(has, torch.where(own, run_v, before[1][..., None]),
+                           0.0), has)
+
+    def lanes_of(a):
+        flat = a.reshape(K, -1)
+        return torch.gather(flat, 1, torch.arange(L, device=dev)[None]
+                            + off[:, None])
+    if x is None:
+        return lanes_of(out).to(torch.int32)
+    return lanes_of(out[0]).to(x.dtype), lanes_of(out[1])
 
 
 def _check_mask(valid: torch.Tensor) -> None:

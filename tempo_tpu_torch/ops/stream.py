@@ -114,11 +114,15 @@ def _halo(bound: int, L: int) -> int:
 
 def range_ring_bytes(mb: int, ma: int, L: int, T: int, depth: int) -> int:
     """Shared memory of the range-stats staged form (``range_ring_layout``
-    in ``csrc/range_stats.cu``): barriers, reduction scratch and ``depth``
-    slots of keys, x and valid over a tile and its halo (``mb + 1`` lanes
-    behind, ``ma + 1`` ahead)."""
-    span = min(T + _halo(int(mb), L) + _halo(int(ma), L), L)
-    return _BARRIERS + _REDUCE + depth * (2 * _plane(4 * span) + _plane(span))
+    in ``csrc/range_stats.cu``): barriers, reduction scratch, the window of
+    the tile and its halo (``mb + 1`` lanes behind, ``ma + 1`` ahead; a
+    16-byte entry a lane and one more every 8 lanes) and ``depth`` slots
+    of the keys, x and valid of those lanes inside the row."""
+    lanes = T + _halo(int(mb), L) + _halo(int(ma), L)
+    span = min(lanes, L)
+    window = 16 * (lanes + (lanes >> 3) + 1)
+    return (_BARRIERS + _REDUCE + window
+            + depth * (2 * _plane(4 * span) + _plane(span)))
 
 
 def resample_ring_bytes(L: int, T: int, depth: int) -> int:

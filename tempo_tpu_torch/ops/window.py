@@ -12,14 +12,20 @@ too small truncate frames; the ``clipped`` audit counts, per row and
 column, the lanes whose frame reaches past them.
 
 One kernel serves the TPU's unrolled and runtime-width forms: the
-bounds are scalars.  It has a row form and a staged form
-(``ops/stream.py``: lane tiles and their halo through the staging ring);
-the wrapper takes the staged form where ``stream.range_plan`` fits the
-halo, else the row form, and the private keyword ``_form`` ("row" |
-"ring") forces one, for tests and ``chip_smoke.py``.  Outputs:
-``mean``, ``count``, ``min``, ``max``, ``sum``, ``stddev``, ``zscore``
-as [C, K, L] (or [K, L] for a single column) and ``clipped`` as
-[C, K, 1] (or [K, 1]).
+bounds are scalars.  A call launches the row centres, then the stats
+(``csrc/range_stats.cu``): a row form (blocks of 1024 outputs, each
+thread walking four consecutive outputs over a shared-memory window of
+the tile and its halo, several windows where the halo is wider) and a
+staged form (``ops/stream.py``: a row's tiles and their halo through the
+staging ring).  The wrapper takes the staged form where
+``stream.range_plan`` fits the halo, else the row form, and the private
+keyword ``_form`` ("row" | "ring") forces one, for tests and
+``chip_smoke.py``; ``_center_out`` receives the kernel's centres, which
+:func:`range_stats_plain` takes back as ``_centers`` to give the same
+bits.  :func:`range_stats_tiled_plain` runs the kernel's tiles, windows
+and walk as tensor code.  Outputs: ``mean``, ``count``, ``min``, ``max``,
+``sum``, ``stddev``, ``zscore`` as [C, K, L] (or [K, L] for a single
+column) and ``clipped`` as [C, K, 1] (or [K, 1]).
 """
 
 from __future__ import annotations
@@ -54,10 +60,25 @@ def _shift(a: torch.Tensor, j: int, fill) -> torch.Tensor:
     return out
 
 
+def _center(x, valid):
+    """Each row's centre: the mean of its valid (scaled) values, 0 where
+    none; [C, K, 1]."""
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    nv = valid.to(x.dtype).sum(-1, keepdim=True)
+    return (torch.where(valid, x, zero).sum(-1, keepdim=True)
+            / torch.clamp(nv, min=1))
+
+
+def _given_center(centers, C, K, dtype):
+    return torch.as_tensor(centers).to(dtype).reshape(C, K, 1)
+
+
 def range_stats_plain(secs, xs, valids, window, max_behind, max_ahead,
-                      window_ahead=0, scales=None) -> Dict[str, torch.Tensor]:
+                      window_ahead=0, scales=None, *,
+                      _centers=None) -> Dict[str, torch.Tensor]:
     """``_window_math``'s op sequence as tensor code over [C, K, L]
-    stacks sharing one [K, L] key plane; dtype-generic."""
+    stacks sharing one [K, L] key plane; dtype-generic.  ``_centers``
+    ([C, K]) replaces each row's centre (the card passes its kernel's)."""
     dt = xs.dtype
     idt = secs.dtype
     C, K, L = xs.shape
@@ -79,9 +100,8 @@ def range_stats_plain(secs, xs, valids, window, max_behind, max_ahead,
     one = torch.ones((), dtype=dt, device=xs.device)
     pinf = torch.tensor(float("inf"), dtype=dt, device=xs.device)
     validf = valid.to(dt)
-    xz = torch.where(valid, x, zero)
-    nv = validf.sum(-1, keepdim=True)
-    center = xz.sum(-1, keepdim=True) / torch.maximum(nv, one)
+    center = (_center(x, valid) if _centers is None
+              else _given_center(_centers, C, K, dt))
     xc = torch.where(valid, x - center, zero)
     xc2 = xc * xc
 
@@ -133,6 +153,214 @@ def range_stats_plain(secs, xs, valids, window, max_behind, max_ahead,
     }
 
 
+#: longest row the kernel takes: its clip counts are float sums of
+#: integers, exact below 2^24
+MAX_LANES = 1 << 24
+#: the row form's block (threads), the consecutive outputs a thread owns,
+#: and the most lanes its shared-memory window holds (``kRowThreads``,
+#: ``kLanes`` and ``kRowWindow`` in ``csrc/range_stats.cu``)
+ROW_THREADS, LANES, ROW_WINDOW = 256, 4, 2048
+
+
+def range_windows(hb: int, ha: int, lanes: int, tile: int,
+                  window_cap: Optional[int]):
+    """The kernel's windows over the offsets d from a thread's first
+    output: ``[("one", -hb, lanes - 1 + ha)]`` where the tile and its
+    halo fit ``window_cap`` lanes (None: always, the staged form), else
+    the behind offsets [-hb, lanes - 1] in windows from the top down and
+    the ahead offsets [1, lanes - 1 + ha] from the bottom up, each
+    window ``window_cap - (tile - lanes)`` offsets wide."""
+    top = lanes - 1 + ha
+    if window_cap is None or tile + hb + ha <= window_cap:
+        return [("one", -hb, top)]
+    span = window_cap - (tile - lanes)
+    out, dh = [], lanes - 1
+    while dh >= -hb:
+        dl = max(dh - span + 1, -hb)
+        out.append(("behind", dl, dh))
+        dh = dl - 1
+    dl = 1
+    while dl <= top:
+        dh = min(dl + span - 1, top)
+        out.append(("ahead", dl, dh))
+        dl = dh + 1
+    return out
+
+
+def range_stats_tiled_plain(secs, xs, valids, window, max_behind, max_ahead,
+                            window_ahead=0, scales=None, *,
+                            threads: int = ROW_THREADS, lanes: int = LANES,
+                            window_cap: Optional[int] = ROW_WINDOW,
+                            _centers=None) -> Dict[str, torch.Tensor]:
+    """:func:`range_stats_plain`'s stats as the kernel cuts them, bit for
+    bit: tiles of ``threads * lanes`` outputs, each thread ``lanes``
+    consecutive ones (its first at i0); the windows of
+    :func:`range_windows` (``window_cap=None``: one window, the staged
+    form), each neighbour read checked to lie inside the current one; the
+    behind walk over offsets d = lanes - 2 down to -mb (the ahead walk
+    from 1 up to lanes - 1 + ma) with the active outputs of each step as
+    the kernel's head, middle and tail (or its generic loop where a bound
+    is below ``lanes - 1``); count, sum of squares and min/max updated
+    under the in-window predicate (min/max ignoring NaN, set to NaN at
+    the end where the sum of squares is NaN), the sum by ``inw ? c :
+    0``, steps past the row skipped and one ``s1 + 0`` for them at the
+    end.  ``_centers`` as for :func:`range_stats_plain`."""
+    dt, idt, dev = xs.dtype, secs.dtype, xs.device
+    C, K, L = xs.shape
+    big = torch.iinfo(idt).max
+    imin = torch.iinfo(idt).min
+    w = _clamp_window(window)
+    wa = _clamp_window(window_ahead)
+    x = xs * _scale_vector(scales, C, dt, dev)[:, None, None]
+    center = (_center(x, valids) if _centers is None
+              else _given_center(_centers, C, K, dt))
+    E, T = int(lanes), int(threads) * int(lanes)
+    mb, ma = min(int(max_behind), L - 1), min(int(max_ahead), L - 1)
+    hb = L if int(max_behind) >= L - 1 else int(max_behind) + 1
+    ha = L if int(max_ahead) >= L - 1 else int(max_ahead) + 1
+    nth = -(-L // T) * int(threads)
+    i0 = torch.arange(nth, device=dev) * E            # [NTH]
+    t0 = i0 // T * T
+    e = torch.arange(E, device=dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    nzero = torch.tensor(-0.0, dtype=dt, device=dev)
+    nan = torch.tensor(float("nan"), dtype=dt, device=dev).abs()
+    inf = torch.tensor(float("inf"), dtype=dt, device=dev)
+    # the window entries: c, c*c (-0.0 where invalid), key, x * scale;
+    # a NaN the card computes is positive (0x7fffffff), one the CPU
+    # computes from inf - inf negative, so c*c's NaN is made positive
+    c_pl = torch.where(valids, x - center, zero)
+    c2_pl = c_pl * c_pl
+    c2_pl = torch.where(valids, torch.where(torch.isnan(c2_pl), nan, c2_pl),
+                        nzero)
+    key_pl = secs[None].expand(C, K, L)
+    win = {}
+
+    def at(p):
+        """Entries at lanes p (any shape S) -> [C, K, *S] each, the pad
+        entry outside the row; p must lie in the current window."""
+        lo_, hi_ = win["lanes"]
+        assert bool(((p >= t0.reshape((-1,) + (1,) * (p.dim() - 1)) + lo_)
+                     & (p <= t0.reshape((-1,) + (1,) * (p.dim() - 1))
+                        + hi_)).all()), "read outside the window"
+        inrow = (p >= 0) & (p < L)
+        q = p.clamp(0, L - 1).reshape(-1)
+        shape = (C, K) + tuple(p.shape)
+        pick = lambda pl, pad: torch.where(inrow, pl[..., q].reshape(shape),
+                                           pad)
+        return (pick(c_pl, zero), pick(c2_pl, nzero),
+                pick(key_pl, torch.tensor(big, dtype=idt, device=dev)),
+                pick(x, zero))
+
+    acc = {}
+
+    def step(d, active, behind):
+        """Offset d's neighbour into the outputs where ``active`` ([NTH,
+        E]) holds."""
+        c, c2, key, _ = at(i0 + d)
+        ok = ~torch.signbit(c2)
+        if behind:
+            inw = torch.where(ok, key, imin)[..., None] >= acc["lo"]
+        else:
+            inw = torch.where(ok, key, big)[..., None] <= acc["hi"]
+        take = inw & active
+        c, c2 = c[..., None], c2[..., None]
+        acc["cnt"] = torch.where(take, acc["cnt"] + 1, acc["cnt"])
+        acc["s2"] = torch.where(take, acc["s2"] + c2, acc["s2"])
+        acc["mn"] = torch.where(take, torch.fmin(acc["mn"], c), acc["mn"])
+        acc["mx"] = torch.where(take, torch.fmax(acc["mx"], c), acc["mx"])
+        acc["s1"] = torch.where(active, acc["s1"] + torch.where(inw, c, zero),
+                                acc["s1"])
+
+    def walk_behind(dl, dh):
+        if mb >= E - 1:
+            for s in range(E - 1):                       # head
+                d = E - 2 - s
+                if dl <= d <= dh:
+                    step(d, (e > d)[None], True)
+            for d in range(min(dh, -1), max(dl, E - 1 - mb) - 1, -1):
+                step(d, (i0 + d >= 0)[:, None].expand(-1, E), True)
+            for s in range(E - 1):                       # tail
+                d = E - 2 - mb - s
+                if dl <= d <= dh:
+                    step(d, (i0 + d >= 0)[:, None] & (e <= E - 2 - s), True)
+        elif mb > 0:
+            for d in range(min(dh, E - 2), max(dl, -mb) - 1, -1):
+                step(d, (i0 + d >= 0)[:, None] & (e - d >= 1) & (e - d <= mb),
+                     True)
+
+    def walk_ahead(dl, dh):
+        if ma >= E - 1:
+            for s in range(E - 1):                       # head
+                d = s + 1
+                if dl <= d <= dh:
+                    step(d, (i0 + d < L)[:, None] & (e < d), False)
+            for d in range(max(dl, E), min(dh, ma) + 1):
+                step(d, (i0 + d < L)[:, None].expand(-1, E), False)
+            for s in range(E - 1):                       # tail
+                d = ma + 1 + s
+                if dl <= d <= dh:
+                    step(d, (i0 + d < L)[:, None] & (e > s), False)
+        elif ma > 0:
+            for d in range(max(dl, 1), min(dh, E - 1 + ma) + 1):
+                step(d, (i0 + d < L)[:, None] & (d - e >= 1) & (d - e <= ma),
+                     False)
+
+    def clip_at(off, dl, dh):
+        for j in range(E):
+            d = j + off
+            if dl <= d <= dh:
+                p = i0 + d
+                _, c2, key, _ = at(p)
+                hit = ((key >= acc["lo"][..., j]) & (key <= acc["hi"][..., j])
+                       & (acc["vi"][..., j] | ~torch.signbit(c2))
+                       & ((p >= 0) & (p < L)))
+                acc["clip"][..., j] |= hit
+
+    for kind, dl, dh in range_windows(hb, ha, E, T, window_cap):
+        win["lanes"] = (dl, T - E + dh)
+        if kind != "ahead" and "cnt" not in acc:         # own lanes first
+            c, c2, key, xsv = at(i0[:, None] + e)
+            vi = ~torch.signbit(c2)
+            acc.update(
+                lo=key - w,
+                hi=torch.clamp(key + torch.clamp(big - key, max=wa),
+                               max=big - 1),
+                cnt=vi.to(dt), s1=c, s2=c * c,
+                mn=torch.where(vi, c, inf), mx=torch.where(vi, c, -inf),
+                xs=xsv, vi=vi, clip=torch.zeros_like(vi))
+        if kind != "ahead":
+            walk_behind(dl, dh)
+            clip_at(-hb, dl, dh)
+        if kind != "behind":
+            walk_ahead(dl, dh)
+            clip_at(ha, dl, dh)
+
+    i = i0[:, None] + e
+    s1 = torch.where((i < mb) | (i + ma >= L), acc["s1"] + zero, acc["s1"])
+    cnt, s2, mn, mx = acc["cnt"], acc["s2"], acc["mn"], acc["mx"]
+    if mb + ma > 0:
+        mn = torch.where(torch.isnan(s2), nan, mn)
+        mx = torch.where(torch.isnan(s2), nan, mx)
+    c3 = center[..., None]
+    one = torch.ones((), dtype=dt, device=dev)
+    cnt1 = torch.maximum(cnt, one)
+    mean = torch.where(cnt > 0, s1 / cnt1 + c3, nan)
+    total = s1 + cnt * c3
+    var = torch.where(cnt > 1, (s2 - s1 * s1 / cnt1)
+                      / torch.maximum(cnt - one, one), nan)
+    std = torch.where(cnt > 1, torch.sqrt(torch.maximum(var, zero)), nan)
+    planes = {
+        "mean": mean, "count": cnt,
+        "min": torch.where(cnt > 0, mn + c3, nan),
+        "max": torch.where(cnt > 0, mx + c3, nan),
+        "sum": torch.where(cnt > 0, total, nan), "stddev": std,
+        "zscore": torch.where(acc["vi"], (acc["xs"] - mean) / std, nan)}
+    out = {k: v.reshape(C, K, -1)[..., :L] for k, v in planes.items()}
+    out["clipped"] = (acc["clip"] & (i < L)).to(dt).sum((-2, -1))[..., None]
+    return out
+
+
 def _scale_vector(scales, C: int, dtype, device) -> torch.Tensor:
     if scales is None:
         return torch.ones(C, dtype=dtype, device=device)
@@ -142,10 +370,14 @@ def _scale_vector(scales, C: int, dtype, device) -> torch.Tensor:
 
 def range_stats_cuda(secs, xs, valids, window, max_behind, max_ahead,
                      window_ahead=0, scales=None, *,
-                     _form: Optional[str] = None) -> Dict[str, torch.Tensor]:
+                     _form: Optional[str] = None,
+                     _center_out: Optional[torch.Tensor] = None
+                     ) -> Dict[str, torch.Tensor]:
     """Launch the range-stats kernel: int32 [K, L] keys, float32 and
     bool [C, K, L] stacks, all on one CUDA device; the staged form where
-    ``stream.range_plan`` fits, else the row form."""
+    ``stream.range_plan`` fits, else the row form.  One launch count
+    covers the call's two kernels (the centres, then the stats); the
+    private ``_center_out`` ([C, K] float32) receives the centres."""
     if secs.dtype != torch.int32 or secs.dim() != 2:
         raise TypeError("range-stats kernel takes int32 [K, L] keys "
                         "(rebased seconds)")
@@ -159,19 +391,30 @@ def range_stats_cuda(secs, xs, valids, window, max_behind, max_ahead,
         raise ValueError("keys, values and valid must lie on one CUDA "
                          "device")
     C, K, L = xs.shape
+    if L > MAX_LANES:
+        raise ValueError(f"range-stats kernel takes rows of at most "
+                         f"{MAX_LANES} lanes (its float clip counts are "
+                         f"exact below 2^24), got {L}")
     secs, xs, valids = secs.contiguous(), xs.contiguous(), valids.contiguous()
-    scale = _scale_vector(scales, C, torch.float32, xs.device)
+    scale = (None if scales is None
+             else _scale_vector(scales, C, torch.float32, xs.device))
     out = torch.empty((len(STATS), C, K, L), dtype=torch.float32,
                       device=xs.device)
+    centre = (torch.empty((C, K), dtype=torch.float32, device=xs.device)
+              if _center_out is None else _center_out)
+    if centre.shape != (C, K) or centre.dtype != torch.float32 \
+            or centre.device != xs.device or not centre.is_contiguous():
+        raise TypeError("_center_out must be a contiguous float32 [C, K] "
+                        "tensor on the values' device")
     clipped = torch.empty((C, K, 1), dtype=torch.float32, device=xs.device)
     if C and K and L:
         mb, ma = int(max_behind), int(max_ahead)
         plan = stream.pick("range_stats", stream.range_plan(mb, ma, L),
                            _form, f"bounds ({mb}, {ma}), L={L}")
         args = (secs.data_ptr(), xs.data_ptr(), valids.data_ptr(),
-                scale.data_ptr(), out.data_ptr(), clipped.data_ptr(),
-                _clamp_window(window), _clamp_window(window_ahead), mb, ma,
-                C, K, L)
+                cuda_lib.ptr(scale), out.data_ptr(), clipped.data_ptr(),
+                centre.data_ptr(), _clamp_window(window),
+                _clamp_window(window_ahead), mb, ma, C, K, L)
         if plan is None:
             cuda_lib.launch("range_stats", xs.device, "tempo_range_stats",
                             *args)

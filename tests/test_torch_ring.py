@@ -65,11 +65,12 @@ def test_range_and_resample_plans():
     for depth in (2, 3, 8):
         p = stream.range_plan(10, 0, 12760, depth)
         assert (p.tile, p.depth) == (1024, depth)
-    # a halo past a slot's room: the row form, at every depth
-    assert stream.range_plan(12_700, 0, 102_056, 2) is None
-    assert stream.range_plan(12_700, 0, 102_056, 8) is None
-    assert stream.range_plan(12_600, 0, 102_056, 8) == stream.RingPlan(
-        256, 2, stream.range_ring_bytes(12_600, 0, 102_056, 256, 2))
+    # a halo past a slot's room: the row form, at every depth (the window
+    # takes 18 B a lane of the tile and halo, each slot 9 B more)
+    assert stream.range_plan(6_500, 0, 102_056, 2) is None
+    assert stream.range_plan(6_500, 0, 102_056, 8) is None
+    assert stream.range_plan(6_000, 0, 102_056, 8) == stream.RingPlan(
+        256, 2, stream.range_ring_bytes(6_000, 0, 102_056, 256, 2))
     # phase E: the register ladder takes 102,144 B of 232,448 (8 B a
     # lane); the widest tile fits beside it at every depth
     want = {2: (1024, 2), 3: (1024, 3), 4: (1024, 4), 8: (1024, 8)}
