@@ -74,7 +74,7 @@ B. Hold each kernel against its plain PyTorch version on the card, in
    holds the row form bitwise against its tiled mirror
    (``bucket_stats_tiled_plain``, run on the card with the kernel's
    centres) and runs the staged form at the default ring depth, bitwise
-   equal to the row form (rows with a bucket longer than the staged tile
+   equal to the row form (rows with a bucket longer than 1024 lanes
    left to the row form, and counted); the row form is timed at each
    shape and split by kernel.
    Then the staging ring (``csrc/ring.cuh``, the port of
@@ -86,7 +86,18 @@ B. Hold each kernel against its plain PyTorch version on the card, in
    form and to itself across depths, within the row form's tolerance of
    the plain version, the kernel's shared-memory total equal to the
    planner's (``ops/stream.py``); each depth timed beside the row form,
-   with the tile and depth the planner chose.
+   with the tile and depth the planner chose.  Then one row just past each
+   limit the kernels had before their class stages could run windowed and
+   before range stats counted clipped lanes in integers: the EMA and the
+   resample EMA at [1, 14,876,673], ``cumsum3`` at [1, 9,917,441] (bitwise
+   against the plain versions and the tiled mirrors, the EMA also at alpha
+   0.001, where the class stages show in the bits), bucket stats' row form
+   at [1, 4,958,209] in 1-minute buckets, one bucket a row and buckets of
+   300,000 lanes (count/min/max bitwise against the plain version, every
+   output against the tiled mirror at the kernel's centres) and range
+   stats, both forms, at [1, 2^24 + 1] and [1, 2^24 + 5] with every lane
+   clipped (bitwise at the kernel's centres, ``clipped`` equal to the exact
+   count rounded once to float32), each timed beside its bound.
 C. The main path at full scale, as a user calls it: pandas frames shaped
    like the reference quickstart's HHAR phone<->watch join (13,062,475
    rows a side, 1024 series) -> ``TSDF`` -> ``asofJoin`` ->
@@ -162,9 +173,14 @@ H. The fifth slice: the series-sharded ``DistributedTSDF`` on
    mesh (float64): keys, timestamps and counts equal, values within
    1e-4, stddev as the variance.
 
+I. One series of 2^24 + 1 rows, one a second, 5% null x, on the card:
+   ``withRangeStats`` (10 s) -> exact ``EMA``, the counters zeroed before
+   and read after: each row's count equals the valid rows of its 11
+   seconds and ``EMA_x`` is bitwise the plain ladder's.
+
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line
 (each kernel's launches summed over the main-path runs of phases C, E,
-F, G's legacy step and H; the staged forms' rows, one a depth, name
+F, G's legacy step, H and I; the staged forms' rows, one a depth, name
 their counter), and last ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the repository's ``tempo_tpu_torch`` package
 beside it, it prints no result and exits with 2.
@@ -1931,7 +1947,7 @@ def phase_b_bucket(pd, TSDF, left, right, left3, dev):
     cases.append((f"[{Ks}, {Ls}] pads, all-null and all-pad rows",
                   sb, sx, sv))
     # phase F's long rows in 1-minute buckets; then long buckets: HHAR's
-    # x in hourly buckets (about 2,400 lanes, past the staged tile), and
+    # x in hourly buckets (about 2,400 lanes, past the staged form's 1024), and
     # phase F's long rows in one bucket a row
     lt3 = TSDF(left3, "event_ts", ["user"], device=dev, dtype=torch.float32)
     lts = torch.from_numpy(lt3.packed_ts()).to(dev)
@@ -2021,6 +2037,8 @@ def phase_b_bucket(pd, TSDF, left, right, left3, dev):
             bid, xs[:1], vs[:1], _form="ring")),
         ring_ms_long_rows=time_ms(lambda: bucket.bucket_stats_cuda(
             lbid, lx[None], lv[None], _form="ring")),
+        ring_ms_hourly_one_column=time_ms(lambda: bucket.bucket_stats_cuda(
+            hbid, xs[:1], vs[:1], _form="ring")),
         shape=f"[{C}, {K}, {L}] (1-minute buckets); one column (1-minute "
               f"and hourly buckets); [1, {Ks}, {Ls}]; long rows [1, {KL}, "
               f"{LL}] (1-minute buckets, one bucket a row)")
@@ -2042,7 +2060,8 @@ def phase_b_bucket(pd, TSDF, left, right, left3, dev):
         f"bucket a row {row['plain_ms_one_bucket_rows']:.4f}), bound "
         f"{b_ms:.4f} ms ({by}); staged one column "
         f"{row['ring_ms_one_column']:.4f} ms, long rows "
-        f"{row['ring_ms_long_rows']:.4f} ms")
+        f"{row['ring_ms_long_rows']:.4f} ms, hourly one column (its rows "
+        f"left to the row form) {row['ring_ms_hourly_one_column']:.4f} ms")
     rows = {"bucket_stats": row}
     rows.update(ring_rows(
         "bucket_stats", lambda: bucket.bucket_stats_cuda(bid, xs, vs,
@@ -2050,10 +2069,236 @@ def phase_b_bucket(pd, TSDF, left, right, left3, dev):
         bucket.bucket_stats_cuda(bid, xs, vs, _form="row"),
         bucket.bucket_stats_plain(bid, xs, vs), check_bucket_stats, row,
         "tempo_tpu_torch/csrc/bucket_stats.cu",
-        lambda p: (C, L, p["tile"], p["depth"])))
+        lambda p: (C, p["tile"], p["depth"])))
     log(f"B launches while comparing (not counted): {dict(cuda_lib.launches)}")
     del ema
     return rows
+
+
+# rows just past the limits the kernels had before their class stages
+# could run windowed (EMA and resample EMA 14,876,672 lanes, cumsum3
+# 9,917,440, bucket stats' row form 4,958,208) and before range stats
+# counted clipped lanes in integers (2^24)
+EMA_OLD_MAX, CUMSUM3_OLD_MAX, BUCKET_OLD_MAX = 14_876_672, 9_917_440, 4_958_208
+CLIP_OLD_MAX = 1 << 24
+
+
+def phase_b_past_limits(dev):
+    """Each kernel on one row just past its old limit, held against its
+    plain version on the card as phase B holds it (the EMA, resample EMA
+    and cumsum3 bitwise, also against their tiled mirrors; bucket stats'
+    row form count/min/max bitwise against the plain version and every
+    output bitwise against its tiled mirror at the kernel's centres; range
+    stats' both forms bitwise against the plain version at the kernel's
+    centres and ``clipped`` equal to the exact count rounded once to
+    float32), each timed beside its bound.  Returns the extra keys of each
+    kernel's row of the result line."""
+    from tempo_tpu_torch.ops import bucket, cuda_lib, scan, window
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    extra = {}
+    L = EMA_OLD_MAX + 1
+    x = torch.randn((1, L), generator=gen, device=dev)
+    v = torch.rand((1, L), generator=gen, device=dev) > 0.1
+    x[0, ::11] = -0.0
+    x[0, 5::9973] = float("nan")
+    # alpha 0.001 keeps every level's d far from 0, so the class stages
+    # show in the bits; alpha 1 turns them into copies of -0.0 and +0.0
+    for alpha in (0.2, 0.001, 1.0):
+        got = scan.ema_cuda(x, v, alpha)
+        check_bitwise(got, scan.ema_plain(x, v, alpha),
+                      f"ema [1, {L}], alpha {alpha}")
+        check_bitwise(got, scan.ema_tiled_plain(x, v, alpha),
+                      f"ema [1, {L}], alpha {alpha} (tiled mirror)")
+    levels = math.ceil(math.log2(L))
+    b, by = bound_ms(L * 9, L * 3 * levels)
+    extra["ema_ladder"] = dict(
+        shape_past_limit=f"[1, {L}] (three stages)",
+        ms_past_limit=time_ms(lambda: scan.ema_cuda(x, v, 0.001), reps=5),
+        plain_ms_past_limit=time_ms(lambda: scan.ema_plain(x, v, 0.001),
+                                    reps=2),
+        bound_ms_past_limit=b,
+        stages_ms_past_limit=stage_ms(lambda: scan.ema_cuda(x, v, 0.001), 3))
+    secs = torch.cumsum(torch.randint(1, 3, (1, L), generator=gen,
+                                      device=dev), -1).to(torch.int32)
+    for step, scale in ((60, None), (7, 1.5)):
+        got = bucket.resample_ema_cuda(secs, x, v, step, 0.05, scale)
+        check_same(got, bucket.resample_ema_plain(secs, x, v, step, 0.05, scale),
+                   f"resample_ema [1, {L}], step {step}")
+        check_same(got, bucket.resample_ema_tiled_plain(secs, x, v, step, 0.05,
+                                                        scale),
+                   f"resample_ema [1, {L}], step {step} (tiled mirror)")
+    b, by = bound_ms(L * 17, L * 3 * levels)
+    extra["resample_ema"] = dict(
+        shape_past_limit=f"[1, {L}] (three stages)",
+        ms_past_limit=time_ms(lambda: bucket.resample_ema_cuda(
+            secs, x, v, 60, 0.05), reps=5),
+        plain_ms_past_limit=time_ms(lambda: bucket.resample_ema_plain(
+            secs, x, v, 60, 0.05), reps=2),
+        bound_ms_past_limit=b)
+    del secs
+    L3 = CUMSUM3_OLD_MAX + 1
+    xc, vc = x[:, :L3].contiguous(), v[:, :L3].contiguous()
+    got = scan.cumsum3_cuda(xc, vc)
+    check_same(got, scan.cumsum3_plain(xc, vc), f"cumsum3 [1, {L3}]")
+    check_same(got, scan.cumsum3_tiled_plain(xc, vc),
+               f"cumsum3 [1, {L3}] (tiled mirror)")
+    xz = torch.where(vc, xc, 0.0)
+    planes = torch.stack([xz, xz * xz, vc.float()])
+    b, by = bound_ms(L3 * 17, L3 * 3 * math.ceil(math.log2(L3)))
+    extra["cumsum3"] = dict(
+        shape_past_limit=f"[1, {L3}] (three stages)",
+        ms_past_limit=time_ms(lambda: scan.cumsum3_cuda(xc, vc), reps=5),
+        plain_ms_past_limit=time_ms(lambda: scan.cumsum3_plain(xc, vc), reps=2),
+        library_ms_past_limit=time_ms(lambda: torch.cumsum(planes, dim=-1),
+                                      reps=5),
+        bound_ms_past_limit=b)
+    del xc, vc, xz, planes
+
+    # bucket stats' row form: 1-minute buckets (no row needs a class
+    # stage), one bucket a row and buckets of 300,000 lanes (three stages
+    # on a live row, the windowed stage's flags read by the third)
+    Lb = BUCKET_OLD_MAX + 1
+    xb, vb = x[:, :Lb][None].contiguous(), v[:, :Lb][None].contiguous()
+    xb[0, 0, 5::9973] = 2.5
+    minute = (torch.cumsum(torch.randint(1, 3, (1, Lb), generator=gen,
+                                         device=dev), -1) // 60).to(torch.int32)
+    cases = [("1-minute buckets", minute),
+             ("one bucket", torch.zeros((1, Lb), dtype=torch.int32, device=dev)),
+             ("buckets of 300,000 lanes",
+              (torch.arange(Lb, device=dev)[None] // 300_000).to(torch.int32))]
+    times = {}
+    for what, bid in cases:
+        out = torch.empty((len(bucket.BUCKET_STATS), 1, 1, Lb), device=dev)
+        centre = bucket._bucket_row_form(bid, xb, vb, out)
+        got = {k: out[i] for i, k in enumerate(bucket.BUCKET_STATS)}
+        want = bucket.bucket_stats_plain(bid, xb, vb)
+        for k in ("count", "min", "max"):
+            check_bitwise(got[k], want[k], f"bucket stats {k} [1, {Lb}] ({what})")
+        check_same(got, bucket.bucket_stats_tiled_plain(bid, xb, vb, 10,
+                                                        center=centre),
+                   f"bucket stats row form [1, {Lb}] ({what}) against its "
+                   f"tiled mirror")
+        check_centre(centre, xb, vb, f"[1, {Lb}] ({what})")
+        times[what] = time_ms(lambda: bucket._bucket_row_form(bid, xb, vb, out),
+                              reps=3)
+    steps = math.ceil(math.log2(Lb))
+    b, by = bound_ms(Lb * 4 + Lb * 5 + 7 * Lb * 4, Lb * (steps * 13 + 25))
+    extra["bucket_stats"] = dict(
+        shape_past_limit=f"[1, {Lb}] ({', '.join(times)})",
+        ms_past_limit=times["1-minute buckets"],
+        ms_past_limit_one_bucket=times["one bucket"],
+        ms_past_limit_300k=times["buckets of 300,000 lanes"],
+        bound_ms_past_limit=b,
+        stages_ms_past_limit_one_bucket=stage_ms(
+            lambda: bucket._bucket_row_form(cases[1][1], xb, vb, out), 2))
+    del x, v, xb, vb, minute, cases, out
+
+    # range stats past 2^24 lanes, both forms: two rows a second, a 10 s
+    # window both ways and bounds (4, 4), so every lane clips: 2^24 + 1
+    # lanes (the count rounds to 2^24 in float32) and 2^24 + 5 (it rounds
+    # to 2^24 + 4, past where a float tally stops)
+    res = {}
+    for Lr, mb, ma in ((CLIP_OLD_MAX + 1, 4, 4), (CLIP_OLD_MAX + 5, 4, 4)):
+        rs = (torch.arange(Lr, device=dev, dtype=torch.int32) // 2)[None]
+        rx = torch.randn((1, 1, Lr), generator=gen, device=dev)
+        rv = torch.ones((1, 1, Lr), dtype=torch.bool, device=dev)
+        args = (rs, rx, rv, 10, mb, ma)
+        exact = window.range_stats_plain(rs, rx.double(), rv, 10, mb, ma,
+                                         window_ahead=10 if ma else 0)
+        exact = int(exact["clipped"].flatten()[0])
+        if exact <= CLIP_OLD_MAX:
+            raise AssertionError(f"range stats [1, {Lr}]: the case clips "
+                                 f"{exact} lanes, not past 2^24")
+        for form in ("row", "ring"):
+            centre = torch.empty((1, 1), device=dev)
+            got = window.range_stats_cuda(*args, window_ahead=10 if ma else 0,
+                                          _form=form, _center_out=centre)
+            want = window.range_stats_plain(*args, window_ahead=10 if ma else 0,
+                                            _centers=centre)
+            check_same({k: got[k] for k in window.STATS},
+                       {k: want[k] for k in window.STATS},
+                       f"range stats [1, {Lr}] ({form} form) against the plain "
+                       f"version at the kernel's centres")
+            clipped = got["clipped"].flatten()[0]
+            if clipped.item() != float(np.float32(exact)):
+                raise AssertionError(f"range stats [1, {Lr}] ({form} form): "
+                                     f"clipped {clipped.item()}, exact count "
+                                     f"{exact} rounds to {np.float32(exact)}")
+            res[(Lr, form)] = (time_ms(lambda: window.range_stats_cuda(
+                *args, window_ahead=10 if ma else 0, _form=form), reps=2),
+                exact)
+    Lr = CLIP_OLD_MAX + 1
+    b, by = bound_ms(Lr * (4 + 5 + 28), Lr * 9 * 10)
+    extra["range_stats"] = dict(
+        shape_past_limit=f"[1, {Lr}] and [1, {Lr + 4}] at bounds (4, 4), "
+                         f"10 s both ways",
+        ms_past_limit=res[(Lr, "row")][0],
+        ms_past_limit_staged=res[(Lr, "ring")][0],
+        clipped_exact_past_limit=[res[(Lr, "row")][1], res[(Lr + 4, "row")][1]],
+        bound_ms_past_limit=b)
+    log("B past the old limits: "
+        + "; ".join(f"{k} {e['shape_past_limit']}: {e['ms_past_limit']:.4f} ms "
+                    f"(bound {e['bound_ms_past_limit']:.4f})"
+                    for k, e in extra.items())
+        + f"; EMA, resample EMA and cumsum3 bitwise against plain and tiled "
+        f"mirror; bucket stats' row form count/min/max bitwise against plain, "
+        f"every output against its tiled mirror ({', '.join(times)}); range "
+        f"stats both forms bitwise at the kernel's centres, clipped "
+        f"{extra['range_stats']['clipped_exact_past_limit']} exact (float32 "
+        f"rounded once)")
+    log(f"B launches while comparing (not counted): {dict(cuda_lib.launches)}")
+    torch.cuda.empty_cache()
+    return extra
+
+
+def phase_i(pd, TSDF):
+    """One series of 2^24 + 1 rows, one a second with 5% null x, through
+    ``withRangeStats`` (10 s) -> exact ``EMA`` on the card, the counters
+    zeroed before and read after: each row's count equals the valid rows
+    of its 11 seconds, and the EMA agrees with the plain ladder on the same
+    card tensors.  Returns the launch counts."""
+    from tempo_tpu_torch.ops import cuda_lib, scan
+
+    n = CLIP_OLD_MAX + 1
+    rng = np.random.default_rng(12)
+    xs = rng.standard_normal(n)
+    xs[rng.random(n) < 0.05] = np.nan
+    df = pd.DataFrame({"sensor": np.zeros(n, np.int64),
+                       "event_ts": pd.to_datetime(np.arange(n, dtype=np.int64)
+                                                  * NS),
+                       "x": xs})
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    out = (TSDF(df, "event_ts", ["sensor"], device="cuda", dtype=torch.float32)
+           .withRangeStats(colsToSummarize=["x"], rangeBackWindowSecs=10)
+           .EMA("x", exact=True))
+    res = out.df
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(cuda_lib.launches)
+    if launches["ema_ladder"] == 0 or \
+            launches["range_stats"] + launches["range_stats_ring"] == 0:
+        raise AssertionError(f"long series: launches {launches}")
+    if len(res) != n:
+        raise AssertionError(f"long series: {len(res)} rows, not {n}")
+    ok = ~np.isnan(xs)
+    c = np.concatenate([[0], np.cumsum(ok)])
+    want = c[1:] - c[np.maximum(np.arange(n) - 10, 0)]
+    if not np.array_equal(res["count_x"].to_numpy(np.int64), want):
+        raise AssertionError("long series: count_x differs from the valid "
+                             "rows of each 11 s")
+    x = torch.from_numpy(xs.astype(np.float32))[None].cuda()
+    ema = scan.ema_plain(torch.nan_to_num(x), torch.from_numpy(ok)[None].cuda(),
+                         0.2)
+    if not np.array_equal(res["EMA_x"].to_numpy(np.float32).view(np.int32),
+                          ema[0].cpu().numpy().view(np.int32)):
+        raise AssertionError("long series: EMA_x differs from the plain ladder")
+    log(f"I one series of {n} rows: withRangeStats(10 s) -> EMA on the card "
+        f"in {seconds:.3f} s; count_x equal to each row's valid rows in 11 s, "
+        f"EMA_x bitwise equal to the plain ladder; launches {launches}")
+    return launches
 
 
 def compare_card_cpu(card, cpu, what: str) -> float:
@@ -2154,7 +2399,7 @@ def phase_h(pd, TSDF, left, right, n, n_series, c_seconds):
     torch.cuda.empty_cache()
 
     # the same chain at ring depth 4: bitwise the default run; then
-    # hourly buckets (about 2,400 lanes, past the staged form's tile):
+    # hourly buckets (about 2,400 lanes, past the staged form's 1024):
     # those rows take the row form
     with dma_depth(4):
         (ema4, grouped4), deep_s, deep_launches, _ = counted(
@@ -2179,7 +2424,7 @@ def phase_h(pd, TSDF, left, right, n, n_series, c_seconds):
                              f"{hour_launches}, long rows {n_long}")
     log(f"H withGroupedStats('1 hour') of x: {len(hourly)} bucket rows in "
         f"{hour_s:.3f} s; {n_long} series rows hold a bucket longer than "
-        f"the staged tile ({stream.last_plan['bucket_stats']}) and took "
+        f"the staged form's 1024 lanes ({stream.last_plan['bucket_stats']}) and took "
         f"the row form; launches {hour_launches}")
     del ema4
     torch.cuda.empty_cache()
@@ -2283,6 +2528,7 @@ def main(argv=None) -> int:
     rows4 = phase_b_slice4(left, dev, d_args)
     rows5 = phase_b_bucket(pd, TSDF, left, right, left3, dev)
     torch.cuda.empty_cache()
+    past = phase_b_past_limits(dev)
     launches, c_seconds = phase_c(pd, TSDF, left, right, n, args.series)
     phase_d(d_args)
     launches2 = phase_e(TSDF, right, n, args.series)
@@ -2293,16 +2539,20 @@ def main(argv=None) -> int:
     launches4, _ = phase_g(pd, TSDF, left, n, args.series)
     torch.cuda.empty_cache()
     launches5 = phase_h(pd, TSDF, left, right, n, args.series, c_seconds)
+    del left, right
+    torch.cuda.empty_cache()
+    launches6 = phase_i(pd, TSDF)
 
     # launches: summed over the main-path runs (phases C, E, F, G's legacy
-    # step and H), each counted between a reset and a read
+    # step, H and I), each counted between a reset and a read
     found = add_counts(launches, launches2, launches3, long_launches,
-                       launches4, launches5)
+                       launches4, launches5, launches6)
     rows["ema_ladder"].update(rows3.pop("_ema_phase_f"))
     kernels = []
     for table in (rows, rows2, rows3, rows4, rows5):
         for name, row in table.items():
             row = dict(row)
+            row.update(past.get(name, {}))
             row["launches"] = found[row.get("counter", name)]
             kernels.append(row)
     idle = [row["name"] for row in kernels if row["launches"] == 0]

@@ -40,8 +40,8 @@
 //   halo before the row needs no special case):
 //     (a) bucket_centres: a 1024-thread block per (column, row) forms the
 //         centre as row_center does (lane-strided, block_sum), into a
-//         [C, K] plane: the staged form's order, so the two forms agree
-//         bitwise;
+//         [C, K] plane (the staged form launches it too, so the two
+//         forms agree bitwise);
 //     (b) bucket_tiles: a 512-thread block per (column, row, window of
 //         kTileOut = 3072 outputs after a 1024-lane halo) runs the levels
 //         of spans < T in registers, as common.cuh's ema_block runs the
@@ -66,25 +66,24 @@
 //         bucket_outputs' op order.
 //   Traffic a column: 5 B a lane in (a), about 12 in and 24 out in (b),
 //   44 in (c), 37 in (d): about 120 B against the function's 37.  Rows past
-//   class_ladder_max_lanes(6) = 4,958,208 lanes are refused (the wrapper
-//   raises before the launch).
-// * the tile-local staged form (bucket_stats_ring_kernel): one block per
-//   row first reduces each column's centre in the same order (1024
-//   threads, lane-strided, block_sum), then cuts the row into windows of at
-//   most T lanes, each starting at a bucket head: window j + 1 starts at
-//   the head of the bucket that holds lane s_j + T.  The windows stream
-//   through ring.cuh's staging ring (ids, then x and valid of each column),
-//   and each runs the two ladders over its own lanes in shared memory
-//   (12 float planes of T lanes), each stopping once every lane is
-//   complete, and writes the outputs of the buckets that end inside it
-//   (lanes [s_j, s_j+1)).  A segmented ladder combines a bucket's lanes in
-//   a tree that depends only on the lanes' offsets from the bucket's head
-//   (the head flag freezes every lane before it reads across the head), so
-//   each such bucket gets the row form's bits.  A row holding a bucket
-//   longer than T lanes has no such cut: the block appends it to
-//   `long_rows` and leaves it to the row form, which the wrapper runs on
-//   those rows.  Every two windows advance at least T + 1 lanes, so a row
-//   has at most 2 * ceil(L / T) - 1 windows.
+//   class_whole_max(6) * 1024 = 4,958,208 lanes, whose residue classes
+//   outgrow shared memory, take (c) windowed and a third stage along the
+//   classes mod 2^18 (common.cuh), so every int32 row length runs.
+// * the staged form (tempo_bucket_stats_ring), two launches: bucket_centres
+//   into a [C, K] plane (the row form's centres, so the two forms agree
+//   bitwise), then bucket_stats_ring_kernel, a block a row, which streams
+//   windows of T lanes of the ids and of every column's x and valid
+//   through ring.cuh's staging ring and fuses (b) and (d) without a
+//   ladder: at each bucket's tail the segmented ladder holds a fixed
+//   pairwise tree of the bucket's lanes, which a thread evaluates in the
+//   same order, so it writes the row form's bits.  A window covers the
+//   carry (the lanes of the previous window's last bucket) and its own
+//   lanes, and writes the seven outputs of every bucket that ends before
+//   its last one (every bucket in the row's last window).  No plane goes
+//   to global memory: 4 + 5C B a lane in and 28C out, the function's own
+//   traffic (and the centres' 5C in).  A row with a bucket longer than
+//   kSpan = 1024 lanes, the most a carry holds, goes to `long_rows` and the
+//   row form, which the wrapper runs on those rows.
 #include "common.cuh"
 #include "ring.cuh"
 
@@ -92,124 +91,47 @@
 
 namespace {
 
-constexpr int kPlanes = 6;                 // count, s1, s2, min, max, flag
-constexpr int kSetPlanes = 2 * kPlanes;    // two ping-pong sets
+constexpr int kPlanes = 6;                 // the row form's flag, count, s1, s2, min, max
 
 __device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
 
-// The seven outputs of a lane from its bucket's totals (count, centred
-// sum and sum of squares, min, max), the centre and the lane's x and
-// validity, into out[at + s * stat_plane] for stat s.
-__device__ __forceinline__ void bucket_outputs(float cnt, float s1, float s2, float mn,
-                                               float mx, float center, float xi, bool ok,
-                                               float* out, size_t at, size_t stat_plane) {
+// A bucket's six outputs from its totals (count, centred sum and sum of
+// squares, min, max) and the centre; every lane of the bucket writes them
+// (bucket_store) beside its zscore.
+struct BucketTotals {
+    float mean, cnt, mn, mx, sum, std;
+};
+
+__device__ __forceinline__ BucketTotals bucket_totals(float cnt, float s1, float s2, float mn,
+                                                      float mx, float center) {
     const float NaN = tempo_nan();
     const float cnt1 = fmaxf(cnt, 1.f);
-    const float mean = cnt > 0.f ? __fadd_rn(__fdiv_rn(s1, cnt1), center) : NaN;
     const float total = __fadd_rn(s1, __fmul_rn(cnt, center));
     const float var = cnt > 1.f ? __fdiv_rn(__fsub_rn(s2, __fdiv_rn(__fmul_rn(s1, s1), cnt1)),
                                             fmaxf(__fsub_rn(cnt, 1.f), 1.f))
                                 : NaN;
-    const float std = cnt > 1.f ? __fsqrt_rn(max_nan(var, 0.f)) : NaN;
-    out[at] = mean;
-    out[stat_plane + at] = cnt;
-    out[2 * stat_plane + at] = cnt > 0.f ? mn : NaN;
-    out[3 * stat_plane + at] = cnt > 0.f ? mx : NaN;
-    out[4 * stat_plane + at] = cnt > 0.f ? total : NaN;
-    out[5 * stat_plane + at] = std;
-    out[6 * stat_plane + at] = ok ? __fdiv_rn(__fsub_rn(xi, mean), std) : NaN;
+    return {cnt > 0.f ? __fadd_rn(__fdiv_rn(s1, cnt1), center) : NaN, cnt,
+            cnt > 0.f ? mn : NaN, cnt > 0.f ? mx : NaN, cnt > 0.f ? total : NaN,
+            cnt > 1.f ? __fsqrt_rn(max_nan(var, 0.f)) : NaN};
 }
 
-// The staged form's two ladders and the outputs over lanes [0, n) of one
-// window of a column: `base` holds the 12 planes, `stride` floats apart;
-// b, xr, vr are the lanes' ids, values and validity; outputs of lanes
-// [0, m) go to out[o + i] (+ s * stat_plane for stat s).  Ends with a
-// __syncthreads().  Each ladder stops after the first pass that leaves
-// every lane's flag set: from then on every lane has its bucket's head
-// (its tail) inside its span and each later pass would copy it unchanged,
-// so the bits are those of the full log2(n) passes.
-__device__ __forceinline__ void bucket_ladder(float* base, size_t stride, const int32_t* b,
-                                              const float* xr, const uint8_t* vr,
-                                              float center, int n, int m, float* out,
-                                              size_t o, size_t stat_plane) {
-    const float INF = pos_inf();
-    float* a[kPlanes];
-    float* nx[kPlanes];
-    for (int p = 0; p < kPlanes; ++p) {
-        a[p] = base + (size_t)p * stride;
-        nx[p] = base + (size_t)(kPlanes + p) * stride;
-    }
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        const bool ok = vr[i] != 0;
-        const float xi = xr[i];
-        const float xc = ok ? __fsub_rn(xi, center) : 0.f;
-        a[0][i] = ok ? 1.f : 0.f;
-        a[1][i] = xc;
-        a[2][i] = __fmul_rn(xc, xc);
-        a[3][i] = ok ? xi : INF;
-        a[4][i] = ok ? xi : -INF;
-        a[5][i] = (i == 0 || b[i] != b[i - 1]) ? 1.f : 0.f;
-    }
-    __syncthreads();
+// The seven outputs of a lane, x and validity xi, ok, into
+// out[at + s * stat_plane] for stat s.
+__device__ __forceinline__ void bucket_store(const BucketTotals& b, float xi, bool ok,
+                                             float* out, size_t at, size_t stat_plane) {
+    out[at] = b.mean;
+    out[stat_plane + at] = b.cnt;
+    out[2 * stat_plane + at] = b.mn;
+    out[3 * stat_plane + at] = b.mx;
+    out[4 * stat_plane + at] = b.sum;
+    out[5 * stat_plane + at] = b.std;
+    out[6 * stat_plane + at] = ok ? __fdiv_rn(__fsub_rn(xi, b.mean), b.std) : tempo_nan();
+}
 
-    // forward segmented inclusive scan: a lane stops taking its
-    // predecessor's partial once a head flag lies between them
-    for (int span = 1; span < n; span <<= 1) {
-        int flagged = 1;
-        for (int i = threadIdx.x; i < n; i += blockDim.x) {
-            const bool ok = i >= span;
-            const float f = a[5][i];
-            const bool head = f > 0.f;
-            for (int p = 0; p < 3; ++p) {
-                const float prev = ok ? a[p][i - span] : 0.f;
-                nx[p][i] = head ? a[p][i] : __fadd_rn(a[p][i], prev);
-            }
-            const float pmin = ok ? a[3][i - span] : INF;
-            const float pmax = ok ? a[4][i - span] : -INF;
-            nx[3][i] = head ? a[3][i] : min_nan(a[3][i], pmin);
-            nx[4][i] = head ? a[4][i] : max_nan(a[4][i], pmax);
-            nx[5][i] = fmaxf(f, ok ? a[5][i - span] : 1.f);
-            flagged &= nx[5][i] > 0.f;
-        }
-        const bool done = __syncthreads_and(flagged) != 0;
-        for (int p = 0; p < kPlanes; ++p) {
-            float* t = a[p]; a[p] = nx[p]; nx[p] = t;
-        }
-        if (done) break;
-    }
-
-    // reverse tail broadcast: each lane takes the value at the first
-    // tail at or after it, its own bucket's last lane
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        a[5][i] = (i == n - 1 || b[i] != b[i + 1]) ? 1.f : 0.f;
-    }
-    __syncthreads();
-    for (int span = 1; span < n; span <<= 1) {
-        int flagged = 1;
-        for (int i = threadIdx.x; i < n; i += blockDim.x) {
-            const bool ok = i < n - span;
-            const float g = a[5][i];
-            const bool tail = g > 0.f;
-            for (int p = 0; p < 5; ++p) {
-                const float next = ok ? a[p][i + span] : 0.f;
-                nx[p][i] = tail ? a[p][i] : next;
-            }
-            nx[5][i] = fmaxf(g, ok ? a[5][i + span] : 0.f);
-            flagged &= nx[5][i] > 0.f;
-        }
-        const bool done = __syncthreads_and(flagged) != 0;
-        for (int p = 0; p < kPlanes; ++p) {
-            float* t = a[p]; a[p] = nx[p]; nx[p] = t;
-        }
-        if (done) break;
-    }
-
-    for (int i = threadIdx.x; i < m; i += blockDim.x)
-        bucket_outputs(a[0][i], a[1][i], a[2][i], a[3][i], a[4][i], center, xr[i], vr[i] != 0,
-                       out, o + i, stat_plane);
-    // the next call's first pass overwrites planes other threads may
-    // still read here
-    __syncthreads();
+__device__ __forceinline__ void bucket_outputs(float cnt, float s1, float s2, float mn,
+                                               float mx, float center, float xi, bool ok,
+                                               float* out, size_t at, size_t stat_plane) {
+    bucket_store(bucket_totals(cnt, s1, s2, mn, mx, center), xi, ok, out, at, stat_plane);
 }
 
 // The row's centre of column row (x, valid): sum(valid ? x : 0) /
@@ -228,19 +150,15 @@ __device__ __forceinline__ float row_center(const float* xr, const uint8_t* vr, 
     return __fdiv_rn(sx, fmaxf(nv, 1.f));
 }
 
-// Largest (kMax) or least int over the block (blockDim.x a multiple of 32).
-template <bool kMax>
-__device__ __forceinline__ int block_extreme(int v, int* sh /* >= 32 */) {
-    auto reduce = [](int t) {
-        return kMax ? __reduce_max_sync(TEMPO_FULL_MASK, t) : __reduce_min_sync(TEMPO_FULL_MASK, t);
-    };
-    v = reduce(v);
+// Least int over the block (blockDim.x a multiple of 32).
+__device__ __forceinline__ int block_min(int v, int* sh /* >= 32 */) {
+    v = __reduce_min_sync(TEMPO_FULL_MASK, v);
     __syncthreads();                       // sh may still be read by a previous call
     if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = v;
     __syncthreads();
     if (threadIdx.x < 32) {
-        int t = threadIdx.x < (blockDim.x >> 5) ? sh[threadIdx.x] : kMax ? INT_MIN : INT_MAX;
-        t = reduce(t);
+        int t = threadIdx.x < (blockDim.x >> 5) ? sh[threadIdx.x] : INT_MAX;
+        t = __reduce_min_sync(TEMPO_FULL_MASK, t);
         if (threadIdx.x == 0) sh[0] = t;
     }
     __syncthreads();
@@ -278,7 +196,7 @@ constexpr int kOutThreads = 512;
 constexpr int kOutLanes = kTileOut / kOutThreads;       // lanes a thread scans in (d)
 
 // The forward ladder's element as six planes: flag, count, s1, s2, min,
-// max.  combine(a, b) is bucket_ladder's step (a after its partner b): a
+// max.  combine(a, b) is the segmented step (a after its partner b): a
 // head keeps its values, else each value plane takes b's in (sums rounded
 // to nearest, min and max NaN-propagating); the flag takes the max.  The
 // identity (flag 1, 0, 0, 0, +inf, -inf) is what the ladder shifts in
@@ -436,7 +354,7 @@ bucket_tiles(const int32_t* __restrict__ bid, const float* __restrict__ x,
     }
     if (__syncthreads_or(open) && threadIdx.x == 0) live[ck] = 1;
     if (first_col) {
-        tail = block_extreme<false>(tail, shi);
+        tail = block_min(tail, shi);
         if (threadIdx.x == 0) first_tail[(size_t)k * tiles + win] = tail;
     }
 }
@@ -462,7 +380,7 @@ bucket_out(const int32_t* __restrict__ bid, const float* __restrict__ x,
     int after = INT_MAX;
     for (int j = win + 1 + threadIdx.x; j < tiles; j += kOutThreads)
         after = min(after, first_tail[(size_t)k * tiles + j]);
-    after = block_extreme<false>(after, shi);    // (its barriers publish ids)
+    after = block_min(after, shi);    // (its barriers publish ids)
     // lanes kOutLanes t + q of thread t: the first run end at or after each
     // among them, then among the later threads' lanes, then past the window
     int tail[kOutLanes];
@@ -492,110 +410,455 @@ bucket_out(const int32_t* __restrict__ bid, const float* __restrict__ x,
     }
 }
 
+// ---- the staged form ------------------------------------------------
+
+constexpr int kRingThreads = 256;
+constexpr int kRingWarps = kRingThreads / 32;
+constexpr int kSpan = 1 << kClassTileLog2;      // longest bucket a window takes (its halo)
+constexpr int kSpanLog2 = kClassTileLog2;
+constexpr int kRingEnt = 4;                     // segments a lane in the segment scans
+constexpr int kGroupLog2 = 3;
+constexpr int kGroup = 1 << kGroupLog2;         // leaves a static tree takes at once
+constexpr int kPairs = 2 * kRingThreads;        // (tail, column) pairs a round
+
+// lanes at or below lane l of a 32-bit mask (l in [0, 31])
+__device__ __forceinline__ uint32_t mask_le(int l) { return (2u << l) - 1u; }
+
+// the position of set bit k (from 0) of m
+__device__ __forceinline__ int nth_bit(uint32_t m, int k) {
+    int pos = 0;
+#pragma unroll
+    for (int w = 16; w > 0; w >>= 1) {
+        const int c = __popc(m & ((1u << w) - 1u));
+        if (k >= c) {
+            k -= c;
+            m >>= w;
+            pos += w;
+        }
+    }
+    return pos;
+}
+
+// a set to a after its partner b (a's leaves the later lanes): the row
+// form's segmented step, SegPlanes::combine, on s1, s2, min and max
+__device__ __forceinline__ void node_combine(float a[4], const float b[4]) {
+    a[0] = __fadd_rn(a[0], b[0]);
+    a[1] = __fadd_rn(a[1], b[1]);
+    a[2] = min_nan(a[2], b[2]);
+    a[3] = max_nan(a[3], b[3]);
+}
+
 // Shared memory of the staged form, in bytes from the start of the
 // block's dynamic shared memory (ops/stream.bucket_ring_bytes mirrors the
-// total): the ring's barriers, a block reduction's 32 words, the C centres, the
-// window starts (and the end sentinel), the ladder's 12 planes of T
-// floats, then `depth` slots of the ids and each column's x and valid.
+// total): the ring's barriers and a block reduction's 32 words, 5 + 2 C
+// words a segment of the largest region (kSpan + T lanes), four pointers a
+// column (its x and valid in the carry and in the slot), six planes of
+// kPairs bucket totals, the carry (ids,
+// then each column's x and valid, of up to kSpan lanes), then `depth`
+// slots of a window's ids and each column's x and valid.
 struct BucketRingLayout {
-    size_t centre, starts, ladder, slots;
+    int G;
+    size_t segs, ptrs, tot, carry, carry_col, slots;
     size_t id_plane, x_plane, v_plane, slot, total;
-    int max_windows;
 };
 
-__host__ __device__ inline BucketRingLayout bucket_ring_layout(int C, int L, int T, int depth) {
+__host__ __device__ inline BucketRingLayout bucket_ring_layout(int C, int T, int depth) {
     BucketRingLayout y;
-    y.max_windows = 2 * ((L + T - 1) / T) - 1;
-    y.centre = 8 * ring::kMaxDepth + 32 * 4;
-    y.starts = y.centre + ring::align16(4 * (size_t)C);
-    y.ladder = y.starts + ring::align16(4 * (size_t)(y.max_windows + 1));
-    y.slots = y.ladder + 4 * (size_t)kSetPlanes * ring::align16(T);
+    y.G = (kSpan + T + 31) / 32;
+    y.segs = 8 * ring::kMaxDepth + 32 * 4;
+    y.ptrs = y.segs + ring::align16(4 * (size_t)(5 + 2 * C) * y.G);
+    y.tot = y.ptrs + 32 * (size_t)C;
+    y.carry = y.tot + 4 * 6 * (size_t)kPairs;
+    y.carry_col = ring::align16(4 * (size_t)kSpan) + ring::align16(kSpan);
+    y.slots = y.carry + ring::align16(4 * (size_t)kSpan) + (size_t)C * y.carry_col;
     y.id_plane = ring::plane_bytes(4 * (size_t)T);
     y.x_plane = y.id_plane;
     y.v_plane = ring::plane_bytes((size_t)T);
-    y.slot = y.id_plane + C * (y.x_plane + y.v_plane);
+    y.slot = y.id_plane + (size_t)C * (y.x_plane + y.v_plane);
     y.total = y.slots + (size_t)depth * y.slot;
     return y;
 }
 
-__global__ void __launch_bounds__(kEmaThreads)
+// A block per row walks its windows: window w's slot holds lanes
+// [w T, min(L, (w + 1) T)) of the ids and of every column's x and valid.
+// Its region is the carry (the lanes of the previous window's last bucket,
+// which it did not output) and then those lanes, so it starts at a bucket
+// head.  Per region:
+//   1. each 32-lane segment's head bits and each column's valid bits
+//      (ballots), and the largest distance d = i - head(i) with its head
+//      inside the segment;
+//   2. the segment scans, a warp each: the last head before each segment
+//      and D, the largest d of the region (D >= kSpan: a bucket longer
+//      than the halo; the row goes to long_rows and the row form); the
+//      bucket tails in and before each (every lane before a head; in the
+//      row's last window the region's last lane too); each column's valid
+//      lanes before each;
+//   3. in rounds of kPairs (tail, column) pairs, column-major, a thread a
+//      pair evaluates the bucket's value in the row form's forward ladder.
+//      At a bucket's tail t, whose head is n - 1 lanes back, the segmented
+//      Hillis-Steele ladder holds a fixed tree: with r = t - i for each
+//      lane i of the bucket, the level of span 2^(k-1) adds into r = 0 mod
+//      2^k the node of r + 2^(k-1) where it exists, the later lanes first
+//      (SegPlanes::combine: the own value, then the partner's).  So the
+//      thread takes r in groups of kGroup = 8, each group's node by a
+//      static pairwise tree in registers, keeps the complete nodes of a
+//      binary counter over the groups, one a level (merging a group's node
+//      into the level-k node where bit k of its index is set), and folds
+//      the remaining nodes from the highest r down: the same adds, mins and
+//      maxes in the same order, so the same bits.  From those and the count
+//      (an exact integer from the valid bits, as the float ladder's count
+//      is), bucket_totals into shared memory; then every lane of the
+//      round's buckets, a thread a lane, stores its bucket's outputs and
+//      its own zscore (coalesced);
+//   4. the region's last bucket, ids and every column's x and valid, into
+//      the carry.
+// Only the seven outputs reach global memory.
+__global__ void __launch_bounds__(kRingThreads, 2)
 bucket_stats_ring_kernel(const int32_t* __restrict__ bid, const float* __restrict__ x,
-                         const uint8_t* __restrict__ valid, float* __restrict__ out,
-                         int32_t* __restrict__ long_rows, int32_t* __restrict__ n_long, int C,
-                         int K, int L, int T, int depth) {
+                         const uint8_t* __restrict__ valid, const float* __restrict__ centre,
+                         float* __restrict__ out, int32_t* __restrict__ long_rows,
+                         int32_t* __restrict__ n_long, int C, int K, int L, int T, int depth) {
     extern __shared__ __align__(16) unsigned char sm[];
-    const BucketRingLayout lay = bucket_ring_layout(C, L, T, depth);
+    const BucketRingLayout lay = bucket_ring_layout(C, T, depth);
     const ring::Ring r{(uint64_t*)sm, depth};
-    float* shf = (float*)(sm + 8 * ring::kMaxDepth);
-    int* shi = (int*)shf;
-    float* centre = (float*)(sm + lay.centre);
-    int* starts = (int*)(sm + lay.starts);
-    float* ladder = (float*)(sm + lay.ladder);
+    int* shi = (int*)(sm + 8 * ring::kMaxDepth);   // [0] D, [1] last head, [2] long, [3] tails
+    const int G_ = lay.G;
+    uint32_t* hmask = (uint32_t*)(sm + lay.segs);  // head bits of segment g
+    uint32_t* tmask = hmask + G_;                  // tail bits
+    int* dseg = (int*)(tmask + G_);                // largest d with its head inside g
+    int* hbefore = dseg + G_;                      // last head before g (-1: none)
+    int* tbefore = hbefore + G_;                   // tails before g
+    uint32_t* vmask = (uint32_t*)(tbefore + G_);   // column c's valid bits at [c G_, ...)
+    int* cbefore = (int*)(vmask + (size_t)C * G_); // column c's valid lanes before g
+    unsigned char** xt = (unsigned char**)(sm + lay.ptrs);   // [2 c]: carry, [2 c + 1]: slot
+    unsigned char** vt = xt + 2 * (size_t)C;
+    float* tot = (float*)(sm + lay.tot);           // total s of round pair i at [s kPairs + i]
+    int32_t* cid = (int32_t*)(sm + lay.carry);
+    auto cx = [&](int c) {
+        return (float*)(sm + lay.carry + ring::align16(4 * (size_t)kSpan) + c * lay.carry_col);
+    };
+    auto cv = [&](int c) {
+        return (unsigned char*)(cx(c)) + ring::align16(4 * (size_t)kSpan);
+    };
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int k = blockIdx.x;
     const int32_t* b = bid + (size_t)k * L;
-    const size_t stat_plane = (size_t)C * K * L;
-
-    for (int c = 0; c < C; ++c) {
-        const size_t crow = ((size_t)c * K + k) * L;
-        const float center = row_center(x + crow, valid + crow, L, shf);
-        if (threadIdx.x == 0) centre[c] = center;
-    }
-
-    // the window chain: each start is a bucket head; the next is the last
-    // head in (s, s + T], the head of the bucket holding lane s + T
-    int s = 0, nw = 0;
-    bool is_long = false;
-    for (;;) {
-        if (nw == lay.max_windows) { is_long = true; break; }   // not reached
-        if (threadIdx.x == 0) starts[nw] = s;
-        ++nw;
-        if (s + T >= L) break;
-        int best = -1;
-        for (int t = threadIdx.x; t < T; t += blockDim.x) {
-            const int j = s + T - t;
-            if (b[j] != b[j - 1]) best = max(best, j);
-        }
-        best = block_extreme<true>(best, shi);
-        if (best < 0) { is_long = true; break; }
-        s = best;
-    }
-    if (is_long) {
-        if (threadIdx.x == 0) long_rows[atomicAdd(n_long, 1)] = k;
-        return;
-    }
-    if (threadIdx.x == 0) starts[nw] = L;
+    const size_t n_all = (size_t)C * K * L;
+    const size_t stat_plane = n_all;
+    const int nw = (int)(((long long)L + T - 1) / T);
+    const float INF = pos_inf();
+    if (threadIdx.x == 0) shi[2] = 0;
     ring::init(r);
 
-    const size_t n_all = (size_t)C * K * L;
-    auto plane = [&](int slot, int p) -> unsigned char* {
+    auto plane = [&](int slot, int p) -> unsigned char* {   // p = 0 ids, 1 + 2c x, 2 + 2c valid
         unsigned char* base = sm + lay.slots + (size_t)slot * lay.slot;
-        return p == 0 ? base
-                      : base + lay.id_plane + (size_t)(p - 1) * (lay.x_plane + lay.v_plane);
+        if (p == 0) return base;
+        const int c = (p - 1) >> 1;
+        return base + lay.id_plane + (size_t)c * (lay.x_plane + lay.v_plane) +
+               ((p - 1) & 1 ? lay.x_plane : 0);
     };
     auto load = [&](int w, int slot, uint64_t* bar) {
-        const int s0 = starts[w];
+        if (shi[2]) return;                        // a long row: nothing more to read
+        const int s0 = w * T;
         const size_t n = (size_t)min(T, L - s0);
         ring::stage(plane(slot, 0), b + s0, 4 * n, bid + (size_t)K * L, bar);
         for (int c = 0; c < C; ++c) {
             const size_t at = ((size_t)c * K + k) * L + s0;
-            unsigned char* p = plane(slot, 1 + c);
-            ring::stage(p, x + at, 4 * n, x + n_all, bar);
-            ring::stage(p + lay.x_plane, valid + at, n, valid + n_all, bar);
+            ring::stage(plane(slot, 1 + 2 * c), x + at, 4 * n, x + n_all, bar);
+            ring::stage(plane(slot, 2 + 2 * c), valid + at, n, valid + n_all, bar);
         }
     };
+    int nc = 0;                                    // carry lanes (the same in every thread)
     auto consume = [&](int w, int slot) {
-        const int s0 = starts[w];
-        const int n = min(T, L - s0);
-        const int m = starts[w + 1] - s0;
-        const int32_t* bs =
-            (const int32_t*)(plane(slot, 0) + ((uintptr_t)(b + s0) & 15));
-        for (int c = 0; c < C; ++c) {
+        if (shi[2]) return;
+        const int s0 = w * T;
+        const int m = min(T, L - s0), n = nc + m, G = (n + 31) >> 5;
+        const bool last = w == nw - 1;
+        const int32_t* is = (const int32_t*)(plane(slot, 0) + ((uintptr_t)(b + s0) & 15));
+        // column c's x and valid in the carry (xt[2 c], vt[2 c]) and in the
+        // slot (xt[2 c + 1], vt[2 c + 1]), set a window
+        for (int c = threadIdx.x; c < C; c += kRingThreads) {
             const size_t at = ((size_t)c * K + k) * L + s0;
-            unsigned char* p = plane(slot, 1 + c);
-            const float* xs = (const float*)(p + ((uintptr_t)(x + at) & 15));
-            const uint8_t* vs = p + lay.x_plane + ((uintptr_t)(valid + at) & 15);
-            bucket_ladder(ladder, ring::align16(T), bs, xs, vs, centre[c], n, m, out, at,
-                          stat_plane);
+            xt[2 * c] = (unsigned char*)cx(c);
+            xt[2 * c + 1] = plane(slot, 1 + 2 * c) + ((uintptr_t)(x + at) & 15);
+            vt[2 * c] = cv(c);
+            vt[2 * c + 1] = plane(slot, 2 + 2 * c) + ((uintptr_t)(valid + at) & 15);
+        }
+        __syncthreads();
+        // region lane j: the carry, then the slot
+        auto rid = [&](int j) { return j < nc ? cid[j] : is[j - nc]; };
+        auto rx = [&](int c, int j) {
+            const bool s = j >= nc;
+            return ((const float*)xt[2 * c + s])[s ? j - nc : j];
+        };
+        auto rok = [&](int c, int j) {
+            const bool s = j >= nc;
+            return vt[2 * c + s][s ? j - nc : j] != 0;
+        };
+
+        // 1. head and valid bits, the largest d with its head in the segment
+        for (int g = warp; g < G; g += kRingWarps) {
+            const int j = 32 * g + lane;
+            const bool in = j < n;
+            const bool head = in && (j == 0 || rid(j) != rid(j - 1));
+            const uint32_t hm = __ballot_sync(TEMPO_FULL_MASK, head);
+            const uint32_t le = hm & mask_le(lane);
+            const int d = in && le ? lane - (31 - __clz(le)) : 0;
+            const int dm = __reduce_max_sync(TEMPO_FULL_MASK, d);
+            for (int c = 0; c < C; ++c) {
+                const uint32_t vm = __ballot_sync(TEMPO_FULL_MASK, in && rok(c, j));
+                if (lane == 0) vmask[(size_t)c * G_ + g] = vm;
+            }
+            if (lane == 0) {
+                hmask[g] = hm;
+                dseg[g] = dm;
+            }
+        }
+        __syncthreads();
+
+        // 2. the segment scans, kRingEnt segments a lane, a shuffle scan
+        // over the lanes: warp 0 the last head before each segment and D,
+        // warp 1 the tails in and before each, warps 2 .. the valid lanes
+        // before each segment of a column each
+        if (warp == 0) {
+            int lh[kRingEnt];
+            int lmax = -1;
+#pragma unroll
+            for (int u = 0; u < kRingEnt; ++u) {
+                const int g = kRingEnt * lane + u;
+                const uint32_t hm = g < G ? hmask[g] : 0u;
+                lh[u] = hm ? 32 * g + 31 - __clz(hm) : -1;
+                lmax = max(lmax, lh[u]);
+            }
+            int e = lmax;
+            for (int o = 1; o < 32; o <<= 1) {
+                const int a = __shfl_up_sync(TEMPO_FULL_MASK, e, o);
+                if (lane >= o) e = max(e, a);
+            }
+            const int all = __shfl_sync(TEMPO_FULL_MASK, e, 31);
+            e = __shfl_up_sync(TEMPO_FULL_MASK, e, 1);
+            if (lane == 0) e = -1;
+            int D = 0;
+#pragma unroll
+            for (int u = 0; u < kRingEnt; ++u) {
+                const int g = kRingEnt * lane + u;
+                if (g < G) {
+                    const uint32_t hm = hmask[g];
+                    const int end = min(32 * g + 31, n - 1);
+                    hbefore[g] = e;
+                    // d at the segment's last lane, and before its first
+                    // head; other d inside the segment are dseg's
+                    D = max(D, end - (hm ? lh[u] : e));
+                    if (hm && !(hm & 1u)) D = max(D, 32 * g + __ffs(hm) - 2 - e);
+                    D = max(D, dseg[g]);
+                }
+                e = max(e, lh[u]);
+            }
+            D = __reduce_max_sync(TEMPO_FULL_MASK, D);
+            if (lane == 0) {
+                shi[0] = D;
+                shi[1] = all;
+            }
+        } else {
+            // tails (c = -1, warp 1) or column c's valid lanes, summed;
+            // warps 1 .. kRingWarps - 1 take c = warp - 2, then the next
+            for (int c = warp - 2; c < C; c += kRingWarps - 1) {
+                uint32_t bits[kRingEnt];
+                int sum = 0;
+#pragma unroll
+                for (int u = 0; u < kRingEnt; ++u) {
+                    const int g = kRingEnt * lane + u;
+                    bits[u] = 0u;
+                    if (g < G && c >= 0) bits[u] = vmask[(size_t)c * G_ + g];
+                    if (g < G && c < 0) {
+                        bits[u] = (hmask[g] >> 1) | (g + 1 < G ? hmask[g + 1] << 31 : 0u);
+                        if (last && g == G - 1) bits[u] |= 1u << ((n - 1) & 31);
+                        tmask[g] = bits[u];
+                    }
+                    sum += __popc(bits[u]);
+                }
+                int e = sum;
+                for (int o = 1; o < 32; o <<= 1) {
+                    const int a = __shfl_up_sync(TEMPO_FULL_MASK, e, o);
+                    if (lane >= o) e += a;
+                }
+                if (c < 0 && lane == 31) shi[3] = e;
+                e -= sum;
+                int* before = c < 0 ? tbefore : cbefore + (size_t)c * G_;
+#pragma unroll
+                for (int u = 0; u < kRingEnt; ++u) {
+                    const int g = kRingEnt * lane + u;
+                    if (g < G) before[g] = e;
+                    e += __popc(bits[u]);
+                }
+            }
+        }
+        __syncthreads();
+        const int D = shi[0], h_last = shi[1], n_tails = shi[3];
+        if (D >= kSpan) {                          // a bucket past the halo
+            if (threadIdx.x == 0) {
+                long_rows[atomicAdd(n_long, 1)] = k;
+                shi[2] = 1;
+            }
+            return;
+        }
+        const long long o = (long long)s0 - nc;      // row lane of region lane 0
+        auto head_of = [&](int j) {
+            const int g = j >> 5;
+            const uint32_t le = hmask[g] & mask_le(j & 31);
+            return le ? 32 * g + 31 - __clz(le) : hbefore[g];
+        };
+        auto prefix = [&](int c, int t) {             // column c's valid lanes in [0, t]
+            const size_t g = (size_t)c * G_ + (t >> 5);
+            return t < 0 ? 0 : cbefore[g] + __popc(vmask[g] & mask_le(t & 31));
+        };
+
+        // the position of tail qt (from 0) in the region
+        auto tail_at = [&](int qt) {
+            int lo = 0, hi = G;                       // the last g with tbefore[g] <= qt
+            while (hi - lo > 1) {
+                const int mid = (lo + hi) >> 1;
+                if (tbefore[mid] <= qt) lo = mid; else hi = mid;
+            }
+            return 32 * lo + nth_bit(tmask[lo], qt - tbefore[lo]);
+        };
+
+        // 3. in rounds of kPairs (tail, column) pairs, column-major: a
+        // thread a pair forms its bucket's totals into tot, then every lane
+        // of the round's buckets stores its outputs
+        const int work = n_tails * C;
+        for (int p0 = 0; p0 < work; p0 += kPairs) {
+            const int p1 = min(work, p0 + kPairs);
+            for (int q = p0 + threadIdx.x; q < p1; q += kRingThreads) {
+                const int c = q / n_tails;
+                const int t = tail_at(q - c * n_tails);
+                const int nb = t - head_of(t) + 1;
+                const float center = centre[(size_t)c * K + k];
+                // groups of kGroup leaves, r in [kGroup a, kGroup a + kGroup):
+                // each group's node by a static pairwise tree (its loads all
+                // in flight together), then a binary counter over the groups
+                // (lv[kk]: the complete node of 2^kk groups)
+                float lv[kSpanLog2 - kGroupLog2 + 1][4];
+                const int groups = (nb + kGroup - 1) >> kGroupLog2;
+                for (int a = 0; a < groups; ++a) {
+                    const int r0 = a << kGroupLog2;
+                    float lf[kGroup][4];
+#pragma unroll
+                    for (int u = 0; u < kGroup; ++u) {
+                        const bool in = r0 + u < nb;
+                        const bool ok = in && rok(c, t - r0 - u);
+                        const float xv = in ? rx(c, t - r0 - u) : 0.f;
+                        const float xc = ok ? __fsub_rn(xv, center) : 0.f;
+                        lf[u][0] = xc;
+                        lf[u][1] = __fmul_rn(xc, xc);
+                        lf[u][2] = ok ? xv : INF;
+                        lf[u][3] = ok ? xv : -INF;
+                    }
+                    // the node of [r0 + lo, r0 + lo + 2h) from its halves, the
+                    // lower r (later lanes) first, where the upper half exists
+#pragma unroll
+                    for (int h = 1; h < kGroup; h <<= 1) {
+#pragma unroll
+                        for (int lo = 0; lo < kGroup; lo += 2 * h) {
+                            if (r0 + lo + h < nb) node_combine(lf[lo], lf[lo + h]);
+                        }
+                    }
+                    for (int kk = 0;; ++kk) {
+                        if (!((a >> kk) & 1)) {
+#pragma unroll
+                            for (int p = 0; p < 4; ++p) lv[kk][p] = lf[0][p];
+                            break;
+                        }
+                        float own[4];
+#pragma unroll
+                        for (int p = 0; p < 4; ++p) own[p] = lv[kk][p];
+                        node_combine(own, lf[0]);
+#pragma unroll
+                        for (int p = 0; p < 4; ++p) lf[0][p] = own[p];
+                    }
+                }
+                // the complete nodes left, from the highest r down
+                float acc[4];
+                bool started = false;
+                for (int kk = 0; kk <= kSpanLog2 - kGroupLog2; ++kk) {
+                    if ((groups >> kk) & 1) {
+                        if (started) {
+                            float own[4];
+#pragma unroll
+                            for (int p = 0; p < 4; ++p) own[p] = lv[kk][p];
+                            node_combine(own, acc);
+#pragma unroll
+                            for (int p = 0; p < 4; ++p) acc[p] = own[p];
+                        } else {
+#pragma unroll
+                            for (int p = 0; p < 4; ++p) acc[p] = lv[kk][p];
+                            started = true;
+                        }
+                    }
+                }
+                const BucketTotals bt = bucket_totals((float)(prefix(c, t) - prefix(c, t - nb)),
+                                                      acc[0], acc[1], acc[2], acc[3], center);
+                float* tq = tot + (q - p0);
+                tq[0] = bt.mean;
+                tq[kPairs] = bt.cnt;
+                tq[2 * kPairs] = bt.mn;
+                tq[3 * kPairs] = bt.mx;
+                tq[4 * kPairs] = bt.sum;
+                tq[5 * kPairs] = bt.std;
+            }
+            __syncthreads();
+            // the lanes of each column's buckets in the round
+            for (int c = p0 / n_tails; c * n_tails < p1; ++c) {
+                const int ta = max(p0, c * n_tails) - c * n_tails;
+                const int tb = min(p1, (c + 1) * n_tails) - c * n_tails;
+                const int lo = ta == 0 ? 0 : tail_at(ta - 1) + 1, hi = tail_at(tb - 1);
+                const size_t crow = ((size_t)c * K + k) * L;
+                const float* tc = tot + (c * n_tails - p0);
+                for (int j = lo + threadIdx.x; j <= hi; j += kRingThreads) {
+                    const int g = j >> 5;
+                    const int tq = tbefore[g] + __popc(tmask[g] & (mask_le(j & 31) >> 1));
+                    const BucketTotals bt{tc[tq], tc[kPairs + tq], tc[2 * kPairs + tq],
+                                          tc[3 * kPairs + tq], tc[4 * kPairs + tq],
+                                          tc[5 * kPairs + tq]};
+                    bucket_store(bt, rx(c, j), rok(c, j), out, crow + (size_t)(o + j),
+                                 stat_plane);
+                }
+            }
+            __syncthreads();                       // the next round reuses tot
+        }
+
+        // 4. the region's last bucket (at most kSpan lanes) into the carry
+        if (!last) {
+            constexpr int kQ = kSpan / kRingThreads;
+            int32_t ci[kQ];
+#pragma unroll
+            for (int qq = 0; qq < kQ; ++qq) {
+                const int j = h_last + threadIdx.x + qq * kRingThreads;
+                if (j < n) ci[qq] = rid(j);
+            }
+            float cxv[kQ];
+            uint8_t cvv[kQ];
+            for (int c = 0; c < C; ++c) {
+#pragma unroll
+                for (int qq = 0; qq < kQ; ++qq) {
+                    const int j = h_last + threadIdx.x + qq * kRingThreads;
+                    if (j < n) {
+                        cxv[qq] = rx(c, j);
+                        cvv[qq] = rok(c, j) ? 1 : 0;
+                    }
+                }
+                __syncthreads();                   // every read of the old carry is done
+#pragma unroll
+                for (int qq = 0; qq < kQ; ++qq) {
+                    const int j = threadIdx.x + qq * kRingThreads;
+                    if (h_last + j < n) {
+                        if (c == 0) cid[j] = ci[qq];
+                        cx(c)[j] = cxv[qq];
+                        cv(c)[j] = cvv[qq];
+                    }
+                }
+            }
+            nc = n - h_last;
         }
     };
     ring::run(r, nw, load, consume);
@@ -603,8 +866,9 @@ bucket_stats_ring_kernel(const int32_t* __restrict__ bid, const float* __restric
 
 }  // namespace
 
-// longest row the row form takes (stage 2's classes at R = 1)
-extern "C" long long tempo_bucket_max_lanes() { return class_ladder_max_lanes(kPlanes); }
+// longest row the kernel takes: int32 lane indices (the class stages take
+// any length)
+extern "C" long long tempo_bucket_max_lanes() { return INT_MAX; }
 
 // The row form: `planes` is the [6, C, K, L] hand-off, `centre` [C, K],
 // `live` [C, K] zeros, `first_tail` [K, ceil(L / 3072)].
@@ -613,7 +877,7 @@ extern "C" int tempo_bucket_stats(const void* bid, const void* x, const void* va
                                   void* first_tail, int C, int K, int L, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     const int CK = C * K;
-    const int tiles = (L + kTileOut - 1) / kTileOut;
+    const int tiles = (int)(((long long)L + kTileOut - 1) / kTileOut);
     const size_t n = (size_t)CK * L;
     float* pl = (float*)planes;
     const ClassPlanes<kPlanes> p{{pl, pl + n, pl + 2 * n, pl + 3 * n, pl + 4 * n, pl + 5 * n}};
@@ -640,24 +904,32 @@ extern "C" int tempo_bucket_stats(const void* bid, const void* x, const void* va
     return (int)cudaGetLastError();
 }
 
-// Shared memory of the staged form at (C, L, T, depth), for the planner's
+// Shared memory of the staged form at (C, T, depth), for the planner's
 // check on the card.
-extern "C" long long tempo_bucket_ring_smem(int C, int L, int T, int depth) {
-    return (long long)bucket_ring_layout(C, L, T, depth).total;
+extern "C" long long tempo_bucket_ring_smem(int C, int T, int depth) {
+    return (long long)bucket_ring_layout(C, T, depth).total;
 }
 
+// The staged form: bucket_centres into `centre` ([C, K]), then the ring
+// kernel, a block a row; rows with a bucket longer than kSpan lanes go to
+// long_rows ([K]; their count in n_long, zeroed) for the row form.
 extern "C" int tempo_bucket_stats_ring(const void* bid, const void* x, const void* valid,
-                                       void* out, void* long_rows, void* n_long, int C, int K,
-                                       int L, int T, int depth, void* stream) {
-    const size_t smem = bucket_ring_layout(C, L, T, depth).total;
+                                       void* out, void* centre, void* long_rows, void* n_long,
+                                       int C, int K, int L, int T, int depth, void* stream) {
+    const size_t smem = bucket_ring_layout(C, T, depth).total;
     if (depth < 2 || depth > ring::kMaxDepth || T < 32 || T % 32 != 0 ||
-        smem > (size_t)kEmaSmemLimit)
+        kSpan + T > 32 * 32 * kRingEnt || smem > (size_t)kEmaSmemLimit)
         return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(
-        bucket_stats_ring_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaStream_t st = (cudaStream_t)stream;
+    bucket_centres<<<C * K, kEmaThreads, 0, st>>>((const float*)x, (const uint8_t*)valid,
+                                                  (float*)centre, L);
+    cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    bucket_stats_ring_kernel<<<K, kEmaThreads, smem, (cudaStream_t)stream>>>(
-        (const int32_t*)bid, (const float*)x, (const uint8_t*)valid, (float*)out,
-        (int32_t*)long_rows, (int32_t*)n_long, C, K, L, T, depth);
+    err = cudaFuncSetAttribute(bucket_stats_ring_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    bucket_stats_ring_kernel<<<K, kRingThreads, smem, st>>>(
+        (const int32_t*)bid, (const float*)x, (const uint8_t*)valid, (const float*)centre,
+        (float*)out, (int32_t*)long_rows, (int32_t*)n_long, C, K, L, T, depth);
     return (int)cudaGetLastError();
 }

@@ -8,6 +8,7 @@
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #define TEMPO_FULL_MASK 0xffffffffu
@@ -78,25 +79,48 @@ __device__ __forceinline__ int block_scan_max(int v, int* sh /* >= 32 */, int* t
     return v;
 }
 
-constexpr int kEmaThreads = 1024;    // bucket_stats.cu's centre and staged blocks
+constexpr int kEmaThreads = 1024;    // bucket_stats.cu's centre blocks
 // largest dynamic shared memory a block may take on sm_90 (227 KB)
 constexpr int kEmaSmemLimit = 232448;
 
 // ---------------------------------------------------------------------
-// Stage 2 of a tiled Hillis-Steele ladder: cumsum3.cu (three sums), the
-// register ladder below (the EMA's (d, v): ema_ladder.cu, resample_ema.cu)
-// and bucket_stats.cu's row form (the segmented six planes).  By the lemma
-// in cumsum3.cu's header, once a first stage has run the levels of spans
-// < T = 2^kClassTileLog2, the levels of spans T, 2T, ... < L are a ladder
-// along each residue class i mod T.  A block per (row, slab of R residue
-// classes) copies its classes (asynchronous 4-byte copies, runs of R
-// consecutive floats) into shared memory, runs those levels there two at
+// The class stages of a tiled Hillis-Steele ladder: cumsum3.cu (three
+// sums), the register ladder below (the EMA's (d, v): ema_ladder.cu,
+// resample_ema.cu) and bucket_stats.cu's row form (the segmented six
+// planes).  By the lemma in cumsum3.cu's header, once a first stage has
+// run the levels of spans < T = 2^kClassTileLog2, the levels of spans T,
+// 2T, ... < L are a ladder along each residue class i mod T (entry m of
+// class r is lane r + m T, class-index span s the lane span s T).
+//
+// The lemma holds again along a class: after the class-index spans < T2,
+// entry m holds a fixed tree over entries [m - T2 + 1, m].  So a class
+// stage is one of two kinds, picked per row length on the host:
+//
+//   whole: the class's M = ceil(L / S) entries (S the lane stride between
+//     entries) in one block, every remaining level (spans s S < L): the
+//     last stage;
+//   windowed: where a whole class outgrows shared memory (M entries of P
+//     planes in two buffers past kEmaSmemLimit), the class-index spans
+//     < T2 = 2^kClass2Log2 only, on windows of kClassWindow entries whose
+//     first T2 only feed the rest (the identity before the class); the
+//     next stage then runs along the classes mod S T2.
+//
+// So a row of up to class_whole_max(P) * 1024 lanes takes one class
+// stage, as it always has (the same launch, the same bits), and a longer
+// one two or more (three stages in all up to 1.27e9 lanes at six planes,
+// four past that); the levels run are exactly the ladder's, each once.
+//
+// A block per (row, slab of R residue classes) takes its windows in order
+// (one in a whole stage): it copies a window's entries (asynchronous
+// 4-byte copies, runs of R consecutive floats; the halo's from the inputs
+// the window before kept) into shared memory, runs its levels there two at
 // a time where two remain (the same tree: (X o X[-s]) o (X[-2s] o
-// X[-3s]), each partner the identity where it runs off the class),
-// ping-ponging two buffers of P planes, and writes planes kFirstOut ..
-// P-1 back in place.  R is the widest power of two <= T that keeps a slab
-// at kClassSlab entries and kClassSlabBytes of buffers (one class at
-// least), and the buffers within kEmaSmemLimit.
+// X[-3s]), each partner the identity where it runs off the window),
+// ping-ponging two buffers of P planes, and writes planes kFirstOut .. P-1
+// (every plane in a windowed stage: the next stage reads them) of the
+// entries past the halo back in place.  R is the widest power of
+// two <= T that keeps a window at kClassSlab entries and kClassSlabBytes
+// of buffers (one class at least).
 //
 // Op gives kPlanes (P), kFirstOut, ident(p) (the identity's plane p) and
 // combine(a, b) (a set to a after its partner b, every operation rounded
@@ -109,107 +133,154 @@ constexpr int kClassTileLog2 = 10;     // T: residue classes mod 1024
 constexpr int kClassThreads = 256;
 constexpr size_t kClassSlab = 2048;    // entries a block (at least one class)
 constexpr size_t kClassSlabBytes = 49152;   // both buffers (at least one class)
+constexpr int kClass2Log2 = 8;         // T2: a windowed stage's class-index spans < 256
+constexpr int kClassWindow = 1024;     // entries a windowed block, its T2-entry halo included
 
 template <int P>
 struct ClassPlanes {
     float* p[P];
 };
 
-template <class Op>
+// Block b: slab b % slabs of row b / slabs's residue classes mod S =
+// 2^log_s.  It walks windows w = 0 .. wins - 1 in order: window w holds
+// class entries [w (M - halo) - halo, ...), M of them, and its first
+// `halo` come from the inputs the window before kept (the planes are
+// updated in place, so no block reads what another writes); the
+// class-index spans s < span_end with s S < L run.
+template <class Op, bool kWindowed>
 __global__ void __launch_bounds__(kClassThreads)
-class_ladder(ClassPlanes<Op::kPlanes> planes, const int* __restrict__ live, int L, int log_r,
-             int M) {
+class_ladder(ClassPlanes<Op::kPlanes> planes, const int* __restrict__ live, int L, int log_s,
+             int log_r, int M, int wins_, int halo_, int span_end_) {
     constexpr int P = Op::kPlanes;
     extern __shared__ float smem[];
-    const int T = 1 << kClassTileLog2;
+    // a whole stage: one window, no halo, every remaining level
+    const int wins = kWindowed ? wins_ : 1, halo = kWindowed ? halo_ : 0;
+    const int span_end = kWindowed ? span_end_ : INT_MAX;
     const int R = 1 << log_r;
-    const int n = M * R;
-    if (live != nullptr && live[blockIdx.x / (T / R)] == 0) return;
-    const size_t row = (size_t)(blockIdx.x / (T / R)) * L;
-    const int r0 = (int)(blockIdx.x % (T / R)) * R;
-    float* cur = smem;                     // plane p at [p n, (p + 1) n)
-    float* nxt = smem + P * (size_t)n;
-    auto lane_of = [&](int e) {
-        return r0 + (e & (R - 1)) + (long long)(e >> log_r) * T;
-    };
-
-    // asynchronous 4-byte copies, all in flight before the one wait
-    for (int e = threadIdx.x; e < n; e += kClassThreads) {
-        const long long i = lane_of(e);
-#pragma unroll
-        for (int p = 0; p < P; ++p) {
-            if (i < L) __pipeline_memcpy_async(cur + p * n + e, planes.p[p] + row + i,
-                                               sizeof(float));
-            else cur[p * n + e] = Op::ident(p);
-        }
-    }
-    __pipeline_commit();
-    __pipeline_wait_prior(0);
-    __syncthreads();
+    const int n = M * R, nh = halo * R;
+    const unsigned k = blockIdx.x >> (log_s - log_r);
+    if (live != nullptr && live[k] == 0) return;
+    const size_t row = (size_t)k * L;
+    const long long r0 = (long long)(blockIdx.x & ((1u << (log_s - log_r)) - 1)) * R;
+    float* keep = smem + 2 * P * (size_t)n;   // the next window's halo inputs, P nh floats
     // entry f of the buffer, or the identity where take is false
     auto entry = [&](const float* buf, bool take, int f, float out[P]) {
 #pragma unroll
         for (int p = 0; p < P; ++p) out[p] = take ? buf[p * n + f] : Op::ident(p);
     };
-    long long span = 1;
-    while (span * T < L) {
-        const bool two = 2 * span * T < L;
-        const int m1 = (int)span;
+    for (int w = 0; w < wins; ++w) {
+        float* cur = smem;                 // plane p at [p n, (p + 1) n)
+        float* nxt = smem + P * (size_t)n;
+        const long long m0 = (long long)w * (M - halo) - halo;
+        // (a negative class index, in the halo before the class, shifts as
+        // two's complement)
+        auto lane_of = [&](int e) {
+            return r0 + (e & (R - 1)) +
+                   (long long)((unsigned long long)(m0 + (e >> log_r)) << log_s);
+        };
+
+        // asynchronous 4-byte copies, all in flight before the one wait
         for (int e = threadIdx.x; e < n; e += kClassThreads) {
-            const int m = e >> log_r;
-            float a[P], b[P];
-            entry(cur, true, e, a);
-            entry(cur, m >= m1, e - m1 * R, b);
-            Op::combine(a, b);
-            if (two) {
-                entry(cur, m >= 2 * m1, e - 2 * m1 * R, b);
-                if (m >= 2 * m1) {
-                    float c[P];
-                    entry(cur, m >= 3 * m1, e - 3 * m1 * R, c);
-                    Op::combine(b, c);
-                }
-                Op::combine(a, b);
+            const long long i = lane_of(e);
+#pragma unroll
+            for (int p = 0; p < P; ++p) {
+                if (w > 0 && e < nh) cur[p * n + e] = keep[p * nh + e];
+                else if (i >= 0 && i < L)
+                    __pipeline_memcpy_async(cur + p * n + e, planes.p[p] + row + i,
+                                            sizeof(float));
+                else cur[p * n + e] = Op::ident(p);
             }
-#pragma unroll
-            for (int p = 0; p < P; ++p) nxt[p * n + e] = a[p];
         }
+        __pipeline_commit();
+        __pipeline_wait_prior(0);
         __syncthreads();
-        float* t = cur; cur = nxt; nxt = t;
-        span <<= two ? 2 : 1;
-    }
-    for (int e = threadIdx.x; e < n; e += kClassThreads) {
-        const long long i = lane_of(e);
-        if (i < L) {
+        if (w + 1 < wins) {
+            for (int e = threadIdx.x; e < nh; e += kClassThreads) {
 #pragma unroll
-            for (int p = Op::kFirstOut; p < P; ++p) planes.p[p][row + i] = cur[p * n + e];
+                for (int p = 0; p < P; ++p) keep[p * nh + e] = cur[p * n + n - nh + e];
+            }
         }
+        long long span = 1;
+        while (span < span_end && (span << log_s) < L) {
+            const bool two = 2 * span < span_end && (span << (log_s + 1)) < L;
+            const int m1 = (int)span;
+            for (int e = threadIdx.x; e < n; e += kClassThreads) {
+                const int m = e >> log_r;
+                float a[P], b[P];
+                entry(cur, true, e, a);
+                entry(cur, m >= m1, e - m1 * R, b);
+                Op::combine(a, b);
+                if (two) {
+                    entry(cur, m >= 2 * m1, e - 2 * m1 * R, b);
+                    if (m >= 2 * m1) {
+                        float c[P];
+                        entry(cur, m >= 3 * m1, e - 3 * m1 * R, c);
+                        Op::combine(b, c);
+                    }
+                    Op::combine(a, b);
+                }
+#pragma unroll
+                for (int p = 0; p < P; ++p) nxt[p * n + e] = a[p];
+            }
+            __syncthreads();
+            float* t = cur; cur = nxt; nxt = t;
+            span <<= two ? 2 : 1;
+        }
+        for (int e = threadIdx.x; e < n; e += kClassThreads) {
+            const long long i = lane_of(e);
+            if (i >= 0 && i < L && e >= nh) {
+#pragma unroll
+                for (int p = Op::kFirstOut; p < P; ++p) planes.p[p][row + i] = cur[p * n + e];
+                if (halo > 0) {                // the next stage reads every plane
+#pragma unroll
+                    for (int p = 0; p < Op::kFirstOut; ++p)
+                        planes.p[p][row + i] = cur[p * n + e];
+                }
+            }
+        }
+        __syncthreads();                   // the next window's copies reuse the buffers
     }
 }
 
-// longest row stage 2 takes over P planes (its classes at R = 1)
-inline long long class_ladder_max_lanes(int P) {
-    return (long long)(kEmaSmemLimit / (2 * P * sizeof(float))) << kClassTileLog2;
+// most entries of P planes a whole-class stage holds (at R = 1)
+inline long long class_whole_max(int P) {
+    return (long long)(kEmaSmemLimit / (2 * P * sizeof(float)));
 }
 
-// Stage 2 over K rows of L > T lanes, on the stream after stage 1.
+// The class stages over K rows of L > T lanes, on the stream after stage
+// 1: windowed stages while a whole class outgrows shared memory, then the
+// whole-class stage.
 template <class Op>
 inline cudaError_t launch_class_ladder(ClassPlanes<Op::kPlanes> planes, int K, int L,
                                        cudaStream_t st, const int* live = nullptr) {
     constexpr size_t kEntry = 2 * Op::kPlanes * sizeof(float);   // both buffers
-    const int M = (L + (1 << kClassTileLog2) - 1) >> kClassTileLog2;
-    int log_r = kClassTileLog2;
-    while (log_r > 0 && (((size_t)M << log_r) > kClassSlab
-                         || kEntry * ((size_t)M << log_r) > kClassSlabBytes))
-        --log_r;
-    const size_t smem = kEntry * ((size_t)M << log_r);
-    if (smem > (size_t)kEmaSmemLimit) return cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(class_ladder<Op>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return err;
-    class_ladder<Op><<<(unsigned)((size_t)K << (kClassTileLog2 - log_r)), kClassThreads, smem,
-                       st>>>(planes, live, L, log_r, M);
-    return cudaGetLastError();
+    const int whole = (int)class_whole_max(Op::kPlanes);
+    for (int log_s = kClassTileLog2; (1LL << log_s) < L; log_s += kClass2Log2) {
+        const long long S = 1LL << log_s;
+        const long long Mall = (L + S - 1) / S;
+        const bool last = Mall <= whole;
+        const int M = last ? (int)Mall : kClassWindow;
+        const int halo = last ? 0 : 1 << kClass2Log2;
+        const long long wins = last ? 1 : (Mall + (M - halo) - 1) / (M - halo);
+        int log_r = kClassTileLog2;
+        while (log_r > 0 && (((size_t)M << log_r) > kClassSlab
+                             || kEntry * ((size_t)M << log_r) > kClassSlabBytes))
+            --log_r;
+        // both buffers, and the kept halo of a windowed stage
+        const size_t smem = kEntry * ((size_t)M << log_r)
+                            + sizeof(float) * Op::kPlanes * ((size_t)halo << log_r);
+        const auto kernel = last ? class_ladder<Op, false> : class_ladder<Op, true>;
+        cudaError_t err = cudaFuncSetAttribute(kernel,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem);
+        if (err != cudaSuccess) return err;
+        const size_t blocks = (size_t)K * (size_t)(S >> log_r);
+        kernel<<<(unsigned)blocks, kClassThreads, smem, st>>>(
+            planes, live, L, log_s, log_r, M, (int)wins, halo, 1 << kClass2Log2);
+        err = cudaGetLastError();
+        if (err != cudaSuccess || last) return err;
+    }
+    return cudaSuccess;
 }
 
 // ---------------------------------------------------------------------
@@ -245,7 +316,7 @@ inline cudaError_t launch_class_ladder(ClassPlanes<Op::kPlanes> planes, int K, i
 //
 // That is 8 bytes a lane of shared memory: rows up to kRowMax = 16,384
 // lanes (E = 16) run so in one launch (HHAR's 12,760 lanes, 102 KB).
-// Longer rows take two launches by the lemma of cumsum3.cu (after the
+// Longer rows take two launches or more by the lemma of cumsum3.cu (after the
 // levels of spans < T, lane i holds a fixed tree over [i - T + 1, i]):
 //
 //   stage 1 (ema_block, windows): a block per (row, window of kLadderWindow
@@ -253,12 +324,12 @@ inline cudaError_t launch_class_ladder(ClassPlanes<Op::kPlanes> planes, int K, i
 //     phases over the levels of spans < T; it writes v to out and the
 //     window's d to a [K, L] plane the wrapper allocates (4 bytes a lane,
 //     written once and read once: no level runs in global memory).
-//   stage 2: class_ladder above over the (d, v) planes (a block per (row,
-//     slab of residue classes mod T), the levels of spans T, 2T, ... < L
-//     in shared memory two at a time where two remain, 16 bytes an entry;
-//     v written back).  A row past 14,528 * 1024 = 14,876,672 lanes does
-//     not fit even at one class a block and is refused (the wrappers
-//     raise before the launch).
+//   class stages: class_ladder above over the (d, v) planes (a block per
+//     (row, slab of residue classes mod T), the levels of spans T, 2T, ...
+//     < L in shared memory two at a time where two remain, 16 bytes an
+//     entry; v written back): one stage up to 14,528 * 1024 = 14,876,672
+//     lanes, a windowed stage and a stage along the classes mod 2^18
+//     past it (every int32 row length).
 // ---------------------------------------------------------------------
 
 constexpr int kLadderThreads = 512;
@@ -452,7 +523,8 @@ inline cudaError_t launch_ema_block(unsigned blocks, size_t smem, cudaStream_t s
 }
 
 // The ladder over K rows of L lanes into out: one launch up to kRowMax
-// lanes, else stage 1 (the windows' d into dplane, [K, L]) and stage 2.
+// lanes, else stage 1 (the windows' d into dplane, [K, L]) and the class
+// stages.
 template <class Fill>
 inline cudaError_t launch_ema_ladder(Fill fill, float* out, float* dplane, int K, int L,
                                      cudaStream_t st) {
@@ -464,7 +536,7 @@ inline cudaError_t launch_ema_ladder(Fill fill, float* out, float* dplane, int K
     }
     if (dplane == nullptr) return cudaErrorInvalidValue;
     const int T = 1 << kClassTileLog2;
-    const int tiles = (L + (kLadderWindow - T) - 1) / (kLadderWindow - T);
+    const int tiles = (int)(((long long)L + (kLadderWindow - T) - 1) / (kLadderWindow - T));
     const size_t smem1 = 2 * sizeof(float) * (size_t)kLadderWindow;
     cudaError_t err = launch_ema_block<8>((unsigned)((size_t)K * tiles), smem1, st, fill, out,
                                           dplane, L, kLadderWindow / 32, tiles, T, T);

@@ -52,9 +52,9 @@
 //     over the three planes (a block per (row, slab of residue classes),
 //     the levels of spans T, 2T, ... < L in shared memory two at a time
 //     where two remain, 24 bytes an entry, written back in place); a row
-//     longer than 9,685 * 1024 = 9,917,440 lanes does not fit even at one
-//     class a block and is refused (the wrapper raises before the
-//     launch).
+//     longer than 9,685 * 1024 = 9,917,440 lanes, whose class outgrows
+//     shared memory, takes it windowed and a third stage along the classes
+//     mod 2^18 (every int32 row length).
 //
 // Traffic at phase F's [128, 102056]: x and valid read about 1.33 times
 // (the halo), the sums written, read and written again: about 43 bytes
@@ -242,8 +242,9 @@ struct SumPlanes {
 
 }  // namespace
 
-// longest row the two stages take (stage 2's classes at R = 1)
-extern "C" long long tempo_cumsum3_max_lanes() { return class_ladder_max_lanes(3); }
+// longest row the kernel takes: int32 lane indices (the class stages take
+// any length)
+extern "C" long long tempo_cumsum3_max_lanes() { return INT_MAX; }
 
 extern "C" int tempo_cumsum3(const void* x, const void* valid, void* s1, void* s2, void* cnt,
                              int K, int L, void* stream) {
@@ -252,7 +253,8 @@ extern "C" int tempo_cumsum3(const void* x, const void* valid, void* s1, void* s
     const int t = min(levels, kClassTileLog2);
     // a row past 1024 lanes takes tiles of 3072 outputs, one a block;
     // shorter rows share a block, kSegs / S of them
-    const int tiles = L > (1 << t) ? (L + (kSegs * 32 - (1 << t)) - 1) / (kSegs * 32 - (1 << t)) : 1;
+    const int tiles = L > (1 << t)
+        ? (int)(((long long)L + (kSegs * 32 - (1 << t)) - 1) / (kSegs * 32 - (1 << t))) : 1;
     const int S = L > 1024 ? kSegs : max(1, (1 << t) >> 5);
     const size_t blocks = L > 1024 ? (size_t)K * tiles : ((size_t)K + kSegs / S - 1) / (kSegs / S);
     cumsum3_tiles<<<(unsigned)blocks, kThreads1, 0, (cudaStream_t)stream>>>(

@@ -21,8 +21,9 @@
 // registers and one shared-memory transpose (8 bytes a lane; HHAR's 12,760
 // lanes, 102 KB); longer rows take two launches, stage 1 on windows with a
 // 1024-lane halo writing v and a [K, L] d plane the wrapper allocates,
-// stage 2 along the residue classes mod 1024.  Rows past 14,876,672 lanes
-// are refused (the wrapper raises before the launch).
+// stage 2 along the residue classes mod 1024; past 14,876,672 lanes, where
+// a class outgrows shared memory, stage 2 runs windowed and a third stage
+// along the classes mod 2^18 finishes the ladder (every int32 row length).
 //
 // Traffic at phase F's [128, 102056]: x and valid read about 1.14 times
 // (the halo), v and d written, read and v written again: about 26 bytes a
@@ -49,8 +50,9 @@ struct EmaFill {
 // rows the one-launch form takes; longer rows need the wrapper's d plane
 extern "C" long long tempo_ema_row_max() { return kRowMax; }
 
-// longest row the two stages take (stage 2's classes at R = 1)
-extern "C" long long tempo_ema_max_lanes() { return class_ladder_max_lanes(2); }
+// longest row the kernel takes: int32 lane indices (the class stages take
+// any length)
+extern "C" long long tempo_ema_max_lanes() { return INT_MAX; }
 
 extern "C" int tempo_ema_ladder(const void* x, const void* valid, float alpha, void* out,
                                 void* dplane, int K, int L, void* stream) {

@@ -24,7 +24,7 @@
 //       32,768 lanes) sums its row's valid x * scale in a fixed order
 //       (thread t: the groups of four lanes t, t + T, ... lane by lane,
 //       16-byte loads where aligned; then block_sum) into a [C, K] plane,
-//       and zeroes the row's clip count.  Both forms read it.
+//       and zeroes the row's clip tally.  Both forms read it.
 //   (b) Each lane's values a walk needs are formed once, into a window
 //       in shared memory: the centred value c (0 where invalid), c*c with
 //       the validity in its sign bit (-0.0 where invalid: a valid c*c is
@@ -60,9 +60,11 @@
 //   window of at most kRowWindow lanes holds the tile and its halo
 //   (mb + 1 lanes behind, ma + 1 ahead) when they fit; a wider halo is
 //   walked over several windows, each refilled from global memory with
-//   16-byte loads.  A row's tiles add their clip counts into its float
-//   `clipped` by atomics: integers below 2^24 add exactly in any order
-//   (the wrapper refuses longer rows).
+//   16-byte loads.  A row's tiles count their clipped lanes in integers:
+//   a warp that clipped adds its count to the row's uint32 tally and
+//   raises the row's float `clipped` to the new total rounded once (an
+//   atomicMax on its bits, whose order is the value's for floats >= 0),
+//   so `clipped` ends as the exact count rounded once, whatever the order.
 // * the staged form (range_ring_kernel): a block of T / kLanes threads
 //   per series row walks (column, lane tile) items; each tile's keys, x
 //   and valid over the tile and its halo stream through ring.cuh's
@@ -160,13 +162,14 @@ __device__ __forceinline__ float scale_of(const float* scale, int c) {
 __global__ void __launch_bounds__(kCentreThreads)
 range_centres(const float* __restrict__ x, const uint8_t* __restrict__ valid,
               const float* __restrict__ scale, float* __restrict__ centre,
-              float* __restrict__ clipped, int K, int L) {
+              float* __restrict__ clipped, unsigned* __restrict__ tally, int K, int L) {
     __shared__ float shf[32];
     const size_t crow = (size_t)blockIdx.x * L;
     const float c = range_center(x + crow, valid + crow, scale_of(scale, blockIdx.x / K), L, shf);
     if (threadIdx.x == 0) {
         centre[blockIdx.x] = c;
         clipped[blockIdx.x] = 0.f;
+        if (tally != nullptr) tally[blockIdx.x] = 0u;
     }
 }
 
@@ -424,7 +427,8 @@ __global__ void __launch_bounds__(kRowThreads, 4)
 range_rows(const int32_t* __restrict__ secs, const float* __restrict__ x,
            const uint8_t* __restrict__ valid, const float* __restrict__ scale,
            const float* __restrict__ centre, float* __restrict__ out,
-           float* __restrict__ clipped, RangeParams q, int C, int K, int nt, int cap) {
+           float* __restrict__ clipped, unsigned* __restrict__ tally, RangeParams q, int C,
+           int K, int nt, int cap) {
     extern __shared__ float4 win_sm[];
     const int L = q.L;
     const int tile = blockIdx.x % nt;
@@ -511,7 +515,12 @@ range_rows(const int32_t* __restrict__ secs, const float* __restrict__ x,
         nclip = t.finish(q, center, out, crow, sp);
     }
     for (int o = 16; o > 0; o >>= 1) nclip += __shfl_down_sync(TEMPO_FULL_MASK, nclip, o);
-    if ((threadIdx.x & 31) == 0 && nclip) atomicAdd(clipped + ck, (float)nclip);
+    if ((threadIdx.x & 31) == 0 && nclip) {
+        // the running count rounded once: float's order is its bits' for
+        // values >= 0, so the largest is the total's
+        const unsigned now = atomicAdd(tally + ck, (unsigned)nclip) + (unsigned)nclip;
+        atomicMax((int*)clipped + ck, __float_as_int((float)now));
+    }
 }
 
 // Shared memory of the staged form, in bytes (ops/stream.range_ring_bytes
@@ -610,10 +619,10 @@ range_ring_kernel(const int32_t* __restrict__ secs, const float* __restrict__ x,
 }
 
 cudaError_t launch_centres(const void* x, const void* valid, const void* scale, void* centre,
-                           void* clipped, int C, int K, int L, cudaStream_t st) {
+                           void* clipped, void* tally, int C, int K, int L, cudaStream_t st) {
     range_centres<<<C * K, L > 32768 ? kCentreThreads : 256, 0, st>>>(
         (const float*)x, (const uint8_t*)valid, (const float*)scale, (float*)centre,
-        (float*)clipped, K, L);
+        (float*)clipped, (unsigned*)tally, K, L);
     return cudaGetLastError();
 }
 
@@ -622,21 +631,27 @@ cudaError_t launch_centres(const void* x, const void* valid, const void* scale, 
 // Lanes a row-form window holds at most (the CPU mirror's window_cap).
 extern "C" long long tempo_range_row_window() { return kRowWindow; }
 
+// Longest row the kernel takes: a lane plus a bound (at most L) stays an
+// int32.
+extern "C" long long tempo_range_max_lanes() { return 1LL << 30; }
+
+// The row form: `tally` is a [C, K] int32 scratch (zeroed by the centres).
 extern "C" int tempo_range_stats(const void* secs, const void* x, const void* valid,
                                  const void* scale, void* out, void* clipped, void* centre,
-                                 int w, int wa, int mb, int ma, int C, int K, int L,
-                                 void* stream) {
+                                 void* tally, int w, int wa, int mb, int ma, int C, int K,
+                                 int L, void* stream) {
     const cudaStream_t st = (cudaStream_t)stream;
-    cudaError_t err = launch_centres(x, valid, scale, centre, clipped, C, K, L, st);
+    cudaError_t err = launch_centres(x, valid, scale, centre, clipped, tally, C, K, L, st);
     if (err != cudaSuccess) return (int)err;
     const RangeParams q = range_params(w, wa, mb, ma, L);
     const int nt = (L + kRowTile - 1) / kRowTile;
     const long long want = (long long)kRowTile + q.hb + q.ha;
     const int cap = (int)(want < kRowWindow ? want : kRowWindow);
     const size_t smem = 16 * (size_t)win_entries(cap);
-    range_rows<<<C * K * nt, kRowThreads, smem, st>>>(
+    range_rows<<<(unsigned)((size_t)C * K * nt), kRowThreads, smem, st>>>(
         (const int32_t*)secs, (const float*)x, (const uint8_t*)valid, (const float*)scale,
-        (const float*)centre, (float*)out, (float*)clipped, q, C, K, nt, cap);
+        (const float*)centre, (float*)out, (float*)clipped, (unsigned*)tally, q, C, K, nt,
+        cap);
     return (int)cudaGetLastError();
 }
 
@@ -654,7 +669,7 @@ extern "C" int tempo_range_stats_ring(const void* secs, const void* x, const voi
         T > kRowTile || smem > (size_t)kEmaSmemLimit)
         return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;
-    cudaError_t err = launch_centres(x, valid, scale, centre, clipped, C, K, L, st);
+    cudaError_t err = launch_centres(x, valid, scale, centre, clipped, nullptr, C, K, L, st);
     if (err != cudaSuccess) return (int)err;
     err = cudaFuncSetAttribute(range_ring_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);

@@ -24,7 +24,7 @@ row form; the private keyword ``_form`` ("row" | "ring") forces one,
 for tests and ``chip_smoke.py``.  The CPU mirrors run each form's
 arithmetic in tensor code, so the CPU tests can pin its bits against the
 plain version: :func:`bucket_stats_windowed` the staged bucket form's
-tile-local ladders, :func:`bucket_stats_tiled_plain` the bucket row
+windows and carries, :func:`bucket_stats_tiled_plain` the bucket row
 form's tiled forward ladder and tail gather, :func:`resample_ema_tiled_plain`
 the resample EMA's register ladder (both forms).  The card's main path
 uses none of them.
@@ -32,7 +32,7 @@ uses none of them.
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -76,12 +76,14 @@ def resample_ema_plain(secs: torch.Tensor, x: torch.Tensor,
 def resample_ema_tiled_plain(secs: torch.Tensor, x: torch.Tensor,
                              valid: torch.Tensor, step, alpha: float,
                              scale=None, tile_log2: int = 10,
-                             window_log2: int = 13, row_log2: int = 14):
+                             window_log2: int = 13, row_log2: int = 14,
+                             class_tile_log2=None):
     """:func:`resample_ema_plain`'s (res, ema) by the kernel's launches,
     bit for bit: res as the fill writes it, the EMA over the bucket heads
     by the register ladder's forms (``scan.ema_tiled_plain``: one launch
     up to 2^``row_log2`` lanes, else a tile-local stage over windows and
-    a ladder along each residue class mod 2^``tile_log2``)."""
+    the class stages along the residue classes mod 2^``tile_log2``,
+    ``class_tile_log2`` their cut)."""
     step = _integral_step(step)
     xs = x * torch.as_tensor(1.0 if scale is None else scale, dtype=x.dtype,
                              device=x.device)
@@ -89,7 +91,7 @@ def resample_ema_tiled_plain(secs: torch.Tensor, x: torch.Tensor,
     res = torch.where(head, xs, torch.full((), float("nan"), dtype=x.dtype,
                                            device=x.device))
     return res, scan.ema_tiled_plain(xs, head, alpha, tile_log2, window_log2,
-                                     row_log2)
+                                     row_log2, class_tile_log2)
 
 
 def resample_ema_cuda(secs: torch.Tensor, x: torch.Tensor,
@@ -98,8 +100,8 @@ def resample_ema_cuda(secs: torch.Tensor, x: torch.Tensor,
     """Launch the fused kernel on int32 secs, float32 x and bool valid,
     all [K, L] on one CUDA device: the staged form where
     ``stream.resample_plan`` fits, else the row form (one launch up to
-    ``cuda_lib.ema_row_max()`` lanes, two past it, the second reading the
-    first's d plane)."""
+    ``cuda_lib.ema_row_max()`` lanes, two or more past it, the class
+    stages reading the first's d plane)."""
     step = _integral_step(step)
     if x.dtype != torch.float32 or x.dim() != 2:
         raise TypeError(f"resample_ema kernel takes float32 [K, L], got "
@@ -118,7 +120,8 @@ def resample_ema_cuda(secs: torch.Tensor, x: torch.Tensor,
         return res, ema
     if L > cuda_lib.ema_max_lanes():
         raise ValueError(f"resample_ema kernel takes rows of at most "
-                         f"{cuda_lib.ema_max_lanes()} lanes, got {L}")
+                         f"{cuda_lib.ema_max_lanes()} lanes (int32 lane "
+                         f"indices), got {L}")
     plan = stream.pick("resample_ema", stream.resample_plan(L), _form,
                        f"L={L}")
     if plan is not None:
@@ -235,19 +238,15 @@ def _bucket_outputs(cnt, s1, s2, mn, mx, center, xs, valids):
     }
 
 
-def _bucket_ladder(bid, xs, valids, center, stop_early: bool = False):
+def _bucket_ladder(bid, xs, valids, center):
     """The two ladders and the outputs over the lanes given, around the
-    given centre ([C, K, 1]).  ``stop_early`` ends each ladder after the
-    first pass that leaves every flag set (the staged kernel's stop):
-    the passes after it would only copy."""
+    given centre ([C, K, 1])."""
     L = xs.shape[-1]
     planes = _bucket_fill(bid, xs, valids, center)
     span = 1
     while span < L:
         planes = _seg_level(planes, span, _shift_back)
         span *= 2
-        if stop_early and bool((planes[0] > 0).all()):
-            break
     g = _bucket_flags(bid, xs.dtype)[1]
     planes = planes[1:]
     span = 1
@@ -256,8 +255,6 @@ def _bucket_ladder(bid, xs, valids, center, stop_early: bool = False):
                   for p in planes]
         g = torch.maximum(g, _shift_fwd(g, span, 0.0))
         span *= 2
-        if stop_early and bool((g > 0).all()):
-            break
     return _bucket_outputs(*planes, center, xs, valids)
 
 
@@ -271,45 +268,117 @@ def bucket_stats_plain(bid: torch.Tensor, xs: torch.Tensor,
     return _bucket_ladder(bid, xs, valids, _bucket_center(xs, valids))
 
 
-def bucket_windows(bid_row: torch.Tensor, tile: int) -> Optional[List[int]]:
-    """The staged bucket form's window starts over one row of ids: 0,
-    then repeatedly the last bucket head in (s, s + tile], until a window
-    reaches the row's end; None where a bucket is longer than ``tile``
-    (the kernel leaves that row to the row form)."""
+def _tail_outputs(bid, planes, center, xs, valids):
+    """The seven outputs of every lane from the five value planes
+    (count, s1, s2, min, max) at its bucket's tail (the lane before the
+    next id change), as the kernels read them."""
+    C, K, L = xs.shape
+    lanes = torch.arange(L, device=xs.device).expand(K, L)
+    tail = torch.where(_bucket_flags(bid, xs.dtype)[1] > 0, lanes, L)
+    tail = torch.cummin(tail.flip(-1), -1).values.flip(-1).expand(C, K, L)
+    return _bucket_outputs(*(torch.gather(p, -1, tail) for p in planes),
+                           center, xs, valids)
+
+
+def bucket_windows(bid_row: torch.Tensor, tile: int,
+                   span: int = stream.BUCKET_SPAN
+                   ) -> Optional[List[Tuple[int, int, int]]]:
+    """The staged bucket form's regions over one row of ids: window w
+    takes lanes [w tile, (w + 1) tile) after the carry, the lanes of the
+    previous window's last bucket, and outputs the lanes before its
+    region's last bucket head (every lane in the row's last window).
+    Returns (start, out_end, end) for each window, or None where a bucket
+    is longer than ``span`` lanes (the kernel leaves that row to the row
+    form)."""
     L = int(bid_row.shape[0])
-    starts, s = [0], 0
-    while s + tile < L:
-        seg = bid_row[s:s + tile + 1]
-        heads = torch.nonzero(seg[1:] != seg[:-1]).flatten()
-        if heads.numel() == 0:
-            return None
-        s += int(heads.max()) + 1
-        starts.append(s)
-    return starts
+    head = torch.ones(L, dtype=torch.bool, device=bid_row.device)
+    head[1:] = bid_row[1:] != bid_row[:-1]
+    heads = torch.nonzero(head).flatten()
+    if int(torch.diff(heads, append=heads.new_tensor([L])).max()) > span:
+        return None
+    regions, start = [], 0
+    nw = -(-L // tile)
+    for w in range(nw):
+        end = min(L, (w + 1) * tile)
+        out_end = end if w == nw - 1 else int(heads[heads < end].max())
+        regions.append((start, out_end, end))
+        start = out_end
+    return regions
+
+
+def _tail_trees(bid_r, xs_r, valids_r, center):
+    """The forward ladder's five value planes at each bucket's tail in one
+    region ([1, n] ids, [C, 1, n] values), by the tree the staged kernel
+    evaluates: r = 0 .. n_b - 1 over lanes t - r, a binary counter of
+    complete pairwise nodes (the node of lower r, the later lanes, first
+    in each combine), then the remaining nodes folded from the highest r
+    down (the kernel takes the leaves eight at a time, the same tree).
+    Returns the planes at every lane's tail, equal to the segmented
+    Hillis-Steele ladder's values there bit for bit."""
+    C, _, n = xs_r.shape
+    dev = xs_r.device
+    flag, cnt, s1, s2, mn, mx = _bucket_fill(bid_r, xs_r, valids_r, center)
+    lanes = torch.arange(n, device=dev)
+    tail = torch.cat([bid_r[0, 1:] != bid_r[0, :-1],
+                      torch.ones(1, dtype=torch.bool, device=dev)])
+    tails = lanes[tail]                                     # [B]
+    heads = lanes[flag[0, 0] > 0]
+    length = tails - heads + 1
+    ops = [torch.add, torch.add, torch.add, torch.minimum, torch.maximum]
+    leaf = [cnt, s1, s2, mn, mx]
+    lv = {}
+    for r in range(int(length.max())):
+        on = r < length
+        at = (tails - r).clamp(min=0)
+        cur = [p[:, 0, at] for p in leaf]                   # [C, B]
+        k = 0
+        while (r >> k) & 1:
+            cur = [op(a, c) for op, a, c in zip(ops, lv[k], cur)]
+            k += 1
+        lv[k] = [torch.where(on, c, old) for c, old in zip(
+            cur, lv.get(k, cur))]
+    acc, started = None, torch.zeros_like(length, dtype=torch.bool)
+    for k in sorted(lv):
+        has = ((length >> k) & 1) > 0
+        if acc is None:
+            acc = lv[k]
+        else:
+            acc = [torch.where(has & started, op(a, c),
+                               torch.where(has, a, c))
+                   for op, a, c in zip(ops, lv[k], acc)]
+        started = started | has
+    which = torch.cumsum(torch.cat([torch.zeros(1, dtype=torch.long,
+                                                device=dev),
+                                    tail[:-1].long()]), 0)  # bucket of lane
+    return [p[:, None, which] for p in acc]
 
 
 def bucket_stats_windowed(bid: torch.Tensor, xs: torch.Tensor,
-                          valids: torch.Tensor, tile: int):
+                          valids: torch.Tensor, tile: int,
+                          span: int = stream.BUCKET_SPAN):
     """The staged bucket form's arithmetic in tensor code: each row's
-    centre over the whole row, then the ladders over windows of at most
-    ``tile`` lanes that start at bucket heads (:func:`bucket_windows`),
-    each window writing the lanes up to the next start and stopping its
-    ladders once every lane is complete; a row with a bucket longer than
-    ``tile`` takes the whole-row ladder.  Tests hold it bitwise against
-    :func:`bucket_stats_plain`."""
+    centre over the whole row, then over each region of
+    :func:`bucket_windows` every bucket's forward-ladder value at its tail
+    by the kernel's binary counter (:func:`_tail_trees`), and the outputs
+    of the region's lanes before ``out_end``; a row with a bucket longer
+    than ``span`` takes the whole-row ladder (the row form).  Tests hold
+    it bitwise against :func:`bucket_stats_plain`."""
     C, K, L = xs.shape
     center = _bucket_center(xs, valids)
     out = {k: torch.empty_like(xs) for k in BUCKET_STATS}
     for k in range(K):
-        starts = bucket_windows(bid[k], tile)
-        cuts = [(0, L, L)] if starts is None else [
-            (s, e, min(tile, L - s)) for s, e in zip(starts, starts[1:] + [L])]
-        for s, e, n in cuts:
-            got = _bucket_ladder(bid[k:k + 1, s:s + n],
-                                 xs[:, k:k + 1, s:s + n],
-                                 valids[:, k:k + 1, s:s + n],
-                                 center[:, k:k + 1],
-                                 stop_early=starts is not None)
+        regions = bucket_windows(bid[k], tile, span)
+        if regions is None:
+            got = _bucket_ladder(bid[k:k + 1], xs[:, k:k + 1],
+                                 valids[:, k:k + 1], center[:, k:k + 1])
+            for name in BUCKET_STATS:
+                out[name][:, k] = got[name][:, 0]
+            continue
+        for s, e, end in regions:
+            b_r, x_r, v_r = (bid[k:k + 1, s:end], xs[:, k:k + 1, s:end],
+                             valids[:, k:k + 1, s:end])
+            planes = _tail_trees(b_r, x_r, v_r, center[:, k:k + 1])
+            got = _bucket_outputs(*planes, center[:, k:k + 1], x_r, v_r)
             for name in BUCKET_STATS:
                 out[name][:, k, s:e] = got[name][:, 0, :e - s]
     return out
@@ -317,17 +386,19 @@ def bucket_stats_windowed(bid: torch.Tensor, xs: torch.Tensor,
 
 def bucket_stats_tiled_plain(bid: torch.Tensor, xs: torch.Tensor,
                              valids: torch.Tensor, tile_log2: int = 10,
-                             center: Optional[torch.Tensor] = None):
+                             center: Optional[torch.Tensor] = None,
+                             class_tile_log2=None):
     """:func:`bucket_stats_plain`'s outputs by the row form's launches,
     bit for bit, around ``center`` ([C, K]; each row's centre where None):
     with T = 2^``tile_log2``, the forward ladder's levels of spans < T on
     each tile of T lanes from the tile and the T lanes before it alone
-    (the identity before the row's start), then the levels of spans T,
-    2T, ... < L as a ladder along each residue class ``i mod T`` (the
-    identity where the class index m < span / T); then each lane reads
-    the five planes at its bucket's tail (the lane before the next id
-    change) and forms the outputs.  Levels past the ladder's own (spans
-    >= L) leave every lane as it is: its flag is set by then."""
+    (the identity before the row's start), then the class stages
+    (``scan.class_stages``, ``class_tile_log2`` their cut), the levels of
+    spans T, 2T, ... < L as a ladder along each residue class ``i mod T``
+    (the identity where the class index m < span / T); then each lane
+    reads the five planes at its bucket's tail (the lane before the next
+    id change) and forms the outputs.  Levels past the ladder's own
+    (spans >= L) leave every lane as it is: its flag is set by then."""
     C, K, L = xs.shape
     dt, dev = xs.dtype, xs.device
     center = (_bucket_center(xs, valids) if center is None
@@ -345,18 +416,16 @@ def bucket_stats_tiled_plain(bid: torch.Tensor, xs: torch.Tensor,
     while span < T:
         wins = _seg_level(wins, span, _shift_back)
         span *= 2
-    z = [w[..., T:] for w in wins]                  # [C, K, nt, T]
-    span = 1
-    while span * T < L:
-        z = _seg_level(z, span, lambda a, s, i: _shift_back(
-            a.transpose(-1, -2), s, i).transpose(-1, -2))
-        span *= 2
-    lanes = torch.arange(L, device=dev).expand(K, L)
-    tail = torch.where(_bucket_flags(bid, dt)[1] > 0, lanes, L)
-    tail = torch.cummin(tail.flip(-1), -1).values.flip(-1).expand(C, K, L)
-    planes = [torch.gather(p.reshape(C, K, nt * T)[..., :L], -1, tail)
-              for p in z[1:]]
-    return _bucket_outputs(*planes, center, xs, valids)
+    planes = [w[..., T:].reshape(C, K, nt * T)[..., :L] for w in wins]
+
+    def levels(z, end):
+        span = 1
+        while span < end:
+            z = _seg_level(z, span, _shift_back)
+            span *= 2
+        return z
+    planes = scan.class_stages(planes, idents, L, T, levels, class_tile_log2)
+    return _tail_outputs(bid, planes[1:], center, xs, valids)
 
 
 def _bucket_row_form(bid, xs, valids, out) -> torch.Tensor:
@@ -365,7 +434,8 @@ def _bucket_row_form(bid, xs, valids, out) -> torch.Tensor:
     C, K, L = xs.shape
     if L > cuda_lib.bucket_max_lanes():
         raise ValueError(f"bucket-stats kernel takes rows of at most "
-                         f"{cuda_lib.bucket_max_lanes()} lanes, got {L}")
+                         f"{cuda_lib.bucket_max_lanes()} lanes (int32 lane "
+                         f"indices), got {L}")
     dev = xs.device
     planes = torch.empty((6, C, K, L), dtype=torch.float32, device=dev)
     centre = torch.empty((C, K), dtype=torch.float32, device=dev)
@@ -384,8 +454,8 @@ def bucket_stats_cuda(bid: torch.Tensor, xs: torch.Tensor,
     """Launch the bucket-stats kernel on an int32 [K, L] id plane and
     float32 / bool [C, K, L] stacks, all on one CUDA device: the staged
     form where ``stream.bucket_plan`` fits (rows with a bucket longer
-    than its tile then take the row form, one more launch), else the row
-    form."""
+    than ``stream.BUCKET_SPAN`` lanes then take the row form, one more
+    launch), else the row form."""
     if bid.dtype != torch.int32 or bid.dim() != 2:
         raise TypeError("bucket-stats kernel takes int32 [K, L] bucket ids")
     if xs.dtype != torch.float32 or xs.dim() != 3:
@@ -406,13 +476,15 @@ def bucket_stats_cuda(bid: torch.Tensor, xs: torch.Tensor,
         if plan is None:
             _bucket_row_form(bid, xs, valids, out)
         else:
+            centre = torch.empty((C, K), dtype=torch.float32,
+                                 device=xs.device)
             long_rows = torch.empty(K, dtype=torch.int32, device=xs.device)
             n_long = torch.zeros(1, dtype=torch.int32, device=xs.device)
             cuda_lib.launch("bucket_stats_ring", xs.device,
                             "tempo_bucket_stats_ring", bid.data_ptr(),
                             xs.data_ptr(), valids.data_ptr(), out.data_ptr(),
-                            long_rows.data_ptr(), n_long.data_ptr(), C, K, L,
-                            plan.tile, plan.depth)
+                            centre.data_ptr(), long_rows.data_ptr(),
+                            n_long.data_ptr(), C, K, L, plan.tile, plan.depth)
             n = int(n_long.item())
             stream.last_plan["bucket_stats"]["long_rows"] = n
             if n:

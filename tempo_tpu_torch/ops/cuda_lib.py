@@ -75,10 +75,10 @@ _SIGNATURES = {
     "tempo_asof_merge_lookback": [_P] * 13 + [_I] * 7 + [_P],
     "tempo_merge_rank": [_P] * 3 + [_I] * 5 + [_P],
     "tempo_cumsum3": [_P] * 5 + [_I, _I, _P],
-    "tempo_range_stats": [_P] * 7 + [_I] * 7 + [_P],
+    "tempo_range_stats": [_P] * 8 + [_I] * 7 + [_P],
     "tempo_legacy_stats": [_P] * 5 + [_I] * 6 + [_P],
     "tempo_bucket_stats": [_P] * 8 + [_I] * 3 + [_P],
-    "tempo_bucket_stats_ring": [_P] * 6 + [_I] * 5 + [_P],
+    "tempo_bucket_stats_ring": [_P] * 7 + [_I] * 5 + [_P],
     "tempo_range_stats_ring": [_P] * 7 + [_I] * 9 + [_P],
     "tempo_ema_ladder": [_P, _P, ctypes.c_float, _P, _P, _I, _I, _P],
     "tempo_last_valid_index": [_P, _P, _I, _I, _P],
@@ -93,17 +93,18 @@ _SIGNATURES = {
 }
 #: the staged forms' shared-memory totals, as the kernels compute them,
 #: the merge walk's step and column limit, the row limits of the
-#: ``cumsum3``, EMA and bucket-stats kernels and the range-stats row
-#: form's window (64-bit results)
+#: ``cumsum3``, EMA, bucket-stats and range-stats kernels and the
+#: range-stats row form's window (64-bit results)
 _SMEM_SIGNATURES = {
     "tempo_range_row_window": [],
+    "tempo_range_max_lanes": [],
     "tempo_asof_walk_step": [],
     "tempo_asof_walk_cols": [],
     "tempo_cumsum3_max_lanes": [],
     "tempo_ema_row_max": [],
     "tempo_ema_max_lanes": [],
     "tempo_bucket_max_lanes": [],
-    "tempo_bucket_ring_smem": [_I] * 4,
+    "tempo_bucket_ring_smem": [_I] * 3,
     "tempo_range_ring_smem": [_I] * 5,
     "tempo_resample_ring_smem": [_I] * 3,
 }
@@ -232,20 +233,20 @@ def asof_walk_cols() -> int:
 
 
 def cumsum3_max_lanes() -> int:
-    """Longest row the ``cumsum3`` kernel takes (its second stage holds a
-    row's residue classes in shared memory)."""
+    """Longest row the ``cumsum3`` kernel takes (int32 lane indices: its
+    class stages take any length)."""
     return lib().tempo_cumsum3_max_lanes()
 
 
 def ema_row_max() -> int:
     """Longest row the EMA and resample-EMA kernels take in one launch (a
-    row in one block); longer rows take their two tiled stages."""
+    row in one block); longer rows take their tiled stages."""
     return lib().tempo_ema_row_max()
 
 
 def ema_max_lanes() -> int:
-    """Longest row the EMA and resample-EMA kernels take (their second
-    stage holds a row's residue classes in shared memory)."""
+    """Longest row the EMA and resample-EMA kernels take (int32 lane
+    indices: their class stages take any length)."""
     return lib().tempo_ema_max_lanes()
 
 
@@ -255,7 +256,13 @@ def range_row_window() -> int:
     return lib().tempo_range_row_window()
 
 
+def range_max_lanes() -> int:
+    """Longest row the range-stats kernel takes (2^30: a lane plus a row
+    bound stays an int32; its clip counts are exact integers)."""
+    return lib().tempo_range_max_lanes()
+
+
 def bucket_max_lanes() -> int:
-    """Longest row the bucket-stats row form takes (its second stage
-    holds a row's residue classes in shared memory)."""
+    """Longest row the bucket-stats row form takes (int32 lane indices:
+    its class stages take any length)."""
     return lib().tempo_bucket_max_lanes()

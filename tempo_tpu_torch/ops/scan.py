@@ -8,8 +8,9 @@ Counterpart of ``tempo_tpu/ops/pallas_kernels.py``:
   forward.  Both forms combine the recurrence's (d, v) pairs by the
   same Hillis-Steele ladder with the same association as the TPU
   kernel, so f32 results round the same way.  The kernel holds a row
-  in one block's registers up to 16,384 lanes and tiles longer rows in
-  two stages; ``ema_tiled_plain`` runs those forms as tensor code.
+  in one block's registers up to 16,384 lanes and tiles longer rows
+  (a tile-local stage, then the class stages of :func:`class_stages`);
+  ``ema_tiled_plain`` runs those forms as tensor code.
 * ``last_valid_index_scan`` / ``first_valid_index_scan``
   (``_last/_first_valid_index_kernel``): the running max of ``valid ?
   lane : -1`` and the reverse running min of ``valid ? lane : L``, int32.
@@ -21,8 +22,8 @@ Counterpart of ``tempo_tpu/ops/pallas_kernels.py``:
 * ``cumsum3`` (``_cumsum3_kernel``): inclusive prefix sums of masked x,
   masked x² and the valid count, by the TPU kernel's Hillis-Steele
   ladder, so float32 sums round the same way.  The kernel tiles the
-  ladder (a tile-local stage, then a ladder along each residue class);
-  ``cumsum3_tiled_plain`` runs the same two stages as tensor code.
+  ladder (a tile-local stage, then ladders along residue classes);
+  ``cumsum3_tiled_plain`` runs the same stages as tensor code.
 
 A CUDA tensor goes to the kernel (``csrc/ema_ladder.cu``,
 ``csrc/index_scan.cu``, ``csrc/cumsum3.cu``), a CPU tensor to the plain
@@ -69,17 +70,80 @@ def ema_plain(x: torch.Tensor, valid: torch.Tensor, alpha: float
     return _affine_levels(d, v, 1, x.shape[-1], _shift)[1]
 
 
+#: the class stages' cut (``kClass2Log2`` and ``class_whole_max`` in
+#: ``csrc/common.cuh``): a class of P planes is laddered whole up to
+#: 232,448 / (8 P) entries (two buffers in one block's shared memory),
+#: else its class-index spans < 2^8 run on windows and the next stage runs
+#: along the classes mod 2^8 times the stride
+CLASS2_LOG2 = 8
+CLASS_SMEM = 232_448
+
+
+def class_whole_max(planes: int) -> int:
+    """Most entries of ``planes`` planes a whole-class stage holds."""
+    return CLASS_SMEM // (8 * planes)
+
+
+def class_stages(planes, idents, L: int, T: int, levels,
+                 class_tile_log2=None):
+    """The kernels' class stages (``launch_class_ladder`` in
+    ``csrc/common.cuh``) on [..., L] planes whose levels of spans < T have
+    run: with the lane stride S = T, the planes' entries along each
+    residue class ``i mod S`` (the identity past the row); a class of at
+    most the whole-class size is laddered over every remaining level (the
+    last stage), a longer one over the class-index spans < T2 on windows
+    of T2 entries after a T2-entry halo (the identity before the class),
+    and S grows by T2.  ``class_tile_log2`` None is the kernel's cut (T2 =
+    2^8, whole up to :func:`class_whole_max` entries); an int n makes T2
+    = 2^n and the whole size 2^n, so that several stages run on short
+    rows.  ``levels(z, end)`` runs the ladder's levels of spans 1, 2, ...
+    < ``end`` along the last axis of the planes ``z``."""
+    t2 = CLASS2_LOG2 if class_tile_log2 is None else int(class_tile_log2)
+    T2 = 1 << t2
+    whole = (class_whole_max(len(planes)) if class_tile_log2 is None
+             else T2)
+    lead = planes[0].shape[:-1]
+    dt, dev = planes[0].dtype, planes[0].device
+
+    def full(shape, ident):
+        return torch.full(tuple(lead) + shape, ident, dtype=dt, device=dev)
+
+    S = T
+    while S < L:
+        M = -(-L // S)
+        z = [torch.cat([p, full((M * S - L,), i)], -1)
+             .view(*lead, M, S).transpose(-1, -2)           # [..., S, M]
+             for p, i in zip(planes, idents)]
+        last = M <= whole
+        if last:
+            z = levels(z, M)
+        else:
+            nw = -(-M // T2)
+            wins = [torch.cat([full((S, T2), i), c, full((S, nw * T2 - M), i)],
+                              -1).unfold(-1, 2 * T2, T2)     # [..., S, nw, 2T2]
+                    for c, i in zip(z, idents)]
+            z = [w[..., T2:].reshape(*lead, S, nw * T2)[..., :M]
+                 for w in levels(wins, T2)]
+        planes = [c.transpose(-1, -2).reshape(*lead, M * S)[..., :L]
+                  for c in z]
+        if last:
+            break
+        S *= T2
+    return planes
+
+
 def ema_tiled_plain(x: torch.Tensor, valid: torch.Tensor, alpha: float,
                     tile_log2: int = 10, window_log2: int = 13,
-                    row_log2: int = 14) -> torch.Tensor:
+                    row_log2: int = 14, class_tile_log2=None) -> torch.Tensor:
     """:func:`ema_plain`'s values by the kernel's forms, bit for bit: a
     row of at most 2^``row_log2`` lanes runs the whole ladder at once
     (the one-launch form); a longer row, with T = 2^``tile_log2``, runs
     stage 1, the levels of spans < T on windows of 2^``window_log2``
     lanes (a T-lane halo, the identity (1, 0) before the row's start,
-    then the window's outputs), and stage 2, the levels of spans T, 2T,
-    ... < L as a ladder along each residue class ``i mod T``, the
-    identity where the class index m < span / T.  In ``x``'s dtype."""
+    then the window's outputs), and the class stages (:func:`class_stages`,
+    ``class_tile_log2`` their cut), the levels of spans T, 2T, ... < L as
+    a ladder along each residue class ``i mod T``, the identity where the
+    class index m < span / T.  In ``x``'s dtype."""
     K, L = x.shape
     d, v = _ema_planes(x, valid, alpha)
     if L <= 1 << row_log2:
@@ -95,24 +159,18 @@ def ema_tiled_plain(x: torch.Tensor, valid: torch.Tensor, alpha: float,
                                     dtype=x.dtype, device=x.device)], -1)
         wins.append(row.unfold(-1, W, step))        # [K, nt, W]
     wd, wv = _affine_levels(*wins, 1, T, _shift)
-    M = -(-L // T)
-    planes = []
-    for p, ident in ((wd, 1.0), (wv, 0.0)):
-        flat = p[..., T:].reshape(K, nt * step)[:, :L]
-        pad = torch.full((K, M * T - L), ident, dtype=x.dtype,
-                         device=x.device)
-        planes.append(torch.cat([flat, pad], -1).view(K, M, T))
-    _, cv = _affine_levels(*planes, 1, M,
-                           lambda z, s, i: _shift(z.transpose(1, 2), s,
-                                                  i).transpose(1, 2))
-    return cv.reshape(K, M * T)[:, :L]
+    planes = [p[..., T:].reshape(K, nt * step)[:, :L] for p in (wd, wv)]
+    return class_stages(
+        planes, (1.0, 0.0), L, T,
+        lambda z, end: list(_affine_levels(*z, 1, end, _shift)),
+        class_tile_log2)[1]
 
 
 def ema_cuda(x: torch.Tensor, valid: torch.Tensor, alpha: float
              ) -> torch.Tensor:
     """Launch the ladder kernel on [K, L] float32 CUDA tensors (one call:
     one launch for rows of at most ``cuda_lib.ema_row_max()`` lanes, two
-    past it, the second reading the first's d plane)."""
+    or more past it, the class stages reading the first's d plane)."""
     if x.dtype != torch.float32 or x.dim() != 2:
         raise TypeError(f"ema kernel takes float32 [K, L], got {x.dtype} "
                         f"{tuple(x.shape)}")
@@ -128,7 +186,8 @@ def ema_cuda(x: torch.Tensor, valid: torch.Tensor, alpha: float
         return out
     if L > cuda_lib.ema_max_lanes():
         raise ValueError(f"ema kernel takes rows of at most "
-                         f"{cuda_lib.ema_max_lanes()} lanes, got {L}")
+                         f"{cuda_lib.ema_max_lanes()} lanes (int32 lane "
+                         f"indices), got {L}")
     dplane = torch.empty_like(x) if L > cuda_lib.ema_row_max() else None
     cuda_lib.launch("ema_ladder", x.device, "tempo_ema_ladder",
                     x.data_ptr(), valid.data_ptr(), float(alpha),
@@ -363,20 +422,16 @@ def _ladder_levels(L: int) -> int:
     return max(int(L) - 1, 0).bit_length()
 
 
-def _shift_m(z: torch.Tensor, span: int) -> torch.Tensor:
-    """[K, M, T] moved by ``span`` along M, 0 in the gap."""
-    return _shift(z.transpose(1, 2), span, 0.0).transpose(1, 2)
-
-
 def cumsum3_tiled_plain(x: torch.Tensor, valid: torch.Tensor,
-                        tile_log2: int = 10):
-    """:func:`cumsum3_plain`'s sums by the kernel's two stages, bit for
-    bit: with T = 2^min(tile_log2, levels), stage 1 runs the ladder's
-    levels of spans < T on each tile of T lanes from the tile and the T
-    lanes before it alone (0 before the row's start); stage 2 runs the
-    levels of spans T, 2T, ... < L as a ladder along each residue class
-    ``i mod T``, 0 added where the class index m < span / T.  In
-    ``x``'s dtype."""
+                        tile_log2: int = 10, class_tile_log2=None):
+    """:func:`cumsum3_plain`'s sums by the kernel's stages, bit for bit:
+    with T = 2^min(tile_log2, levels), stage 1 runs the ladder's levels of
+    spans < T on each tile of T lanes from the tile and the T lanes before
+    it alone (0 before the row's start); the class stages
+    (:func:`class_stages`, ``class_tile_log2`` their cut) run the levels
+    of spans T, 2T, ... < L as a ladder along each residue class ``i mod
+    T``, 0 added where the class index m < span / T.  In ``x``'s
+    dtype."""
     K, L = x.shape
     t = min(int(tile_log2), _ladder_levels(L))
     T = 1 << t
@@ -393,18 +448,21 @@ def cumsum3_tiled_plain(x: torch.Tensor, valid: torch.Tensor,
         while span < T:
             win = win + _shift(win, span, 0.0)
             span *= 2
-        z = win[..., T:]                         # [K, nt, T]
+        out.append(win[..., T:].reshape(K, nt * T)[:, :L])
+
+    def levels(z, end):
         span = 1
-        while span * T < L:
-            z = z + _shift_m(z, span)
+        while span < end:
+            z = [c + _shift(c, span, 0.0) for c in z]
             span *= 2
-        out.append(z.reshape(K, nt * T)[:, :L])
-    return tuple(out)
+        return z
+    return tuple(class_stages(out, (0.0,) * 3, L, T, levels,
+                              class_tile_log2))
 
 
 def cumsum3_cuda(x: torch.Tensor, valid: torch.Tensor):
     """Launch the tiled prefix-sum kernel on float32 [K, L] CUDA tensors
-    (one call, two launches for rows longer than 1024 lanes)."""
+    (one call; two launches or more for rows longer than 1024 lanes)."""
     if x.dtype != torch.float32 or x.dim() != 2:
         raise TypeError(f"cumsum3 kernel takes float32 [K, L], got {x.dtype} "
                         f"{tuple(x.shape)}")
@@ -419,7 +477,8 @@ def cumsum3_cuda(x: torch.Tensor, valid: torch.Tensor):
         return out
     if L > cuda_lib.cumsum3_max_lanes():
         raise ValueError(f"cumsum3 kernel takes rows of at most "
-                         f"{cuda_lib.cumsum3_max_lanes()} lanes, got {L}")
+                         f"{cuda_lib.cumsum3_max_lanes()} lanes (int32 lane "
+                         f"indices), got {L}")
     cuda_lib.launch("cumsum3", x.device, "tempo_cumsum3", x.data_ptr(),
                     valid.data_ptr(), *(o.data_ptr() for o in out), K, L)
     return out

@@ -13,7 +13,8 @@ The planners (:func:`bucket_plan`, :func:`range_plan`,
 :func:`resample_plan`) are ``ring_plan`` / ``plan_with_ring`` rewritten
 in Hopper terms: a staged form's tile width ``T`` and depth come from
 the bytes a slot takes and the shared memory one block may take
-(``SMEM_LIMIT``).  The planner tries the widths in ``*_TILES`` from the
+(``SMEM_LIMIT``; the bucket-stats form keeps to ``BUCKET_SMEM``, two
+blocks an SM).  The planner tries the widths in ``*_TILES`` from the
 widest down at the asked depth, then at depth 2; it needs at least two
 tiles a row (one tile has nothing to overlap, as ``ring_plan`` refuses
 fewer than two slabs) and clamps the depth to the tile count.  Where
@@ -41,6 +42,9 @@ from tempo_tpu_torch import config
 
 #: dynamic shared memory one block may take on sm_90 (227 KB)
 SMEM_LIMIT = 232_448
+#: the bucket-stats staged form's budget: two blocks an SM (228 KB of
+#: shared memory an SM, 1 KB of it reserved a block)
+BUCKET_SMEM = 115_712
 #: the ring's depth range (``pallas_stream.dma_buffers``' clamp) and slot cap
 MIN_DEPTH, MAX_DEPTH = 2, 8
 #: tile widths each planner tries, widest first; the last is the floor
@@ -50,7 +54,11 @@ RESAMPLE_TILES = (1024, 512, 256, 128)
 
 _BARRIERS = 8 * MAX_DEPTH         # one 8-byte mbarrier a slot
 _REDUCE = 32 * 4                  # a block reduction's 32 words
-_BUCKET_PLANES = 12               # the bucket ladder's float planes
+#: the longest bucket the bucket-stats staged form takes (the most its
+#: carry holds; ``kSpan`` in ``csrc/bucket_stats.cu``): a row with a
+#: longer one goes to the row form
+BUCKET_SPAN = 1024
+_BUCKET_PAIRS = 512               # (tail, column) totals a round of the kernel
 _RESAMPLE_BEHIND = 33             # staged lanes before a resample tile
 #: longest row of the EMA ladder's one-launch form (``kRowMax`` in
 #: ``csrc/common.cuh``, ``cuda_lib.ema_row_max()`` on the card), the
@@ -95,17 +103,19 @@ def _plane(nbytes: int) -> int:
     return _align16(nbytes) + 16
 
 
-def bucket_ring_bytes(C: int, L: int, T: int, depth: int) -> int:
+def bucket_ring_bytes(C: int, T: int, depth: int) -> int:
     """Shared memory of the bucket-stats staged form (``bucket_ring_layout``
     in ``csrc/bucket_stats.cu``): barriers, a block reduction's 32 words,
-    C centres, the window starts, the ladder's 12 planes of T floats and
-    ``depth`` slots of the ids and each column's x and valid."""
-    max_windows = 2 * -(-L // T) - 1
-    fixed = (_BARRIERS + _REDUCE + _align16(4 * C)
-             + _align16(4 * (max_windows + 1))
-             + 4 * _BUCKET_PLANES * _align16(T))
-    slot = _plane(4 * T) + C * (_plane(4 * T) + _plane(T))
-    return fixed + depth * slot
+    5 + 2C words a 32-lane segment of the largest region (the
+    ``BUCKET_SPAN``-lane carry and the tile), four pointers a column, six
+    planes of 512 bucket totals, the carry's ids and each column's x and
+    valid, and ``depth`` slots of a tile's ids and each column's x and
+    valid."""
+    G = -(-(BUCKET_SPAN + T) // 32)
+    fixed = (_BARRIERS + _REDUCE + _align16(4 * (5 + 2 * C) * G) + 32 * C
+             + 4 * 6 * _BUCKET_PAIRS + _align16(4 * BUCKET_SPAN)
+             + C * (_align16(4 * BUCKET_SPAN) + _align16(BUCKET_SPAN)))
+    return fixed + depth * (_plane(4 * T) + C * (_plane(4 * T) + _plane(T)))
 
 
 def _halo(bound: int, L: int) -> int:
@@ -135,9 +145,9 @@ def resample_ring_bytes(L: int, T: int, depth: int) -> int:
     return _BARRIERS + 8 * 32 * -(-L // 32) + depth * slot
 
 
-def _plan(L: int, tiles: Sequence[int], nbytes,
-          depth: Optional[int]) -> Optional[RingPlan]:
-    """First (tile, depth) that fits ``SMEM_LIMIT``: the widest tile at
+def _plan(L: int, tiles: Sequence[int], nbytes, depth: Optional[int],
+          limit: int = SMEM_LIMIT) -> Optional[RingPlan]:
+    """First (tile, depth) that fits ``limit`` bytes: the widest tile at
     the asked depth (:func:`dma_buffers` when None), then narrower ones,
     then the same at depth 2 (``plan_with_ring``'s fallback).  None where
     nothing fits."""
@@ -150,7 +160,7 @@ def _plan(L: int, tiles: Sequence[int], nbytes,
                 continue
             d = max(MIN_DEPTH, min(want, n_tiles))
             smem = nbytes(T, d)
-            if smem <= SMEM_LIMIT:
+            if smem <= limit:
                 return RingPlan(T, d, smem)
     return None
 
@@ -158,12 +168,12 @@ def _plan(L: int, tiles: Sequence[int], nbytes,
 def bucket_plan(C: int, L: int,
                 depth: Optional[int] = None) -> Optional[RingPlan]:
     """Plan of the bucket-stats staged form for C columns of L lanes, or
-    None (the row form).  A row's buckets must also be at most ``tile``
-    lanes long; the kernel leaves rows that have a longer one to the row
-    form."""
-    return _plan(L, BUCKET_TILES,
-                 lambda T, d: bucket_ring_bytes(C, L, T, d),
-                 depth)
+    None (the row form).  A row's buckets must also be at most
+    ``BUCKET_SPAN`` lanes long; the kernel leaves rows that have a longer
+    one to the row form.  The budget is ``BUCKET_SMEM``: the kernel is
+    sized for two blocks an SM."""
+    return _plan(L, BUCKET_TILES, lambda T, d: bucket_ring_bytes(C, T, d),
+                 depth, BUCKET_SMEM)
 
 
 def range_plan(mb: int, ma: int, L: int,

@@ -153,9 +153,6 @@ def range_stats_plain(secs, xs, valids, window, max_behind, max_ahead,
     }
 
 
-#: longest row the kernel takes: its clip counts are float sums of
-#: integers, exact below 2^24
-MAX_LANES = 1 << 24
 #: the row form's block (threads), the consecutive outputs a thread owns,
 #: and the most lanes its shared-memory window holds (``kRowThreads``,
 #: ``kLanes`` and ``kRowWindow`` in ``csrc/range_stats.cu``)
@@ -391,10 +388,10 @@ def range_stats_cuda(secs, xs, valids, window, max_behind, max_ahead,
         raise ValueError("keys, values and valid must lie on one CUDA "
                          "device")
     C, K, L = xs.shape
-    if L > MAX_LANES:
+    if L > cuda_lib.range_max_lanes():
         raise ValueError(f"range-stats kernel takes rows of at most "
-                         f"{MAX_LANES} lanes (its float clip counts are "
-                         f"exact below 2^24), got {L}")
+                         f"{cuda_lib.range_max_lanes()} lanes (a lane plus "
+                         f"a bound in int32), got {L}")
     secs, xs, valids = secs.contiguous(), xs.contiguous(), valids.contiguous()
     scale = (None if scales is None
              else _scale_vector(scales, C, torch.float32, xs.device))
@@ -416,8 +413,9 @@ def range_stats_cuda(secs, xs, valids, window, max_behind, max_ahead,
                 centre.data_ptr(), _clamp_window(window),
                 _clamp_window(window_ahead), mb, ma, C, K, L)
         if plan is None:
+            tally = torch.empty((C, K), dtype=torch.int32, device=xs.device)
             cuda_lib.launch("range_stats", xs.device, "tempo_range_stats",
-                            *args)
+                            *args[:7], tally.data_ptr(), *args[7:])
         else:
             cuda_lib.launch("range_stats_ring", xs.device,
                             "tempo_range_stats_ring", *args, plan.tile,

@@ -43,21 +43,31 @@ def test_dma_buffers_matches_reference(monkeypatch, env):
     assert stream.dma_buffers() == pallas_stream.dma_buffers()
 
 
-@pytest.mark.parametrize("depth,tile", [(2, 2048), (3, 2048), (4, 1024),
-                                        (8, 1024)])
+@pytest.mark.parametrize("depth,tile", [(2, 2048), (3, 1024), (4, 1024),
+                                        (8, 512)])
 def test_bucket_plan_at_phase_h_width(depth, tile):
-    """[3, 1024, 12760]: a slot is T * (4 + 5C) bytes (plus 16 B of
-    alignment slack a plane) and the ladder 48 * T.  T = 2048 fits
-    depths 2 and 3 (176 KB, 215 KB) but not 4; the planner then lowers T
-    before the depth: T = 1024 at depth 8 takes about 205 KB."""
+    """[3, 1024, 12760]: a slot holds a window's ids and each column's x
+    and valid, T * (4 + 5C) bytes (plus 16 B of alignment slack a plane);
+    the rest is the carry (1024 lanes of ids and of each column's x and
+    valid), 5 + 2C words a 32-lane segment of the largest region (the
+    carry and the tile), four pointers a column and six planes of 512
+    bucket totals.  The budget is two blocks an SM (115,712 B):
+    T = 2048 fits depth 2 (114,304 B) but not 3; the planner lowers T
+    before the depth: T = 1024 at depths 3 and 4, T = 512 at depth 8
+    (112,864 B)."""
     plan = stream.bucket_plan(3, 12760, depth)
     assert (plan.tile, plan.depth) == (tile, depth)
-    assert plan.smem <= stream.SMEM_LIMIT
+    assert plan.smem <= stream.BUCKET_SMEM
     T, C = tile, 3
-    slot = stream.bucket_ring_bytes(C, 12760, T, depth + 1) - plan.smem
+    slot = stream.bucket_ring_bytes(C, T, depth + 1) - plan.smem
     assert slot - T * (4 + 5 * C) == 16 * (1 + 2 * C)
-    assert 48 * T <= plan.smem - depth * slot <= 48 * T + 512
-    assert stream.bucket_ring_bytes(C, 12760, 2048, 4) > stream.SMEM_LIMIT
+    G = (stream.BUCKET_SPAN + T) // 32
+    segs = 4 * (5 + 2 * C) * G
+    assert plan.smem - depth * slot == (64 + 128 + segs + (-segs) % 16
+                                        + 32 * C + 24 * 512
+                                        + (4 + 5 * C) * stream.BUCKET_SPAN)
+    assert stream.bucket_ring_bytes(C, 2048, 3) > stream.BUCKET_SMEM
+    assert 2 * (stream.BUCKET_SMEM + 1024) == 228 * 1024
 
 
 def test_range_and_resample_plans():
@@ -100,10 +110,10 @@ def test_planner_falls_back_like_plan_with_ring():
     assert (p.tile, p.depth) == (512, 2)
     # the knob's depth is the default; out of range clamps
     assert stream.bucket_plan(1, 5000, 99).depth == 3
-    # depth 2 when the asked depth fits no tile: C = 40 columns
-    p = stream.bucket_plan(40, 12760, 8)
+    # depth 2 when the asked depth fits no tile: C = 10 columns
+    p = stream.bucket_plan(10, 12760, 8)
     assert (p.tile, p.depth) == (256, 2)
-    assert stream.bucket_plan(200, 12760, 2) is None
+    assert stream.bucket_plan(14, 12760, 2) is None
 
 
 def _bucket_rows(rng, L, T):
@@ -128,6 +138,8 @@ def _bucket_rows(rng, L, T):
 @pytest.mark.parametrize("T", [16, 32, 64])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_window_emulation_is_bitwise_the_row_ladder(seed, T):
+    """The windows at a carry of ``span = T`` lanes, so that rows go long
+    at L = 300 (the kernel's span is 1024: test_torch_redesign11.py)."""
     rng = np.random.default_rng(seed)
     L = 300
     bid = _bucket_rows(rng, L, T)
@@ -139,10 +151,15 @@ def test_window_emulation_is_bitwise_the_row_ladder(seed, T):
     valids[:, 5, L - L // 5:] = False          # the pad tail
     xs[:, 5, L - L // 5:] = np.nan
     b, x, v = (torch.from_numpy(a) for a in (bid, xs, valids))
-    assert bucket.bucket_windows(b[1], T) is None        # longer than T
-    assert bucket.bucket_windows(b[3], T) is None        # one bucket
-    assert bucket.bucket_windows(b[2], T) == list(range(0, L, T))
-    got = bucket.bucket_stats_windowed(b, x, v, T)
+    assert bucket.bucket_windows(b[1], T, T) is None     # longer than T
+    assert bucket.bucket_windows(b[3], T, T) is None     # one bucket
+    # buckets of T / 2: each window leaves its last bucket to the next
+    h = T // 2
+    nw = -(-L // T)
+    assert bucket.bucket_windows(b[2], T, T) == [
+        (max(0, w * T - h), min(L, (w + 1) * T) if w == nw - 1
+         else (w + 1) * T - h, min(L, (w + 1) * T)) for w in range(nw)]
+    got = bucket.bucket_stats_windowed(b, x, v, T, T)
     want = bucket.bucket_stats_plain(b, x, v)
     for k in STATS:
         assert torch.equal(torch.isnan(got[k]), torch.isnan(want[k])), k
@@ -151,16 +168,21 @@ def test_window_emulation_is_bitwise_the_row_ladder(seed, T):
 
 
 def test_window_chain_bound():
-    """Every two windows advance at least T + 1 lanes: at most
-    2 * ceil(L / T) - 1 windows a row (the kernel's start array)."""
+    """The regions: ceil(L / T) windows, each starting at a bucket head,
+    at most span + T lanes long, their outputs cutting [0, L) in order
+    (the kernel's carry holds at most span lanes)."""
     rng = np.random.default_rng(3)
-    T, L = 32, 2000
+    T, L, span = 32, 2000, 40
     for _ in range(20):
-        ids = np.repeat(np.arange(L), rng.integers(1, T + 1, L))[:L]
-        starts = bucket.bucket_windows(torch.from_numpy(ids), T)
-        assert starts is not None
-        assert len(starts) <= 2 * -(-L // T) - 1
-        assert all(b - a >= T + 1 for a, b in zip(starts, starts[2:]))
+        ids = np.repeat(np.arange(L), rng.integers(1, span + 1, L))[:L]
+        regions = bucket.bucket_windows(torch.from_numpy(ids), T, span)
+        assert regions is not None
+        assert len(regions) == -(-L // T)
+        assert regions[0][0] == 0 and regions[-1][1:] == (L, L)
+        for (s, e, end), nxt in zip(regions, regions[1:] + [(L,)]):
+            assert s == 0 or ids[s] != ids[s - 1]
+            assert s <= e <= end and end - s <= span + T
+            assert nxt[0] == e
 
 
 def _assert_bucket(got, want, tol=1e-5):
