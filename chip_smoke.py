@@ -52,8 +52,10 @@ B. Hold each kernel against its plain PyTorch version on the card, in
    a tile edge, at the kernel's tiles and at 16) and a sequence
    tie-break (also at tiles of 4), and its time on one series of
    1,000,000 rows; the rank on the windowed engine's int32 seconds and
-   on int64 nanoseconds, both sides, pads clamped (``torch.searchsorted``
-   is its yardstick); ``cumsum3`` on a one-tile row, a row of 8193
+   on int64 nanoseconds, both sides, pads clamped, on runs of equal keys
+   longer than a tile, on [4, 10^6] keys x [4, 10^3] queries and the
+   reverse, and on one series of 2^24 + 1 keys, each timed beside its
+   bound (``torch.searchsorted`` is its yardstick); ``cumsum3`` on a one-tile row, a row of 8193
    lanes (T * 2^3 + 1), the same with -0.0, NaN and +-inf, phase D's
    [K, 8192] and phase F's row, against the plain ladder and the tiled
    plain version, each timed beside ``torch.cumsum``; the EMA ladder's
@@ -61,8 +63,12 @@ B. Hold each kernel against its plain PyTorch version on the card, in
    Then the fourth slice's legacy stats kernel: ``count``, ``min``,
    ``max`` and ``clipped`` bitwise, the rest as range stats are held, on
    the HHAR left frame's packed ``x`` with the row bounds of a 10 s and
-   a 60 s window, on a two-column stack, and on tie-heavy keys with
-   bounds (4, 1) that clip both ways (no library call computes it).
+   a 60 s window, on a two-column stack, on tie-heavy keys with
+   bounds (4, 1) that clip both ways, with bounds (600, 40) on 64 of
+   the series (a halo past one window) and with a valid NaN in four rows
+   (NaN centres, finite windows away from it), and every stat bitwise
+   against the plain version at the kernel's centres (no library call
+   computes it).
    Then the fifth slice's bucket-stats kernel: ``count``, ``min`` and
    ``max`` bitwise, the rest as range stats are held, on phase H's
    inputs (the HHAR left frame's 1-minute bucket ids over x, the joined
@@ -976,24 +982,63 @@ def phase_b_slice4(left, dev, d_args):
         raise AssertionError("truncating legacy case does not clip both ways")
     cases.append(("truncating, bounds (4, 1)", dsecs, d_args[2][None],
                   dv[None], 10, 4, 1))
+    # a halo past one window (1536 lanes) on 64 of the series
+    secs10 = cases[0][1]
+    cases.append(("64 series, bounds (600, 40)", secs10[:64].contiguous(),
+                  x[None, :64].contiguous(), valid[None, :64].contiguous(),
+                  600, 600, 40))
+    # a valid NaN in four rows: their centres are NaN, while windows away
+    # from it keep finite min and max
+    xn = x.clone()
+    vn = valid.clone()
+    xn[:4, 100] = float("nan")
+    vn[:4, 100] = True
+    cases.append(("NaN centres", secs10, xn[None], vn[None], 10, 10, 0))
     err = 0.0
     n_clipped = 0
     for what, secs, xs, vs, w, mb, ma in cases:
-        got = stats.legacy_stats_cuda(secs, xs, vs, w, mb, ma)
+        centre = torch.empty(xs.shape[:2], device=dev)
+        got = stats.legacy_stats_cuda(secs, xs, vs, w, mb, ma,
+                                      _center_out=centre)
+        at_centre = stats.legacy_stats_plain(secs, xs, vs, w, mb, ma,
+                                             _centers=centre)
+        for k in at_centre:
+            check_bitwise(got[k], at_centre[k],
+                          f"legacy stats {k} ({what}, the kernel's centres)")
         want = stats.legacy_stats_plain(secs, xs, vs, w, mb, ma)
         for k in ("min", "max"):
             check_bitwise(got[k], want[k], f"legacy stats {k} ({what})")
-        err = max(err, check_range_stats(got, want, f"legacy stats ({what})"))
+        # windows of 641 rows: the centre's rounding shows in a float32
+        # sum of hundreds of centred values (as at range stats' six hours)
+        err = max(err, check_range_stats(
+            got, want, f"legacy stats ({what})",
+            sum_atol=1e-3 if mb + ma > 100 else 1e-5))
         if what.startswith("truncating"):
             n_clipped = int(want["clipped"].sum())
+        if what == "NaN centres":
+            far = (secs[:4] > secs[:4, 100:101] + w) & vn[:4] \
+                & (secs[:4] < 2**31 - 1)
+            mn = got["min"][0, :4]
+            if not (bool(torch.isnan(centre[0, :4]).all())
+                    and bool(torch.isfinite(mn[far]).all())
+                    and bool(torch.isnan(mn[:, 100]).all())):
+                raise AssertionError("legacy stats: a NaN centre reached "
+                                     "min beyond the NaN's windows")
     if n_clipped == 0:
         raise AssertionError("truncating legacy case clipped nothing")
 
+    def legacy_bound(secs, xs, vs, w, mb, ma):
+        """Keys once, a column's values and validity once, seven f32
+        planes and a clip count written; ~12 operations a lane, column
+        and shift."""
+        C_, K_, L_ = xs.shape
+        return bound_ms(K_ * L_ * 4 + C_ * K_ * L_ * (4 + 1 + 7 * 4) + C_ * K_ * 4,
+                        C_ * K_ * L_ * ((min(mb, L_ - 1) + min(ma, L_ - 1) + 1)
+                                        * 12 + 20))
+
     _, secs, xs, vs, w, mb, ma = cases[0]
     _, Kw, L = xs.shape
-    nbytes = Kw * L * 4 + Kw * L * (4 + 1) + 7 * Kw * L * 4 + Kw * 4
-    nops = Kw * L * ((mb + ma + 1) * 12 + 20)
-    b, by = bound_ms(nbytes, nops)
+    b, by = legacy_bound(*cases[0][1:])
     row = dict(
         name="legacy_stats", route="cuda",
         source="tempo_tpu_torch/csrc/legacy_stats.cu",
@@ -1002,15 +1047,22 @@ def phase_b_slice4(left, dev, d_args):
         plain_ms=time_ms(lambda: stats.legacy_stats_plain(secs, xs, vs, w, mb,
                                                           ma), reps=3),
         bound_ms=b, bound_by=by, library_ms=None,
-        ms_60s=time_ms(lambda: stats.legacy_stats_cuda(*cases[1][1:])),
-        ms_two_columns=time_ms(lambda: stats.legacy_stats_cuda(*cases[2][1:])),
         shape=f"[1, {Kw}, {L}], window {w}s, rows {mb} behind/{ma} ahead; "
               f"60 s: rows {cases[1][5]}/{cases[1][6]}")
+    for key, c in (("60s", cases[1]), ("two_columns", cases[2]),
+                   ("600_40", cases[4])):
+        row[f"ms_{key}"] = time_ms(lambda: stats.legacy_stats_cuda(*c[1:]))
+        row[f"bound_ms_{key}"], row[f"bound_by_{key}"] = legacy_bound(*c[1:])
     log(f"B legacy_stats: count/min/max/clipped bitwise, rest within 1e-5 "
-        f"(max abs err {err:.3g}) on {'; '.join(c[0] for c in cases)} "
-        f"({n_clipped} rows clipped); kernel {row['ms']:.4f} ms (60 s "
-        f"{row['ms_60s']:.4f}, two columns {row['ms_two_columns']:.4f}), "
-        f"plain {row['plain_ms']:.4f} ms, bound {b:.4f} ms")
+        f"(max abs err {err:.3g}) of the plain version, every stat bitwise "
+        f"at the kernel's centres, on {'; '.join(c[0] for c in cases)} "
+        f"({n_clipped} rows clipped); kernel {row['ms']:.4f} ms (bound "
+        f"{b:.4f}), 60 s {row['ms_60s']:.4f} (bound "
+        f"{row['bound_ms_60s']:.4f}), two columns "
+        f"{row['ms_two_columns']:.4f} (bound "
+        f"{row['bound_ms_two_columns']:.4f}), (600, 40) on [1, 64, {L}] "
+        f"{row['ms_600_40']:.4f} (bound {row['bound_ms_600_40']:.4f}, "
+        f"{row['bound_by_600_40']}); plain {row['plain_ms']:.4f} ms")
     log(f"B launches while comparing (not counted): {dict(cuda_lib.launches)}")
     return {"legacy_stats": row}
 
@@ -1397,11 +1449,43 @@ def phase_b_slice3(pd, left, right, dev, d_args):
                           f"rank {keys.dtype} side {side}")
             check_bitwise(got, torch.searchsorted(keys, q, side=side),
                           f"rank {keys.dtype} side {side} vs searchsorted")
+    # runs of one key longer than a tile (2048 merged positions), skew
+    # both ways, one series of 2^24 + 1 keys
+    ties = torch.repeat_interleave(
+        torch.arange(40, device=dev, dtype=torch.int32), 5000).expand(4, -1)
+    tie_q = torch.sort(torch.randint(-1, 41, (4, 30000), generator=gen,
+                                     device=dev, dtype=torch.int32)).values
+    many = torch.sort(torch.randint(0, 10**7, (4, 1_000_000), generator=gen,
+                                    device=dev, dtype=torch.int32)).values
+    few = torch.sort(torch.randint(0, 10**7, (4, 1000), generator=gen,
+                                   device=dev, dtype=torch.int32)).values
+    one = torch.cumsum(torch.randint(0, 3, (1, 2**24 + 1), generator=gen,
+                                     device=dev, dtype=torch.int32), 1,
+                       dtype=torch.int32)
+    extra = (("ties", ties, tie_q), ("ties_reverse", tie_q, ties),
+             ("skew_keys", many, few), ("skew_queries", few, many),
+             ("one_series", one, one - DAY))
+    for what, keys, q in extra:
+        for side in ("left", "right"):
+            got = merge.merge_rank_cuda(keys, q, side)
+            check_bitwise(got, merge.merge_rank_plain(keys, q, side),
+                          f"rank {what} side {side}")
+            check_bitwise(got, torch.searchsorted(keys, q, side=side),
+                          f"rank {what} side {side} vs searchsorted")
+
+    def rank_bound(keys, q):
+        """One read of keys and queries, one int64 write a query; one
+        comparison a merged position."""
+        K_, Lk_ = keys.shape
+        Lq_ = q.shape[-1]
+        return bound_ms(K_ * (Lk_ + Lq_) * keys.element_size() + K_ * Lq_ * 8,
+                        K_ * (Lk_ + Lq_))
+
     Kr, Lk = secs.shape
     start_q = secs - DAY
-    b, by = bound_ms(Kr * Lk * (4 + 4 + 8), Kr * Lk * math.ceil(
-        math.log2(Lk + 1)))
-    rows["merge_rank"] = dict(
+    ns_q = ns - DAY * NS
+    b, by = rank_bound(secs, start_q)
+    row = dict(
         name="merge_rank", route="cuda",
         source="tempo_tpu_torch/csrc/merge_rank.cu",
         replaces="tempo_tpu/ops/pallas_merge.py:703", max_abs_err=0.0,
@@ -1410,13 +1494,30 @@ def phase_b_slice3(pd, left, right, dev, d_args):
                                                         "left"), reps=3),
         bound_ms=b, bound_by=by,
         library_ms=time_ms(lambda: torch.searchsorted(secs, start_q)),
-        shape=f"[{Kr}, {Lk}] int32 keys and queries (window starts)")
+        shape=f"[{Kr}, {Lk}] int32 keys and queries (window starts)",
+        ms_int64=time_ms(lambda: merge.merge_rank_cuda(ns, ns_q, "left")),
+        bound_ms_int64=rank_bound(ns, ns_q)[0],
+        library_ms_int64=time_ms(lambda: torch.searchsorted(ns, ns_q)))
+    for what, keys, q in extra:
+        row[f"ms_{what}"] = time_ms(
+            lambda: merge.merge_rank_cuda(keys, q, "left"))
+        row[f"bound_ms_{what}"] = rank_bound(keys, q)[0]
+        row[f"library_ms_{what}"] = time_ms(
+            lambda: torch.searchsorted(keys, q))
+    rows["merge_rank"] = row
     log(f"B merge_rank: bitwise equal to plain and to torch.searchsorted on "
         f"[{Kr}, {Lk}] int32 seconds and int64 ns, both sides, pads "
-        f"clamped; kernel {rows['merge_rank']['ms']:.4f} ms, plain "
-        f"{rows['merge_rank']['plain_ms']:.4f} ms, torch.searchsorted "
-        f"{rows['merge_rank']['library_ms']:.4f} ms")
-    del ns, start_q
+        f"clamped, and on runs of 5000 equal keys, [4, 1,000,000] keys x "
+        f"[4, 1000] queries and the reverse, and one series of 2^24 + 1 "
+        f"keys; kernel {row['ms']:.4f} ms (bound {b:.4f}), plain "
+        f"{row['plain_ms']:.4f} ms, torch.searchsorted "
+        f"{row['library_ms']:.4f} ms; int64 {row['ms_int64']:.4f} (bound "
+        f"{row['bound_ms_int64']:.4f}, torch.searchsorted "
+        f"{row['library_ms_int64']:.4f}); "
+        + "; ".join(f"{w} {row['ms_' + w]:.4f} (bound "
+                    f"{row['bound_ms_' + w]:.4f}, torch.searchsorted "
+                    f"{row['library_ms_' + w]:.4f})" for w, _, _ in extra))
+    del ns, ns_q, start_q, ties, tie_q, many, few, one, extra
 
     # -- cumsum3: edge rows, [K, 8192] and phase F's row ---------------
     x, valid = lt.packed_numeric("x")

@@ -109,16 +109,6 @@ __device__ __forceinline__ Keys row_keys(const int64_t* ts, const int32_t* sid,
     return {ts + row, sid ? sid + row : nullptr, seq ? seq + row : nullptr};
 }
 
-// first m in [lo, hi) with pred(m) false (pred true on a prefix)
-template <typename Pred>
-__device__ __forceinline__ int first_false(int lo, int hi, Pred pred) {
-    while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (pred(mid)) lo = mid + 1; else hi = mid;
-    }
-    return lo;
-}
-
 // a right row counts as valid for column c when its validity bit is set
 // and its value is not NaN (the Pallas payload is NaN-encoded)
 __device__ __forceinline__ bool right_valid(const uint8_t* r_valid, const float* r_values,

@@ -34,6 +34,17 @@ __device__ __forceinline__ int32_t wrap_sub(int32_t a, int32_t b) {
     return (int32_t)((uint32_t)a - (uint32_t)b);
 }
 
+// first m in [lo, hi) with pred(m) false (pred true on a prefix): the
+// merge-path co-rank search of asof_merge.cu and merge_rank.cu
+template <typename Pred>
+__device__ __forceinline__ int first_false(int lo, int hi, Pred pred) {
+    while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (pred(mid)) lo = mid + 1; else hi = mid;
+    }
+    return lo;
+}
+
 // Block-wide sum; blockDim.x must be a multiple of 32 (<= 1024).  The
 // order is fixed by the launch shape, so results repeat run to run.
 template <typename T>

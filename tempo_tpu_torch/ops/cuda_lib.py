@@ -47,7 +47,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("asof_merge.cu", "range_stats.cu", "ema_ladder.cu",
            "index_scan.cu", "resample_ema.cu", "merge_rank.cu", "cumsum3.cu",
            "legacy_stats.cu", "bucket_stats.cu")
-HEADERS = ("common.cuh", "ring.cuh")
+HEADERS = ("common.cuh", "ring.cuh", "window.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -73,10 +73,10 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "tempo_asof_merge": [_P] * 11 + [_I] * 5 + [_P],
     "tempo_asof_merge_lookback": [_P] * 13 + [_I] * 7 + [_P],
-    "tempo_merge_rank": [_P] * 3 + [_I] * 5 + [_P],
+    "tempo_merge_rank": [_P] * 4 + [_I] * 6 + [_P],
     "tempo_cumsum3": [_P] * 5 + [_I, _I, _P],
     "tempo_range_stats": [_P] * 8 + [_I] * 7 + [_P],
-    "tempo_legacy_stats": [_P] * 5 + [_I] * 6 + [_P],
+    "tempo_legacy_stats": [_P] * 7 + [_I] * 6 + [_P],
     "tempo_bucket_stats": [_P] * 8 + [_I] * 3 + [_P],
     "tempo_bucket_stats_ring": [_P] * 7 + [_I] * 5 + [_P],
     "tempo_range_stats_ring": [_P] * 7 + [_I] * 9 + [_P],

@@ -20,7 +20,9 @@ Counterpart of ``tempo_tpu/ops/pallas_merge.py``:
   parallel merge-path tiles with a look-back carry
   (``asof_merge_lookback_tiled_plain`` runs that design on the CPU);
 * ``merge_rank``: ``_make_rank_kernel`` (through ``_rank_call``) behind
-  ``merge_rank_pallas``.
+  ``merge_rank_pallas``; the TPU's merge network becomes merge-path tiles
+  of ``RANK_TILE`` merged positions, ``RANK_PER`` a thread
+  (``merge_rank_tiled_plain`` runs that design on the CPU).
 
 For every left row, the last right row at or before it in the total
 order (sid?, ts, seq?, side): right rows win full ties (the reference's
@@ -54,6 +56,9 @@ LOOKBACK_TILE = 1024
 #: rows a streaming multiprocessor below which the merge join runs on
 #: the lookback kernel's tiles (a row walk is one block a row)
 WALK_ROWS_PER_SM = 3
+#: merged positions a block of the rank kernel, and a thread
+#: (``csrc/merge_rank.cu`` kRankTile, kRankPer)
+RANK_TILE, RANK_PER = 2048, 8
 
 
 def seq_kernel_form(seq: Optional[np.ndarray]) -> Optional[np.ndarray]:
@@ -656,11 +661,69 @@ def merge_rank_plain(sorted_keys: torch.Tensor, sorted_queries: torch.Tensor,
     return rank
 
 
+def merge_rank_tiled_plain(sorted_keys: torch.Tensor,
+                           sorted_queries: torch.Tensor, side: str = "left",
+                           *, tile: int = RANK_TILE,
+                           per_thread: int = RANK_PER) -> torch.Tensor:
+    """:func:`merge_rank_plain`'s ranks by the rank kernel's merge-path
+    tiles, as tensor code: in the merge that takes a key before a query
+    iff key < query (side right: <=), each tile of ``tile`` merged
+    positions finds the keys before its two diagonals by a co-rank
+    search of the rows; each of its threads (``per_thread`` positions
+    apart) co-ranks its own diagonal within the tile's key and query
+    slices, then merges its positions in order, giving each query it
+    passes the keys taken so far."""
+    if side not in ("left", "right"):
+        raise ValueError(f"side must be 'left' or 'right', got {side!r}")
+    if tile % per_thread:
+        raise ValueError("a tile must be whole threads")
+    dt = torch.promote_types(sorted_keys.dtype, sorted_queries.dtype)
+    keys, qs = sorted_keys.to(dt), sorted_queries.to(dt)
+    K, Lk = keys.shape
+    Lq = qs.shape[-1]
+    dev = keys.device
+    rank = torch.zeros(K, Lq + 1, dtype=torch.int64, device=dev)
+    if Lk == 0 or Lq == 0 or K == 0:
+        return rank[:, :Lq]
+    right = side == "right"
+
+    def key_first(m, j):
+        """Whether key m goes before query j ([K, ...] row indices)."""
+        kv = torch.gather(keys, 1, m.clamp(0, Lk - 1).reshape(K, -1))
+        qv = torch.gather(qs, 1, j.clamp(0, Lq - 1).reshape(K, -1))
+        return (kv <= qv if right else kv < qv).reshape(m.shape)
+
+    n = Lk + Lq
+    nt = -(-n // tile)
+    d = (torch.arange(nt + 1, device=dev) * tile).clamp(max=n).expand(K, -1)
+    cut = _first_false((d - Lq).clamp(min=0), d.clamp(max=Lk),
+                       lambda m: key_first(m, d - 1 - m))     # [K, nt + 1]
+    i0, j0 = cut[:, :-1, None], (d - cut)[:, :-1, None]       # [K, nt, 1]
+    nk = cut[:, 1:, None] - i0
+    nq = (d - cut)[:, 1:, None] - j0
+    # each thread's first position in its tile, and its co-rank there
+    p = torch.arange(0, tile, per_thread, device=dev).expand(K, nt, -1)
+    live = p < nk + nq
+    ki = _first_false((p - nq).clamp(min=0), torch.minimum(p, nk),
+                      lambda m: key_first(i0 + m, j0 + p - 1 - m))
+    qi = p - ki
+    for _ in range(per_thread):
+        has_k, has_q = ki < nk, qi < nq
+        take_k = live & has_k & (~has_q | key_first(i0 + ki, j0 + qi))
+        take_q = live & ~take_k & has_q
+        at = torch.where(take_q, j0 + qi, Lq).reshape(K, -1)
+        rank.scatter_(1, at, (i0 + ki).reshape(K, -1))
+        ki = ki + take_k.long()
+        qi = qi + take_q.long()
+    return rank[:, :Lq].contiguous()
+
+
 def merge_rank_cuda(sorted_keys: torch.Tensor, sorted_queries: torch.Tensor,
                     side: str = "left") -> torch.Tensor:
     """Launch the rank kernel on int32/int64 [K, Lk] / [K, Lq] CUDA
     tensors (promoted to one type, as ``merge_rank_pallas`` does); int64
-    ranks."""
+    ranks.  One launch count covers the call's two kernels (the split
+    pass, then the tiles)."""
     if side not in ("left", "right"):
         raise ValueError(f"side must be 'left' or 'right', got {side!r}")
     dev = sorted_keys.device
@@ -678,8 +741,11 @@ def merge_rank_cuda(sorted_keys: torch.Tensor, sorted_queries: torch.Tensor,
     Lq = queries.shape[-1]
     out = torch.empty(K, Lq, dtype=torch.int64, device=dev)
     if K and Lq:
+        # the split pass's co-ranks: every tile's diagonals, then Lk + Lq
+        ncuts = -(-(Lk + Lq) // RANK_TILE) + 1
+        cuts = torch.empty(K, ncuts, dtype=torch.int32, device=dev)
         cuda_lib.launch("merge_rank", dev, "tempo_merge_rank",
                         keys.data_ptr(), queries.data_ptr(), out.data_ptr(),
-                        K, Lk, Lq, int(side == "right"),
-                        int(dt == torch.int64))
+                        cuts.data_ptr(), K, Lk, Lq, ncuts,
+                        int(side == "right"), int(dt == torch.int64))
     return out
