@@ -184,6 +184,28 @@ I. One series of 2^24 + 1 rows, one a second, 5% null x, on the card:
    and read after: each row's count equals the valid rows of its 11
    seconds and ``EMA_x`` is bitwise the plain ladder's.
 
+J. The sixth slice: the native packer, checkpoints, the store and Parquet
+   ingest.  a. Build the C++ packer (``tempo_tpu_torch/native``) and
+   print the compiler's version line and ``TEMPO_TPU_NATIVE_THREADS``.
+   b. On phase C's two frames and phase F's two frames: ``_sort_layout``,
+   ``take``, ``pack_column`` and ``unpack_column`` (host), native, numpy
+   (``TEMPO_TPU_NATIVE=0``) and native again, each timed, the native
+   results bitwise the numpy ones.  c. Phases C and H ran on the native
+   packer (the default); their chains again under ``TEMPO_TPU_NATIVE=0``
+   must give bitwise the same frames, both wall times printed step by
+   step.  d. ``io.ingest.sweep_slabs`` over phase H's left frame in 8
+   slabs of series (load: a host pack; compute: one upload, then
+   ``withRangeStats`` (10 s) and exact ``EMA`` on the card, read from the
+   launch counters; drain: a fetch) at ring depths 1, 2 and 3, bitwise
+   equal.  e. ``checkpoint.save_state`` of the planes of phase H's mesh
+   frame: a flipped byte in one array raises ``CheckpointError`` naming
+   it; a clean copy, loaded and uploaded, equals the planes bitwise.
+   f. Where pyarrow is installed: ``checkpoint.save``/``load`` of phase
+   H's joined mesh frame onto ``make_mesh()``, the chain continued
+   bitwise; ``TSDF.write`` of 64 users -> ``io.ingest.from_parquet`` onto
+   ``make_mesh()`` -> ``collect`` equal to the source (x as float32).
+   Without pyarrow one line says these parts did not run.
+
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line
 (each kernel's launches summed over the main-path runs of phases C, E,
 F, G's legacy step, H and I; the staged forms' rows, one a depth, name
@@ -250,17 +272,29 @@ def time_ms(fn, reps: int = 10) -> float:
 
 
 @contextlib.contextmanager
-def dma_depth(depth):
-    """``TEMPO_TPU_DMA_BUFFERS`` set to ``depth`` inside, restored after."""
-    old = os.environ.get("TEMPO_TPU_DMA_BUFFERS")
-    os.environ["TEMPO_TPU_DMA_BUFFERS"] = str(depth)
+def env_set(name: str, value):
+    """The environment variable ``name`` set to ``value`` inside, restored
+    after."""
+    old = os.environ.get(name)
+    os.environ[name] = str(value)
     try:
         yield
     finally:
         if old is None:
-            del os.environ["TEMPO_TPU_DMA_BUFFERS"]
+            del os.environ[name]
         else:
-            os.environ["TEMPO_TPU_DMA_BUFFERS"] = old
+            os.environ[name] = old
+
+
+def dma_depth(depth):
+    """``TEMPO_TPU_DMA_BUFFERS`` set to ``depth`` inside, restored after."""
+    return env_set("TEMPO_TPU_DMA_BUFFERS", depth)
+
+
+def native_off():
+    """``TEMPO_TPU_NATIVE=0`` inside (packing's numpy path), restored
+    after."""
+    return env_set("TEMPO_TPU_NATIVE", 0)
 
 
 def check_same(got, want, what: str) -> None:
@@ -1092,7 +1126,9 @@ def chain(TSDF, left, right, steps=None, max_lookback=0, window_secs=10,
     return out.df
 
 
-def phase_c(pd, TSDF, left, right, n, n_series):
+def phase_c(pd, TSDF, left, right, n, n_series, keep):
+    """The main path at full scale; its output frame and step times go
+    into ``keep["C"]`` for phase J."""
     from tempo_tpu_torch.ops import cuda_lib
 
     torch.cuda.synchronize()
@@ -1123,6 +1159,7 @@ def phase_c(pd, TSDF, left, right, n, n_series):
         f"by withRangeStats); launches {launches}")
     log("C steps (wall s, card synchronised after each): "
         + ", ".join(f"{k} {v:.3f}" for k, v in steps.items()))
+    keep["C"] = dict(df=df, steps=steps, seconds=seconds)
 
     # the same chain on a small slice: kernels (float32) vs the plain
     # versions on the CPU (float64)
@@ -2426,11 +2463,12 @@ def compare_card_cpu(card, cpu, what: str) -> float:
     return err
 
 
-def phase_h(pd, TSDF, left, right, n, n_series, c_seconds):
+def phase_h(pd, TSDF, left, right, n, n_series, c_seconds, keep):
     """The fifth slice: the distributed frame on one shard of the card at
     HHAR scale, its launch counters and pack/fetch events read around
     each chain; then 64 users on two shards of the card (bitwise equal
-    to one shard) and on the CPU (float64).  Returns the first chain's
+    to one shard) and on the CPU (float64).  The first chain's output and
+    step times go into ``keep["H"]`` for phase J.  Returns the chains'
     launch counts."""
     from tempo_tpu_torch import dist, make_mesh
     from tempo_tpu_torch.ops import cuda_lib, stream
@@ -2474,6 +2512,7 @@ def phase_h(pd, TSDF, left, right, n, n_series, c_seconds):
         f"{c_seconds:.3f} s; pack/fetch events {events}; launches {launches}")
     log("H steps (wall s, card synchronised after each): "
         + ", ".join(f"{k} {v:.3f}" for k, v in steps.items()))
+    keep["H"] = dict(df=grouped, steps=steps, seconds=seconds)
     log(f"H staged forms at the default depth "
         f"(TEMPO_TPU_DMA_BUFFERS={stream.dma_buffers()}): {plans}")
 
@@ -2557,6 +2596,279 @@ def phase_h(pd, TSDF, left, right, n, n_series, c_seconds):
     return add_counts(launches, tail_launches, deep_launches, hour_launches)
 
 
+def pack_steps(pd, df, value_col: str, what: str) -> dict:
+    """J.b: one frame's layout sort, gather, pack and unpack (host), the
+    native packer against the numpy path in turns, bitwise.  Returns the
+    seconds of each step both ways."""
+    from tempo_tpu_torch import packing
+
+    key_ids, key_frame = packing.encode_keys(df, ["user"])
+    ts_ns = packing.series_to_ns(df["event_ts"])
+    vals = df[value_col].to_numpy(np.float64)
+    times, outs = {}, {}
+    for path in ("native", "numpy", "native again"):
+        ctx = native_off() if path == "numpy" else contextlib.nullcontext()
+        t, o = {}, {}
+        with ctx:
+            t0 = time.perf_counter()
+            o["order"], o["starts"] = packing._sort_layout(
+                key_ids, ts_ns, None, len(key_frame))
+            t["_sort_layout"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            o["take"] = packing.take(vals, o["order"])
+            t["take"] = time.perf_counter() - t0
+            lay = packing.FlatLayout(
+                key_ids=packing.take(key_ids, o["order"]),
+                ts_ns=packing.take(ts_ns, o["order"]), order=o["order"],
+                starts=o["starts"], key_frame=key_frame)
+            L = packing.pad_length(int(lay.lengths.max(initial=0)))
+            t0 = time.perf_counter()
+            o["pack_column"] = packing.pack_column(o["take"], lay, L,
+                                                   fill=np.nan)
+            t["pack_column"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            o["unpack_column"] = packing.unpack_column(o["pack_column"], lay)
+            t["unpack_column"] = time.perf_counter() - t0
+        times[path], outs[path] = t, o
+    for k, a in outs["native"].items():
+        b = outs["numpy"][k]
+        if a.dtype != b.dtype or a.shape != b.shape \
+                or a.tobytes() != b.tobytes():
+            raise AssertionError(f"J {what}: native {k} differs from numpy")
+    log(f"J.b {what} ({len(df)} rows, {len(key_frame)} series, [K, L] = "
+        f"[{len(key_frame)}, {outs['native']['pack_column'].shape[1]}]), "
+        f"wall s native / numpy / native again, bitwise equal: "
+        + ", ".join(f"{k} {times['native'][k]:.4f} / {times['numpy'][k]:.4f}"
+                    f" / {times['native again'][k]:.4f}"
+                    for k in times["native"]))
+    return times
+
+
+def slab_sweep(pd, TSDF, left, n_series: int, ring: int):
+    """J.d: phase H's left frame in 8 slabs of series through
+    ``io.ingest.sweep_slabs``: load packs a slab on the host, compute
+    uploads it (one copy) and runs ``withRangeStats`` (10 s) then exact
+    ``EMA`` on the card, drain fetches it.  Returns (frame, seconds,
+    launches)."""
+    from tempo_tpu_torch import dist, make_mesh, packing
+    from tempo_tpu_torch.io import ingest
+    from tempo_tpu_torch.ops import cuda_lib
+
+    mesh = make_mesh({"series": 1}, devices=["cuda:0"])
+    dev = mesh.axis_devices("series")[0]
+    users = left["user"].to_numpy()
+    cuts = np.searchsorted(users, np.linspace(0, n_series, 9).astype(int))
+
+    def load(i):
+        t = TSDF(left.iloc[cuts[i]:cuts[i + 1]], "event_ts", ["user"])
+        lay, L = t.layout, t.packed_len()
+        x, ok = t.numeric_flat("x")
+        return t, [packing.pack_column(lay.ts_ns, lay, L,
+                                       fill=packing.TS_PAD),
+                   packing.row_mask(lay, L),
+                   packing.pack_column(x.astype(np.float32), lay, L,
+                                       fill=np.nan),
+                   packing.pack_column(ok, lay, L, fill=False)]
+
+    def compute(i, loaded):
+        t, planes = loaded
+        ts, mask, x, ok = dist._upload_planes(planes, dev)
+        d = dist.DistributedTSDF(
+            mesh, "series", None, [ts], [mask],
+            {"x": dist.DistCol([x], [ok])}, t.layout, "event_ts", ["user"],
+            t.ts_dtype(), t.df, {}, torch.float32)
+        return d.withRangeStats(colsToSummarize=["x"],
+                                rangeBackWindowSecs=10).EMA("x", exact=True)
+
+    def drain(i, d):
+        return d.collect().df
+
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    parts = ingest.sweep_slabs(8, load, compute, drain, ring=ring)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return (pd.concat(parts, ignore_index=True), seconds,
+            dict(cuda_lib.launches))
+
+
+def phase_j(pd, TSDF, frames, keep, n_series):
+    """The sixth slice: the native packer, resilience, checkpoints, the
+    store and Parquet ingest (see the module docstring, phase J)."""
+    import importlib.util
+
+    from tempo_tpu_torch import checkpoint, dist, make_mesh, native
+    from tempo_tpu_torch.testing import faults
+
+    card = card_line()
+    j0 = time.perf_counter()
+    t0 = time.perf_counter()
+    native.lib()
+    cxx = subprocess.run([native.CXX, "--version"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    log(f"J.a native packer: {cxx.stdout.splitlines()[0]}; "
+        f"TEMPO_TPU_NATIVE_THREADS={native.threads()} (os.cpu_count() "
+        f"{os.cpu_count()}); built or loaded in "
+        f"{time.perf_counter() - t0:.2f} s; card {card}")
+
+    left, right = frames["C"]
+    pack_steps(pd, left, "x", "phase C left")
+    pack_steps(pd, right, "wx", "phase C right")
+    pack_steps(pd, frames["F"][0], "x", "phase F left")
+    pack_steps(pd, frames["F"][1], "wx", "phase F right")
+
+    # J.c: phases C and H ran on the native packer; again on numpy
+    steps = {}
+    with native_off():
+        t0 = time.perf_counter()
+        df = chain(TSDF, left, right, steps=steps)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    pd.testing.assert_frame_equal(df, keep["C"]["df"], check_exact=True)
+    del df
+    log(f"J.c phase C chain, native / numpy packer, bitwise equal: "
+        f"{keep['C']['seconds']:.3f} / {seconds:.3f} s; steps "
+        + ", ".join(f"{k} {keep['C']['steps'][k]:.3f} / {v:.3f}"
+                    for k, v in steps.items()) + f"; card {card}")
+    mesh = make_mesh()
+    steps = {}
+    with native_off():
+        t0 = time.perf_counter()
+        ema, grouped = mesh_chain(TSDF, left, right, mesh, steps=steps)
+        seconds = time.perf_counter() - t0
+    del ema
+    pd.testing.assert_frame_equal(grouped, keep["H"]["df"], check_exact=True)
+    log(f"J.c phase H chain, native / numpy packer, bitwise equal: "
+        f"{keep['H']['seconds']:.3f} / {seconds:.3f} s; steps "
+        + ", ".join(f"{k} {keep['H']['steps'][k]:.3f} / {v:.3f}"
+                    for k, v in steps.items()) + f"; card {card}")
+    torch.cuda.empty_cache()
+
+    # J.d: the slab sweep at ring depths 1, 2 and 3
+    first = None
+    for ring in (1, 2, 3):
+        out, seconds, launches = slab_sweep(pd, TSDF, left, n_series, ring)
+        if launches["ema_ladder"] == 0 or \
+                launches["range_stats"] + launches["range_stats_ring"] == 0:
+            raise AssertionError(f"J sweep ring {ring}: launches {launches}")
+        if len(out) != len(left):
+            raise AssertionError(f"J sweep ring {ring}: {len(out)} rows")
+        if first is None:
+            first = out
+        else:
+            pd.testing.assert_frame_equal(out, first, check_exact=True)
+        log(f"J.d sweep_slabs of phase H's left frame in 8 slabs at ring "
+            f"{ring}: {seconds:.3f} s, bitwise equal to ring 1; launches "
+            f"{ {k: v for k, v in launches.items() if v} }; card {card}")
+    del first, out
+    torch.cuda.empty_cache()
+
+    # J.e: state snapshots of phase H's mesh frame planes
+    import tempfile
+
+    dl = TSDF(left, "event_ts", ["user"]).on_mesh(mesh)
+    planes = {"ts": dl.ts[0], "mask": dl.mask[0], "x": dl.cols["x"].values[0],
+              "x_valid": dl.cols["x"].valid[0]}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        checkpoint.save_state(planes, os.path.join(tmp, "bad"))
+        save_s = time.perf_counter() - t0
+        name = faults.corrupt_npz_array(os.path.join(tmp, "bad", "state.npz"),
+                                        "x")
+        try:
+            checkpoint.load_state(os.path.join(tmp, "bad"))
+        except checkpoint.CheckpointError as e:
+            if repr(name) not in str(e):
+                raise AssertionError(f"J flipped byte: {e} does not name "
+                                     f"{name!r}") from e
+        else:
+            raise AssertionError("J flipped byte: load_state raised nothing")
+        checkpoint.save_state(planes, os.path.join(tmp, "good"))
+        t0 = time.perf_counter()
+        arrays, _ = checkpoint.load_state(os.path.join(tmp, "good"))
+        names = list(planes)
+        back = dist._upload_planes([arrays[k] for k in names], dl.devices[0])
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        for k, t in zip(names, back):
+            if not torch.equal(t.view(torch.uint8), planes[k].contiguous()
+                               .view(torch.uint8)):
+                raise AssertionError(f"J save_state: plane {k} differs")
+        log(f"J.e save_state of the mesh frame's 4 planes "
+            f"({sum(a.nbytes for a in arrays.values())} bytes) in "
+            f"{save_s:.3f} s; a flipped byte in {name!r} raised "
+            f"CheckpointError naming it; load_state + one upload in "
+            f"{load_s:.3f} s, bitwise equal to the frame's planes; card "
+            f"{card}")
+
+        # J.f: the Parquet parts, where pyarrow is present
+        if importlib.util.find_spec("pyarrow") is None:
+            log("J.f not run: pyarrow is not installed on this machine "
+                "(checkpoint.save/load of a mesh frame and TSDF.write -> "
+                "from_parquet need it; they raise ImportError by name)")
+        else:
+            parquet_parts(pd, TSDF, left, right, mesh, dl, tmp, card)
+    log(f"J total: {time.perf_counter() - j0:.3f} s; card {card}")
+
+
+def parquet_parts(pd, TSDF, left, right, mesh, dl, tmp, card):
+    """J.f: a mesh checkpoint continued bitwise, and a table written then
+    ingested onto ``make_mesh()``."""
+    from tempo_tpu_torch import checkpoint, make_mesh
+    from tempo_tpu_torch.io import ingest
+
+    joined = dl.asofJoin(TSDF(right, "event_ts", ["user"]).on_mesh(mesh))
+    t0 = time.perf_counter()
+    checkpoint.save(joined, os.path.join(tmp, "mesh"))
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = checkpoint.load(os.path.join(tmp, "mesh"), mesh=make_mesh())
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+
+    def rest(d):
+        return d.withRangeStats(colsToSummarize=["x"],
+                                rangeBackWindowSecs=10).EMA(
+            "x", exact=True).withGroupedStats(
+            metricCols=["x", "right_wx", "EMA_x"],
+            freq="1 minute").collect().df
+
+    pd.testing.assert_frame_equal(rest(loaded), rest(joined),
+                                  check_exact=True)
+    del joined, loaded
+    torch.cuda.empty_cache()
+    log(f"J.f checkpoint.save of phase H's joined mesh frame in "
+        f"{save_s:.3f} s, load onto make_mesh() in {load_s:.3f} s; the "
+        f"chain continued (withRangeStats -> EMA -> withGroupedStats -> "
+        f"collect) bitwise equal to the uninterrupted one; card {card}")
+
+    part = left[left["user"] < 64]
+    t0 = time.perf_counter()
+    path = TSDF(part, "event_ts", ["user"]).write(
+        "j", base_dir=os.path.join(tmp, "wh"))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ingested = ingest.from_parquet(path, "event_ts", ["user"],
+                                   mesh=make_mesh())
+    got = ingested.collect().df
+    ingest_s = time.perf_counter() - t0
+    # ingest orders keys by their text ("10" before "2")
+    got = got.sort_values(["user", "event_ts"], kind="stable") \
+        .reset_index(drop=True)
+    compute = np.float32 if ingested.dtype == torch.float32 \
+        else np.float64
+    want = part.reset_index(drop=True).assign(
+        x=part["x"].to_numpy().astype(compute).astype(np.float64))
+    pd.testing.assert_frame_equal(
+        got[list(want.columns)], want, check_exact=True,
+        check_dtype=False)
+    log(f"J.f TSDF.write of 64 users ({len(part)} rows) in "
+        f"{write_s:.3f} s -> from_parquet onto make_mesh() -> collect in "
+        f"{ingest_s:.3f} s: equal to the source (x as "
+        f"{np.dtype(compute).name}); card {card}")
+
+
 def add_counts(*counts):
     """Launch counters of several runs, summed by kernel."""
     out = {}
@@ -2630,19 +2942,24 @@ def main(argv=None) -> int:
     rows5 = phase_b_bucket(pd, TSDF, left, right, left3, dev)
     torch.cuda.empty_cache()
     past = phase_b_past_limits(dev)
-    launches, c_seconds = phase_c(pd, TSDF, left, right, n, args.series)
+    keep = {}
+    launches, c_seconds = phase_c(pd, TSDF, left, right, n, args.series,
+                                  keep)
     phase_d(d_args)
     launches2 = phase_e(TSDF, right, n, args.series)
     launches3, long_launches = phase_f(pd, TSDF, left3, right3, n3,
                                        args.long_series)
-    del left3, right3
     torch.cuda.empty_cache()
     launches4, _ = phase_g(pd, TSDF, left, n, args.series)
     torch.cuda.empty_cache()
-    launches5 = phase_h(pd, TSDF, left, right, n, args.series, c_seconds)
-    del left, right
+    launches5 = phase_h(pd, TSDF, left, right, n, args.series, c_seconds,
+                        keep)
     torch.cuda.empty_cache()
     launches6 = phase_i(pd, TSDF)
+    phase_j(pd, TSDF, dict(C=(left, right), F=(left3, right3)), keep,
+            args.series)
+    del left, right, left3, right3
+    torch.cuda.empty_cache()
 
     # launches: summed over the main-path runs (phases C, E, F, G's legacy
     # step, H and I), each counted between a reset and a read

@@ -39,9 +39,40 @@ KNOBS = {
     "TEMPO_TPU_STRICT_SQL":
         "legacy alias of TEMPO_TPU_SQL_STRICT",
     "TEMPO_TPU_KERNEL_BUILD_DIR":
-        "directory the CUDA kernels are built into (default "
-        "tempo_tpu_torch/_build)",
+        "directory the CUDA kernels and the native packer are built into "
+        "(default tempo_tpu_torch/_build)",
+    "TEMPO_TPU_NATIVE":
+        "0 sends packing's sort, gather, pack and unpack to numpy instead "
+        "of the C++ packer (default on; read at every call)",
+    "TEMPO_TPU_NATIVE_THREADS":
+        "worker threads of one native packer call (default os.cpu_count())",
+    "TEMPO_TPU_BREAKER_THRESHOLD":
+        "consecutive failures of one key that open its circuit breaker "
+        "(default 3)",
+    "TEMPO_TPU_BREAKER_COOLDOWN_S":
+        "seconds an open circuit waits before it admits one half-open "
+        "probe (default 5.0)",
+    "TEMPO_TPU_WAREHOUSE":
+        "base directory of the tables TSDF.write writes and io.writer.read "
+        "reads (default tempo_tpu_warehouse)",
+    "TEMPO_TPU_STORE_SEGMENT_ROWS":
+        "rows a clustered segment of one store generation (default "
+        "1048576)",
+    "TEMPO_TPU_STORE_KEEP_GENERATIONS":
+        "store generations kept on disk, at least 1 (default 2)",
+    "TEMPO_TPU_STORE_COMPACT_MIN_SEGMENTS":
+        "segment count below which store.compact() does nothing (default "
+        "2)",
+    "TEMPO_TPU_INGEST_RING":
+        "slab-buffer ring depth of io.ingest.sweep_slabs and the "
+        "from_parquet shard loop; 1 runs serially (default 2)",
+    "TEMPO_TPU_INGEST_DEADLINE_S":
+        "default end-to-end deadline of from_parquet in seconds (unset: "
+        "none)",
 }
+
+#: environment variables of other systems that the port reads
+EXTERNAL_VARS = ("DATABRICKS_RUNTIME_VERSION",)
 
 
 def get(name: str, default: Optional[str] = None) -> Optional[str]:
@@ -59,6 +90,15 @@ def get_int(name: str, default: Optional[int] = None) -> Optional[int]:
     return int(val)
 
 
+def get_float(name: str, default: Optional[float] = None
+              ) -> Optional[float]:
+    """Float knob; unset or empty -> ``default``."""
+    val = get(name)
+    if val is None or not val.strip():
+        return default
+    return float(val)
+
+
 def get_bool(name: str, default: bool = False) -> bool:
     """Boolean knob: unset -> ``default``; '', '0', 'false', 'no' and
     'off' -> False; anything else -> True."""
@@ -66,3 +106,11 @@ def get_bool(name: str, default: bool = False) -> bool:
     if val is None:
         return default
     return val.strip().lower() not in ("", "0", "false", "no", "off")
+
+
+def env_external(name: str, default: Optional[str] = None) -> Optional[str]:
+    """Read of an environment variable of another system (one of
+    :data:`EXTERNAL_VARS`)."""
+    if name not in EXTERNAL_VARS:
+        raise KeyError(f"undeclared external variable {name!r}")
+    return os.environ.get(name, default)

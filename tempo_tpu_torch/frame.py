@@ -6,9 +6,11 @@ DataFrame-mirror ops (``select``, ``selectExpr``, ``filter``, ...; SQL
 strings through the host evaluator ``sql.py``), ``asofJoin``,
 ``withRangeStats``, ``withGroupedStats``, ``EMA``, ``vwap``, the lookback
 features, ``fourier_transform``, ``autocorr``, ``describe``, the
-resample family, ``fromOrderingColumns`` and ``on_mesh`` (the
-series-sharded ``DistributedTSDF``, ``dist.py``).  Not here: the I/O
-(``write``, arrow and Spark interop), ``explain`` and plan recording.  The frame wraps host pandas data plus a cache of packed
+resample family, ``fromOrderingColumns``, ``on_mesh`` (the
+series-sharded ``DistributedTSDF``, ``dist.py``) and the I/O (``write``
+through ``io/writer.py``, ``to_arrow``/``from_arrow``,
+``from_spark``/``to_spark``).  Not here: ``explain`` and plan
+recording.  The frame wraps host pandas data plus a cache of packed
 [K series, L lanes] tensors on its device; every op is eager (the
 reference's lazy planner is not part of this port), and every derived
 frame keeps the device and dtype.  ``device=None`` means the CUDA card;
@@ -198,7 +200,7 @@ class TSDF:
 
     def sorted_flat(self, col: str) -> np.ndarray:
         """Column values in the sorted flat layout (host)."""
-        return self.df[col].to_numpy()[self.layout.order]
+        return packing.take(self.df[col].to_numpy(), self.layout.order)
 
     def numeric_flat(self, col: str):
         """(float64 values, valid) in the sorted flat layout; NaN is
@@ -206,7 +208,8 @@ class TSDF:
         series = self.df[col]
         vals = pd.to_numeric(series, errors="coerce").to_numpy(dtype=np.float64)
         valid = ~pd.isna(series).to_numpy() & ~np.isnan(vals)
-        return vals[self.layout.order], valid[self.layout.order]
+        order = self.layout.order
+        return packing.take(vals, order), packing.take(valid, order)
 
     def packed_len(self) -> int:
         return packing.pad_length(int(self.layout.lengths.max(initial=0)))
@@ -399,6 +402,67 @@ class TSDF:
 
     def to_pandas(self) -> pd.DataFrame:
         return self.df
+
+    def to_arrow(self):
+        """The frame as a pyarrow Table."""
+        import pyarrow as pa
+
+        return pa.Table.from_pandas(self.df, preserve_index=False)
+
+    @classmethod
+    def from_arrow(cls, table, ts_col: str = "event_ts",
+                   partition_cols: Optional[Union[str, List[str]]] = None,
+                   sequence_col: Optional[str] = None,
+                   device: devices.DeviceLike = None,
+                   dtype: Union[str, torch.dtype, None] = None) -> "TSDF":
+        """A frame from a pyarrow Table (e.g. a Parquet read)."""
+        return cls(table.to_pandas(), ts_col, partition_cols, sequence_col,
+                   device=device, dtype=dtype)
+
+    @classmethod
+    def from_spark(cls, spark_df, ts_col: str = "event_ts",
+                   partition_cols: Optional[Union[str, List[str]]] = None,
+                   sequence_col: Optional[str] = None,
+                   device: devices.DeviceLike = None,
+                   dtype: Union[str, torch.dtype, None] = None) -> "TSDF":
+        """A frame from a Spark DataFrame (collected with ``toPandas``):
+        the hand-off from the original Spark library."""
+        return cls(spark_df.toPandas(), ts_col, partition_cols, sequence_col,
+                   device=device, dtype=dtype)
+
+    def to_spark(self, spark=None):
+        """The frame as a Spark DataFrame (through Arrow).  Needs pyspark;
+        for Spark-readable files without a session use
+        ``write(..., format="delta")``."""
+        try:
+            from pyspark.sql import SparkSession
+        except ImportError as e:
+            raise RuntimeError(
+                "to_spark() needs pyspark installed; alternatively "
+                "export files with write(..., format='delta') or "
+                "to_arrow()") from e
+        spark = spark or SparkSession.builder.getOrCreate()
+        spark.conf.set("spark.sql.execution.arrow.pyspark.enabled", "true")
+        return spark.createDataFrame(self.df)
+
+    def write(self, tabName=None, optimizationCols=None, spark=None,
+              base_dir=None, format: str = "parquet") -> str:
+        """Clustered columnar persistence (parity: tsdf.py:761-762,
+        io.py:10-43) through ``io/writer.py``; returns the table path.
+        Also takes the original library's ``write(spark, tabName,
+        optimizationCols)`` order.  ``format="delta"`` adds a Delta
+        transaction log."""
+        from tempo_tpu_torch.io import writer
+
+        if not isinstance(tabName, str) and isinstance(optimizationCols,
+                                                       str):
+            # write(spark, tabName, optimizationCols) positional call
+            tabName, optimizationCols = (
+                optimizationCols, spark if isinstance(spark, list) else None)
+        if not isinstance(tabName, str):
+            raise TypeError("write() requires a table name")
+        return writer.write(self, tabName, optimizationCols, base_dir,
+                            format=format)
 
     def on_mesh(self, mesh=None, time_axis=None, series_axis: str = "series",
                 halo_fraction: float = 0.5):

@@ -1,12 +1,19 @@
 """Ragged -> padded packing: the layout every kernel of the port reads.
 
-Counterpart of ``tempo_tpu/packing.py`` (numpy path only): the ragged
-per-key row groups of a pandas frame become dense ``[K series,
-L lanes]`` arrays with validity masks, sorted by (key, ts, seq) once at
-ingest so the kernels may assume sorted rows.  Time is int64
-nanoseconds; range windows compare per-series rebased int32 seconds.
-Everything here is host numpy; the frame layer moves the packed arrays
-to the device.
+Counterpart of ``tempo_tpu/packing.py``: the ragged per-key row groups
+of a pandas frame become dense ``[K series, L lanes]`` arrays with
+validity masks, sorted by (key, ts, seq) once at ingest so the kernels
+may assume sorted rows.  Time is int64 nanoseconds; range windows
+compare per-series rebased int32 seconds.  Everything here is host
+code; the frame layer moves the packed arrays to the device.
+
+The sort (:func:`_sort_layout`), the gather (:func:`take`) and the
+pack and unpack run the C++ engine (``native/``) unless
+``TEMPO_TPU_NATIVE=0``; its results are bitwise those of the numpy
+path.  Two cases stay on numpy whatever the knob says, as in the
+reference, because the engine cannot express them: object columns
+(no fixed item size) and ``uint64`` sequence values above 2^63 (the
+engine compares int64).
 """
 
 from __future__ import annotations
@@ -16,6 +23,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import pandas as pd
+
+from tempo_tpu_torch import native
 
 NS_PER_S = 1_000_000_000
 
@@ -138,6 +147,14 @@ class FlatLayout:
 
 def _sort_layout(key_ids, ts_ns, seq, n_series):
     """(order, starts) of the (key, ts, seq) total order."""
+    use_native = native.enabled()
+    if use_native and seq is not None and \
+            np.issubdtype(np.asarray(seq).dtype, np.unsignedinteger):
+        # uint64 ids above 2^63 would wrap through the engine's int64
+        use_native = seq.size == 0 or \
+            int(seq.max()) <= np.iinfo(np.int64).max
+    if use_native:
+        return native.sort_layout(key_ids, ts_ns, seq, n_series)
     if seq is not None:
         order = np.lexsort((seq, ts_ns, key_ids))
     else:
@@ -156,8 +173,17 @@ def build_flat_layout(df: pd.DataFrame, ts_col: str,
     # integer sequence columns stay exact (no float64 round trip)
     seq = pd.to_numeric(df[sequence_col]).to_numpy() if sequence_col else None
     order, starts = _sort_layout(key_ids, ts_ns, seq, len(key_frame))
-    return FlatLayout(key_ids=key_ids[order], ts_ns=ts_ns[order],
+    return FlatLayout(key_ids=take(key_ids, order),
+                      ts_ns=take(ts_ns, order),
                       order=order, starts=starts, key_frame=key_frame)
+
+
+def take(values: np.ndarray, order: np.ndarray) -> np.ndarray:
+    """``values[order]``: the engine's threaded gather for a fixed item
+    size."""
+    if values.dtype != object and native.enabled():
+        return native.take(values, order)
+    return values[order]
 
 
 def build_layout_from_codes(key_ids: np.ndarray, ts_ns: np.ndarray,
@@ -165,8 +191,8 @@ def build_layout_from_codes(key_ids: np.ndarray, ts_ns: np.ndarray,
                             n_series: int) -> FlatLayout:
     """:func:`build_flat_layout` with externally assigned series ids."""
     order, starts = _sort_layout(key_ids, ts_ns, seq, n_series)
-    return FlatLayout(key_ids=key_ids[order], ts_ns=ts_ns[order],
-                      order=order, starts=starts,
+    return FlatLayout(key_ids=take(key_ids, order),
+                      ts_ns=take(ts_ns, order), order=order, starts=starts,
                       key_frame=pd.DataFrame(index=range(n_series)))
 
 
@@ -186,6 +212,8 @@ def pack_column(values: np.ndarray, layout: FlatLayout,
     """Scatter a flat (key/ts-sorted) column into [K, L] dense form."""
     if padded_len is None:
         padded_len = pad_length(int(layout.lengths.max(initial=0)))
+    if values.dtype != object and native.enabled():
+        return native.pack(values, layout.starts, int(padded_len), fill)
     out = np.full((layout.n_series, padded_len), fill, dtype=values.dtype)
     out[layout.key_ids, _positions(layout)] = values
     return out
@@ -193,6 +221,8 @@ def pack_column(values: np.ndarray, layout: FlatLayout,
 
 def unpack_column(packed: np.ndarray, layout: FlatLayout) -> np.ndarray:
     """Gather [K, L] padded form back into the sorted flat layout."""
+    if packed.dtype != object and native.enabled():
+        return native.unpack(packed, layout.starts)
     return packed[layout.key_ids, _positions(layout)]
 
 
