@@ -206,10 +206,36 @@ J. The sixth slice: the native packer, checkpoints, the store and Parquet
    ``make_mesh()`` -> ``collect`` equal to the source (x as float32).
    Without pyarrow one line says these parts did not run.
 
+K. The seventh slice: the mesh's time axis on one card (four mesh
+   entries of cuda:0) at HHAR scale.  a. Phase H's chain on
+   ``make_mesh({"series": 2, "time": 2})`` and ``{"series": 1, "time":
+   4}`` with ``time_axis="time"``, each step timed with the card
+   synchronised beside phase H's; the counters must show the merge join,
+   a range-stats form, the EMA ladder and a bucket-stats form, with 2
+   packs and 1 fetch; against phase H's frame of the same run, the
+   join's columns and the range stats bitwise, ``EMA_x`` (ladder a time
+   block plus a ``torch.cumprod`` carry) and its grouped stats within
+   1e-5; ``relayout_comm_bytes`` of the two layout switches printed.
+   b. ``withRangeStats(strategy="halo")`` at ``halo_fraction`` 0.5 on
+   the ``time: 4`` mesh: the rank and ``cumsum3`` kernels launch; the
+   audit's count printed; on every row the audit leaves uncut, counts
+   equal the exact strategy's, mean, min, max and zscore within 1e-5,
+   sum within 1e-4 and the variance within 2e-3 (the windowed engine's
+   sums are differences of float32 prefix sums over the extended
+   block).
+   c. ``reshard_frame`` there and back on the ``series: 2, time: 2``
+   frame, every plane bitwise; phase H's tail (resample -> interpolate,
+   vwap) on that mesh equals phase H's (EMA_x within 1e-5).  d. Two
+   gloo ranks, subprocesses of this script (``--rank-worker``), each
+   with its shards on cuda:0 and a 240 s timeout: ``distributed_init``
+   -> ``process_series_range`` -> ``shard_series_global`` -> phase H's
+   chain on 64 users over a ``series: 2`` mesh spread over both ranks;
+   what each rank collects equals one process's run bitwise.
+
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line
 (each kernel's launches summed over the main-path runs of phases C, E,
-F, G's legacy step, H and I; the staged forms' rows, one a depth, name
-their counter), and last ``{"ok": true, "device": {...}}``.  Without a
+F, G's legacy step, H, I and K; the staged forms' rows, one a depth,
+name their counter), and last ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the repository's ``tempo_tpu_torch`` package
 beside it, it prints no result and exits with 2.
 """
@@ -1973,13 +1999,14 @@ def phase_g(pd, TSDF, left, n, n_series):
     return legacy, seconds
 
 
-def mesh_chain(TSDF, left, right, mesh, steps=None, grouped=True, **kw):
-    """Phase H's chain on ``mesh``: both frames packed once, joined,
-    range stats, exact EMA, then (``grouped``) 1-minute grouped stats of
-    x, the joined wx and the EMA, collected once.  Returns the EMA frame
-    (still on the mesh) and the collected grouped stats; ``steps`` (a
-    dict) collects each step's wall seconds, the card synchronised at
-    every step's end."""
+def mesh_chain(TSDF, left, right, mesh, steps=None, grouped=True,
+               time_axis=None, **kw):
+    """Phase H's chain on ``mesh`` (phase K's with ``time_axis``): both
+    frames packed once, joined, range stats, exact EMA, then
+    (``grouped``) 1-minute grouped stats of x, the joined wx and the EMA,
+    collected once.  Returns the EMA frame (still on the mesh) and the
+    collected grouped stats; ``steps`` (a dict) collects each step's wall
+    seconds, the card synchronised at every step's end."""
     t0 = time.perf_counter()
 
     def mark(name):
@@ -1989,8 +2016,10 @@ def mesh_chain(TSDF, left, right, mesh, steps=None, grouped=True, **kw):
             steps[name] = time.perf_counter() - t0
             t0 = time.perf_counter()
 
-    dl = TSDF(left, "event_ts", ["user"], **kw).on_mesh(mesh)
-    dr = TSDF(right, "event_ts", ["user"], **kw).on_mesh(mesh)
+    dl = TSDF(left, "event_ts", ["user"], **kw).on_mesh(mesh,
+                                                        time_axis=time_axis)
+    dr = TSDF(right, "event_ts", ["user"], **kw).on_mesh(mesh,
+                                                         time_axis=time_axis)
     mark("on_mesh x2")
     joined = dl.asofJoin(dr)
     mark("asofJoin")
@@ -2009,13 +2038,13 @@ def mesh_chain(TSDF, left, right, mesh, steps=None, grouped=True, **kw):
     return ema, out
 
 
-def mesh_tail(TSDF, ema, trades, mesh, **kw):
+def mesh_tail(TSDF, ema, trades, mesh, time_axis=None, **kw):
     """Phase H's second and third chains: resample -> interpolate of the
     EMA frame still on the mesh, and vwap of the trades frame."""
     filled = ema.resample("1 minute", "mean").interpolate(
         method="linear").collect().df
-    bars = TSDF(trades, "event_ts", ["symbol"], **kw).on_mesh(mesh).vwap(
-        "m").collect().df
+    bars = TSDF(trades, "event_ts", ["symbol"], **kw).on_mesh(
+        mesh, time_axis=time_axis).vwap("m").collect().df
     return filled, bars
 
 
@@ -2512,7 +2541,8 @@ def phase_h(pd, TSDF, left, right, n, n_series, c_seconds, keep):
         f"{c_seconds:.3f} s; pack/fetch events {events}; launches {launches}")
     log("H steps (wall s, card synchronised after each): "
         + ", ".join(f"{k} {v:.3f}" for k, v in steps.items()))
-    keep["H"] = dict(df=grouped, steps=steps, seconds=seconds)
+    keep["H"] = dict(df=grouped, steps=steps, seconds=seconds,
+                     planes=global_planes(ema))
     log(f"H staged forms at the default depth "
         f"(TEMPO_TPU_DMA_BUFFERS={stream.dma_buffers()}): {plans}")
 
@@ -2531,6 +2561,8 @@ def phase_h(pd, TSDF, left, right, n, n_series, c_seconds, keep):
         raise AssertionError("mesh vwap lost volume or is not finite")
     if filled["x"].isna().any():
         raise AssertionError("linear interpolation left holes in x")
+    keep["H"]["tail"] = (filled, bars)
+    keep["H"]["trades"] = trades
     log(f"H resample('1 minute', 'mean').interpolate('linear') of the EMA "
         f"frame ({len(filled)} grid rows) and vwap('m') of the trades copy "
         f"({len(bars)} bars): {tail_s:.3f} s; pack/fetch events "
@@ -2869,6 +2901,355 @@ def parquet_parts(pd, TSDF, left, right, mesh, dl, tmp, card):
         f"{np.dtype(compute).name}); card {card}")
 
 
+# ----------------------------------------------------------------------
+# Phase K: the mesh's time axis and two processes
+# ----------------------------------------------------------------------
+
+TIME_MESHES = ({"series": 2, "time": 2}, {"series": 1, "time": 4})
+# float32 EMA over time blocks: the ladder plus a torch.cumprod carry
+# against the ladder over whole rows (they associate the decay products
+# differently); the same bound holds grouped stats of EMA_x
+EMA_CARRY_TOL = 1e-5
+HALO_SUM_ATOL = 1e-4
+HALO_VAR_ATOL = 2e-3
+WORKER_USERS = 64
+
+
+def global_planes(frame) -> dict:
+    """Each column of a mesh frame as global [K, L] (values, validity)
+    tensors on the card."""
+    from tempo_tpu_torch.parallel.reshard import assemble
+
+    return {c: (assemble(col.values, frame.mesh, frame.spec),
+                assemble(col.valid, frame.mesh, frame.spec))
+            for c, col in frame.cols.items()}
+
+
+def counted(fn):
+    """``fn()`` with the launch counters zeroed before and read after:
+    (result, wall seconds, launches, (pack, fetch) events)."""
+    from tempo_tpu_torch import dist
+    from tempo_tpu_torch.ops import cuda_lib
+
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    p0, f0 = dist._PACK_EVENTS, dist._FETCH_EVENTS
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0, dict(cuda_lib.launches),
+            (dist._PACK_EVENTS - p0, dist._FETCH_EVENTS - f0))
+
+
+def check_close(got, want, what: str, tol: float) -> float:
+    """Raise unless two float tensors share their NaN pattern and agree
+    within ``tol`` (absolute + relative).  Returns the largest absolute
+    difference."""
+    if not torch.equal(torch.isnan(got), torch.isnan(want)):
+        raise AssertionError(f"{what}: NaN pattern differs")
+    diff = (got - want).abs().nan_to_num(0.0)
+    bound = tol + tol * want.abs().nan_to_num(0.0)
+    if bool((diff > bound).any()):
+        raise AssertionError(f"{what}: off by {float(diff.max())} "
+                             f"(tolerance {tol})")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def check_planes(got: dict, mask, want: dict, what: str) -> float:
+    """Phase K's planes against phase H's: the join's columns and the
+    range stats bitwise on phase H's lanes (phase K's longer rows hold
+    only padding past them: ``mask``, the frame's row mask, is False
+    there), EMA_x within ``EMA_CARRY_TOL`` where valid."""
+    err = 0.0
+    L = next(iter(want.values()))[0].shape[1]
+    if mask.shape[0] != next(iter(want.values()))[0].shape[0] \
+            or bool(mask[:, L:].any()):
+        raise AssertionError(f"{what}: other rows, or real rows past "
+                             f"phase H's {L} lanes")
+    for c, (wv, wok) in want.items():
+        gv, gok = got[c]
+        gv, gok = gv[:, :L], gok[:, :L]
+        if not torch.equal(gok, wok):
+            raise AssertionError(f"{what}: {c} validity differs")
+        if c.startswith("EMA"):
+            nan = torch.full_like(wv, float("nan"))
+            err = max(err, check_close(torch.where(wok, gv, nan),
+                                       torch.where(wok, wv, nan),
+                                       f"{what} {c}", EMA_CARRY_TOL))
+        elif not torch.equal(gv.view(torch.int32), wv.view(torch.int32)):
+            raise AssertionError(f"{what}: {c} not bitwise phase H's")
+    return err
+
+
+def check_frames(got, want, what: str) -> float:
+    """Collected frames: columns of EMA_x within ``EMA_CARRY_TOL``, every
+    other column equal."""
+    if list(got.columns) != list(want.columns) or len(got) != len(want):
+        raise AssertionError(f"{what}: frames differ in shape")
+    err = 0.0
+    for c in want.columns:
+        if "EMA" in c:
+            err = max(err, check_close(
+                torch.tensor(got[c].to_numpy(np.float64)),
+                torch.tensor(want[c].to_numpy(np.float64)),
+                f"{what} {c}", EMA_CARRY_TOL))
+        else:
+            pd_eq = got[c].equals(want[c])
+            if not pd_eq:
+                raise AssertionError(f"{what}: {c} differs")
+    return err
+
+
+def check_halo_stats(got: dict, ref: dict, rows, what: str) -> float:
+    """The halo strategy's stats (the windowed engine over extended
+    blocks) against the exact strategy's (the row-bounded kernel) on
+    ``rows``: count bitwise; mean, min, max, and zscore as x - mean,
+    within 1e-5; sum within ``HALO_SUM_ATOL`` and stddev, as the
+    variance, within ``HALO_VAR_ATOL``.  The windowed engine takes a
+    window's sums as differences of float32 prefix sums over the
+    extended block: the centred values' prefix sums reach ~sqrt(n) = 80
+    and the squares' ~n = 10^4 over its ~9,600 lanes at HHAR, float32
+    spacings of ~8e-6 and ~1e-3.  Returns the largest difference."""
+    nan = torch.full_like(ref["mean"], float("nan"))
+    pick = lambda t: torch.where(rows, t, nan)
+    if not torch.equal(pick(got["count"]).nan_to_num(-1.0),
+                       pick(ref["count"]).nan_to_num(-1.0)):
+        raise AssertionError(f"{what}: count differs")
+    flat = (got["stddev"] == 0) | (ref["stddev"] == 0)
+    pairs = {
+        "mean": (got["mean"], ref["mean"], 1e-5),
+        "min": (got["min"], ref["min"], 1e-5),
+        "max": (got["max"], ref["max"], 1e-5),
+        "sum": (got["sum"], ref["sum"], HALO_SUM_ATOL),
+        "stddev": (got["stddev"] ** 2, ref["stddev"] ** 2, HALO_VAR_ATOL),
+        "zscore": (torch.where(flat, nan, got["zscore"] * got["stddev"]),
+                   torch.where(flat, nan, ref["zscore"] * ref["stddev"]),
+                   1e-5),
+    }
+    err = 0.0
+    for k, (g, w, atol) in pairs.items():
+        g, w = pick(g), pick(w)
+        if not torch.equal(torch.isnan(g), torch.isnan(w)):
+            raise AssertionError(f"{what}: {k} NaN pattern differs")
+        diff = (g - w).abs().nan_to_num(0.0)
+        if bool((diff > atol + 1e-5 * w.abs().nan_to_num(0.0)).any()):
+            raise AssertionError(f"{what}: {k} off by {float(diff.max())}")
+        err = max(err, float(diff.max()))
+    return err
+
+
+def stats_of(frame, col: str) -> dict:
+    """A frame's range stats of ``col`` as global tensors."""
+    from tempo_tpu_torch.parallel.reshard import assemble
+
+    return {k: assemble(frame.cols[f"{k}_{col}"].values, frame.mesh,
+                        frame.spec)
+            for k in ("mean", "count", "min", "max", "sum", "stddev",
+                      "zscore")}
+
+
+def rank_worker(rank: int, port: int, out_dir: str, rows: int,
+                series: int) -> int:
+    """Phase K.d's rank: join the gloo group, route and place this rank's
+    series, run phase H's chain on a ``series: 2`` mesh spread over the
+    two ranks (shards on cuda:0) and write what it collects."""
+    import pandas as pd
+
+    sys.path.insert(0, str(HERE))
+    from tempo_tpu_torch import TSDF, packing
+    from tempo_tpu_torch.parallel import multihost as mh
+
+    mh.distributed_init(f"localhost:{port}", 2, rank, timeout_s=120,
+                        backend="gloo")
+    mesh = mh.process_mesh({"series": 2}, devices=["cuda:0"])
+    left, right, _ = make_frames(pd, rows, series)
+    lt = TSDF(left, "event_ts", ["user"])
+    lay = lt.layout
+    K_dev, L = 2 * -(-lay.n_series // 2), packing.pad_length(
+        int(lay.lengths.max()))
+    x, ok = lt.numeric_flat("x")
+    plane = packing.pack_column(x.astype(np.float32), lay, L, fill=np.nan)
+    plane = np.concatenate([plane, np.full((K_dev - lay.n_series, L),
+                                           np.nan, np.float32)])
+    lo, hi = mh.process_series_range(K_dev, mesh)
+    shards = mh.shard_series_global(plane[lo:hi], mesh, K_dev)
+    dl = lt.on_mesh(mesh)
+    mine = [i for i, r in enumerate(mesh.axis_ranks("series")) if r == rank]
+    for i in mine:
+        if not torch.equal(shards[i].view(torch.int32),
+                           dl.cols["x"].values[i].view(torch.int32)):
+            raise AssertionError(f"rank {rank}: shard_series_global's "
+                                 f"shard {i} differs from on_mesh's")
+    _, grouped = mesh_chain(TSDF, left, right, mesh)
+    grouped.to_pickle(os.path.join(out_dir, f"rank{rank}.pkl"))
+    print(f"rank {rank}/2: series [{lo}, {hi}) of {K_dev}, shards {mine}, "
+          f"{len(grouped)} bucket rows", flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def two_ranks(pd, TSDF, rows: int, series: int):
+    """K.d: two gloo ranks as subprocesses of this script (each with its
+    own timeout), their collected frames bitwise equal to one process's
+    run of the same chain on a ``series: 2`` mesh of cuda:0."""
+    import shutil
+    import socket
+    import tempfile
+
+    from tempo_tpu_torch import make_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    out_dir = tempfile.mkdtemp()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--rank-worker",
+         str(r), str(port), out_dir, "--rows", str(rows), "--series",
+         str(series)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=240)
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} failed ({p.returncode}):\n"
+                                 f"{out[-3000:]}")
+    left, right, _ = make_frames(pd, rows, series)
+    _, want = mesh_chain(TSDF, left, right,
+                         make_mesh({"series": 2}, devices=["cuda:0"] * 2))
+    for r in range(2):
+        got = pd.read_pickle(os.path.join(out_dir, f"rank{r}.pkl"))
+        pd.testing.assert_frame_equal(got, want, check_exact=True)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    lines = [ln for out in outs for ln in out.splitlines()
+             if ln.startswith("rank ")]
+    log(f"K.d two gloo ranks (subprocesses, shards on cuda:0, {len(left)} "
+        f"rows a side over {series} users) in {seconds:.3f} s: "
+        f"distributed_init -> process_series_range -> shard_series_global "
+        f"(equal to on_mesh's shards) -> phase H's chain on a series: 2 "
+        f"mesh over both ranks -> collect on each rank bitwise equal to "
+        f"one process's run; {'; '.join(lines)}")
+
+
+def phase_k(pd, TSDF, left, right, n, keep, rows, series):
+    """The time axis at HHAR scale on one card (four mesh entries on
+    cuda:0), and two processes.  Returns the main path's launch
+    counts."""
+    from tempo_tpu_torch import dist, make_mesh
+    from tempo_tpu_torch.parallel.reshard import assemble
+
+    want = keep["H"]["planes"]
+    counts = []
+    frames = {}
+    for axes in TIME_MESHES:
+        mesh = make_mesh(axes, devices=["cuda:0"] * 4)
+        steps = {}
+        (ema, grouped), seconds, launches, events = counted(
+            lambda: mesh_chain(TSDF, left, right, mesh, steps=steps,
+                               time_axis="time"))
+        counts.append(launches)
+        missing = [k for k in ("asof_merge", "ema_ladder")
+                   if launches[k] == 0]
+        if launches["range_stats"] + launches["range_stats_ring"] == 0:
+            missing.append("range_stats")
+        if launches["bucket_stats"] + launches["bucket_stats_ring"] == 0:
+            missing.append("bucket_stats")
+        if missing or events != (2, 1):
+            raise AssertionError(f"K chain on {axes}: launches {launches}, "
+                                 f"events {events}")
+        err = check_planes(global_planes(ema),
+                           assemble(ema.mask, ema.mesh, ema.spec), want,
+                           f"K {axes}")
+        err = max(err, check_frames(grouped, keep["H"]["df"],
+                                    f"K {axes} grouped stats"))
+        # withRangeStats(exact) switches the joined frame (x, right_wx
+        # and the three chunks of right_event_ts) to the series-local
+        # layout and the stats frame (those and seven stats) back
+        n_sh = mesh.axis_size(("series", "time"))
+        moved = {c: dist.relayout_comm_bytes(ema.K_dev, ema.L, c, n_sh)
+                 for c in (5, 12)}
+        log(f"K chain on {axes} (four entries of cuda:0, {n} rows a side, "
+            f"[{ema.K_dev}, {ema.L}] in [{ema.K_dev // axes['series']}, "
+            f"{ema.L // axes['time']}] blocks): {seconds:.3f} s; join "
+            f"columns and range stats bitwise phase H's, EMA_x and its "
+            f"grouped stats within {EMA_CARRY_TOL} (max abs err "
+            f"{err:.3g}); pack/fetch events {events}; launches {launches}")
+        log(f"K steps on {axes} (wall s, card synchronised after each): "
+            + ", ".join(f"{k} {v:.3f} (H {keep['H']['steps'][k]:.3f})"
+                        for k, v in steps.items()))
+        log(f"K relayout_comm_bytes on {axes} (a shard; {n_sh} shards): "
+            f"the joined frame to series-local {moved[5]} bytes, the stats "
+            f"frame back {moved[12]} bytes; together "
+            f"{n_sh * (moved[5] + moved[12])} bytes, "
+            f"{n_sh * (moved[5] + moved[12]) / HBM_BYTES_PER_S * 1e3:.3f} "
+            f"ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+        frames[tuple(axes.values())] = (mesh, ema)
+        del grouped
+    # b. the halo strategy on the time: 4 mesh
+    mesh4 = frames[(1, 4)][0]
+    dl = TSDF(left, "event_ts", ["user"]).on_mesh(mesh4, time_axis="time",
+                                                    halo_fraction=0.5)
+    halo, halo_s, halo_launches, _ = counted(
+        lambda: dl.withRangeStats(colsToSummarize=["x"],
+                                  rangeBackWindowSecs=10, strategy="halo"))
+    counts.append(halo_launches)
+    if halo_launches["merge_rank"] == 0 or halo_launches["cumsum3"] == 0:
+        raise AssertionError(f"K halo strategy: launches {halo_launches}")
+    clipped = halo.audit_counts()[-1][1]
+    exact = dl.withRangeStats(colsToSummarize=["x"], rangeBackWindowSecs=10)
+    got, ref = stats_of(halo, "x"), stats_of(exact, "x")
+    uncut = got["count"] == ref["count"]
+    n_cut = int((~uncut & ~torch.isnan(ref["count"])).sum())
+    if n_cut > clipped:
+        raise AssertionError(f"K halo: {n_cut} rows differ in count, the "
+                             f"audit counted {clipped}")
+    herr = check_halo_stats(got, ref, uncut, "K halo vs exact")
+    log(f"K withRangeStats(10 s, strategy='halo') at halo_fraction 0.5 on "
+        f"{{'series': 1, 'time': 4}} (halo {dl._halo(dl.L)} lanes): "
+        f"{halo_s:.3f} s; audit count {clipped}; counts equal to the exact "
+        f"strategy's on every uncut row ({n_cut} cut), mean, min, max and "
+        f"zscore within 1e-5, sum within {HALO_SUM_ATOL}, "
+        f"the variance within {HALO_VAR_ATOL} (max abs err {herr:.3g}); "
+        f"launches {halo_launches}")
+    del halo, exact, dl
+    # c. a reshard round trip, then phase H's tail on series: 2, time: 2
+    mesh22, ema22 = frames[(2, 2)]
+    local = dist.reshard_frame(ema22, dist.RESHARD_SERIES_LOCAL)
+    back = dist.reshard_frame(local, dist.RESHARD_TIME_SHARDED)
+    for c in ema22.cols:
+        for a, b in zip(ema22.cols[c].values + ema22.cols[c].valid,
+                        back.cols[c].values + back.cols[c].valid):
+            if not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
+                raise AssertionError(f"K reshard round trip changed {c}")
+    del local, back
+    (filled, bars), tail_s, tail_launches, tail_events = counted(
+        lambda: mesh_tail(TSDF, ema22, keep["H"]["trades"], mesh22,
+                          time_axis="time"))
+    counts.append(tail_launches)
+    terr = max(check_frames(filled, keep["H"]["tail"][0],
+                            "K resample/interpolate"),
+               check_frames(bars, keep["H"]["tail"][1], "K vwap"))
+    log(f"K reshard_frame round trip on {{'series': 2, 'time': 2}}: every "
+        f"plane bitwise; resample('1 minute', 'mean').interpolate('linear') "
+        f"and vwap('m') there in {tail_s:.3f} s equal phase H's tail (EMA_x "
+        f"within {EMA_CARRY_TOL}, max abs err {terr:.3g}); pack/fetch "
+        f"events {tail_events}; launches {tail_launches}")
+    del frames, ema22
+    torch.cuda.empty_cache()
+    # d. two gloo ranks
+    two_ranks(pd, TSDF, rows, series)
+    return add_counts(*counts)
+
+
 def add_counts(*counts):
     """Launch counters of several runs, summed by kernel."""
     out = {}
@@ -2884,6 +3265,8 @@ def main(argv=None) -> int:
     ap.add_argument("--series", type=int, default=1024)
     ap.add_argument("--long-series", type=int, default=128,
                     help="series of phase F's frames (the same --rows)")
+    ap.add_argument("--rank-worker", nargs=3, metavar=("RANK", "PORT", "DIR"),
+                    help="run one rank of phase K's two-process part")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2910,6 +3293,10 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
 
+    if args.rank_worker:
+        rank, port, out_dir = args.rank_worker
+        return rank_worker(int(rank), int(port), out_dir, args.rows,
+                           args.series)
     dev = torch.device("cuda")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -2958,13 +3345,20 @@ def main(argv=None) -> int:
     launches6 = phase_i(pd, TSDF)
     phase_j(pd, TSDF, dict(C=(left, right), F=(left3, right3)), keep,
             args.series)
-    del left, right, left3, right3
+    del left3, right3
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches7 = phase_k(pd, TSDF, left, right, n, keep,
+                        WORKER_USERS * (args.rows // args.series),
+                        WORKER_USERS)
+    log(f"K took {time.perf_counter() - t0:.1f} s")
+    del left, right, keep
     torch.cuda.empty_cache()
 
     # launches: summed over the main-path runs (phases C, E, F, G's legacy
-    # step, H and I), each counted between a reset and a read
+    # step, H, I and K), each counted between a reset and a read
     found = add_counts(launches, launches2, launches3, long_launches,
-                       launches4, launches5, launches6)
+                       launches4, launches5, launches6, launches7)
     rows["ema_ladder"].update(rows3.pop("_ema_phase_f"))
     kernels = []
     for table in (rows, rows2, rows3, rows4, rows5):

@@ -12,8 +12,9 @@ a checkpoint either package writes loads in the other:
   ``host.parquet`` and ``objects.parquet`` hold the host-resident state.
   A host :class:`~tempo_tpu_torch.frame.TSDF` is ``host.parquet``.
 * :func:`load` restores a mesh frame onto a caller's port ``Mesh`` (any
-  number of series shards; one host-to-device copy a shard through
-  ``dist._upload_planes``), or a host frame onto ``device``.
+  number of series shards, with or without a time axis: one
+  host-to-device copy a block through ``parallel.mesh.place_planes``), or a
+  host frame onto ``device``.
 * :func:`save_state` / :func:`load_state` snapshot a flat name -> array
   dict.
 
@@ -28,7 +29,7 @@ transient-IO retry policy.
 
 One process only: the reference reads its process index and count from
 the JAX runtime; here they are 0 and 1, and a ``torch.distributed`` run
-of several processes raises ``NotImplementedError`` (ROADMAP A10b).
+of several processes raises ``NotImplementedError`` (ROADMAP A10c).
 """
 
 from __future__ import annotations
@@ -54,23 +55,20 @@ logger = logging.getLogger(__name__)
 
 FORMAT_VERSION = 2
 
-# the reference's default halo fraction, recorded in mesh manifests (the
-# port has no time axis, so it has no halo of its own)
-_HALO_FRACTION = 0.5
-
 _IO_RETRY = resilience.retrying(resilience.DEFAULT_IO_POLICY,
                                 label="checkpoint-io")
 
 
-def _single_process() -> None:
+def _single_process(what: str = "checkpoints") -> None:
     """Refuse a run of several ``torch.distributed`` processes: the
-    port's checkpoints are written and read by one process."""
+    port's checkpoints (and the Parquet ingest and ``run_resumable``
+    built on them) are written and read by one process."""
     dist = torch.distributed
     if dist.is_available() and dist.is_initialized() \
             and dist.get_world_size() > 1:
         raise NotImplementedError(
-            f"checkpoints across {dist.get_world_size()} processes are not "
-            f"ported yet (ROADMAP A10b): save and load from one process")
+            f"{what} across {dist.get_world_size()} processes are not "
+            f"ported yet (ROADMAP A10c): run them from one process")
 
 
 # ----------------------------------------------------------------------
@@ -531,18 +529,17 @@ def _frame_planes(frame) -> Dict[str, list]:
     return planes
 
 
-def _fetch_shards(planes: Dict[str, list]) -> List[Dict[str, np.ndarray]]:
+def _fetch_shards(frame, planes: Dict[str, list]
+                  ) -> List[Dict[str, np.ndarray]]:
     """Every plane of every shard on the host: one device-to-host copy a
     shard."""
-    from tempo_tpu_torch.dist import _fetch_planes
+    from tempo_tpu_torch.dist import _fetch_shards as fetch
 
     names = list(planes)
-    n = len(planes["ts"])
-    out = []
-    for i in range(n):
-        got = _fetch_planes([planes[k][i] for k in names])
-        out.append(dict(zip(names, got)))
-    return out
+    got = fetch([[planes[k][i] for k in names]
+                 for i in range(len(planes["ts"]))],
+                frame.mesh.axis_ranks(frame.axes))
+    return [dict(zip(names, g)) for g in got]
 
 
 def _column_meta(frame):
@@ -587,7 +584,7 @@ def _dist_manifest(frame) -> dict:
         "partition_cols": frame.partitionCols,
         "ts_dtype": str(frame._ts_dtype),
         "host_cols": frame.host_cols,
-        "halo_fraction": _HALO_FRACTION,
+        "halo_fraction": frame.halo_fraction,
         "resampled": frame.resampled,
         "seq_col": frame.seq_col,
         "resample_freq": frame._resample_freq,
@@ -596,8 +593,8 @@ def _dist_manifest(frame) -> dict:
 
 
 def _save_dist(frame, d: str, meta: Optional[dict] = None) -> None:
-    shards = _fetch_shards(_frame_planes(frame))
-    arrays = {k: np.concatenate([s[k] for s in shards]) for k in shards[0]}
+    planes = _frame_planes(frame)
+    arrays = dict(zip(planes, frame._host_planes(list(planes.values()))))
     arrays.update(_layout_arrays(frame))
     col_meta, hg_arrays = _column_meta(frame)
     arrays.update(hg_arrays)
@@ -629,20 +626,22 @@ def _write_host_side(frame, d: str, obj_arrays: dict) -> None:
 
 
 def _save_dist_sharded(frame, d: str, meta: Optional[dict] = None) -> None:
-    """``shard_p0.npz`` with one block a shard of every plane, its
+    """``shard_p0.npz`` with one block a shard of every plane (a
+    time-sharded frame's blocks carry their lane ranges), its
     ``blocks_p0.json`` index, and ``host_arrays.npz``."""
+    from tempo_tpu_torch.parallel.mesh import block_slices
+
     planes = _frame_planes(frame)
-    shards = _fetch_shards(planes)
+    shards = _fetch_shards(frame, planes)
     local, blocks = {}, []
-    row0 = 0
-    for j, shard in enumerate(shards):
-        rows = int(shard["ts"].shape[0])
+    shape = (frame.K_dev, frame.L)
+    for j, (shard, (rs, ls)) in enumerate(zip(
+            shards, block_slices(frame.mesh, frame.spec, shape))):
         for name, arr in shard.items():
             blocks.append({"plane": name, "key": f"{name}_b{j}",
-                           "rows": [row0, row0 + rows],
-                           "lanes": [0, int(arr.shape[-1])]})
+                           "rows": [rs.start, rs.stop],
+                           "lanes": [ls.start, ls.stop]})
             local[f"{name}_b{j}"] = arr
-        row0 += rows
     shard_crcs = _savez(os.path.join(d, "shard_p0.npz"), local)
     with open(os.path.join(d, "blocks_p0.json"), "w") as f:
         json.dump({"blocks": blocks, "checksums": shard_crcs}, f)
@@ -659,7 +658,7 @@ def _save_dist_sharded(frame, d: str, meta: Optional[dict] = None) -> None:
         "columns": col_meta,
         "n_cols": len(frame.cols),
         "n_processes": 1,
-        "shape": [row0, frame.L],
+        "shape": list(shape),
         "has_seq": frame.seq is not None,
         "array_checksums": {"host_arrays.npz": host_crcs},
         "meta": meta or {},
@@ -706,23 +705,27 @@ def _read_host_state(d: str):
 
 def _place(man: dict, mesh, series_axis: str, time_axis: Optional[str],
            z, objs, key_frame, source_df, plane_fn, saved_shape):
-    """Build the port frame: every plane padded to the mesh's geometry and
-    cut into one shard a device, uploaded with one host-to-device copy a
-    shard.  ``plane_fn(name, fill)`` returns a saved global plane, or
-    None when absent."""
+    """Build the port frame: every plane padded to the mesh's geometry
+    (K a multiple of every axis the frame spans, L of 8 times its time
+    axis, as ``dist._mesh_packed_geometry``) and cut into one block a
+    device, uploaded with one host-to-device copy a block.
+    ``plane_fn(name, fill)`` returns a saved global plane, or None when
+    absent."""
     from tempo_tpu_torch import device as device_policy
     from tempo_tpu_torch import packing
-    from tempo_tpu_torch.dist import (DistCol, DistributedTSDF,
-                                      _time_axis_size, _upload_planes)
+    from tempo_tpu_torch.dist import DistCol, DistributedTSDF, _time_axis_size
+    from tempo_tpu_torch.parallel.mesh import place_planes
 
     if series_axis not in mesh.axis_names:
         raise ValueError(f"mesh has no axis named {series_axis!r}")
-    _time_axis_size(mesh, time_axis)
-    devs = mesh.axis_devices(series_axis)
-    n_s = len(devs)
+    n_t = _time_axis_size(mesh, time_axis)
+    spec = (series_axis, time_axis)
+    devs = mesh.axis_devices((series_axis, time_axis) if time_axis
+                             else series_axis)
+    k_mult = mesh.shape[series_axis] * n_t
     K, L = saved_shape
-    L_new = -(-L // 8) * 8
-    K_dev = max(1, -(-K // n_s)) * n_s
+    L_new = -(-L // (8 * n_t)) * (8 * n_t)
+    K_dev = max(1, -(-K // k_mult)) * k_mult
 
     def fit(a, fill):
         if a.shape != (K_dev, L_new):
@@ -749,9 +752,7 @@ def _place(man: dict, mesh, series_axis: str, time_axis: Optional[str],
         # the -inf encoding joins like a fresh frame (no-op otherwise)
         names.append("seq")
         host.append(fit(np.where(np.isnan(seq), -np.inf, seq), np.inf))
-    ks = K_dev // n_s
-    shards = [_upload_planes([p[i * ks:(i + 1) * ks] for p in host], dev)
-              for i, dev in enumerate(devs)]
+    shards = place_planes(host, mesh, spec)
     by_name = {n: [s[j] for s in shards] for j, n in enumerate(names)}
     cols = {}
     for i, cmeta in enumerate(col_specs):
@@ -779,7 +780,8 @@ def _place(man: dict, mesh, series_axis: str, time_axis: Optional[str],
         pd.api.types.pandas_dtype(man["ts_dtype"]), source_df,
         man["host_cols"], dtype, audits=audits, resampled=man["resampled"],
         seq=by_name.get("seq"), seq_col=man.get("seq_col") or "",
-        resample_freq=man.get("resample_freq"))
+        resample_freq=man.get("resample_freq"),
+        halo_fraction=float(man.get("halo_fraction", 0.5)))
 
 
 def _load_dist(d: str, man: dict, mesh, series_axis: str,

@@ -1,21 +1,27 @@
 """DistributedTSDF: the frame on a device mesh, its ops chained on the
 devices.
 
-Counterpart of ``tempo_tpu/dist.py``, for its series axis.
-``TSDF.on_mesh(...)`` packs the frame once, cuts the packed ``[K, L]``
-arrays along K into one shard a device of the mesh's ``series`` axis,
-and returns a :class:`DistributedTSDF` whose ops (``asofJoin``,
-``withRangeStats``, ``EMA``, ``resample``, ``calc_bars``,
-``interpolate``, ``withGroupedStats``, ``vwap``, ``describe``,
-``autocorr``, ``fourier_transform``, ``lookback_tensor``) run on each
-shard on its device, the results staying there across chained ops.
-``collect()`` brings the frame back to a host-backed :class:`TSDF` with
-one device-to-host copy a shard.
+Counterpart of ``tempo_tpu/dist.py``.  ``TSDF.on_mesh(...)`` packs the
+frame once, cuts the packed ``[K, L]`` arrays over the mesh and returns
+a :class:`DistributedTSDF` whose ops (``asofJoin``, ``withRangeStats``,
+``EMA``, ``resample``, ``calc_bars``, ``interpolate``,
+``withGroupedStats``, ``vwap``, ``describe``, ``autocorr``,
+``fourier_transform``, ``lookback_tensor``) run on each shard on its
+device, the results staying there across chained ops.  ``collect()``
+brings the frame back to a host-backed :class:`TSDF` with one
+device-to-host copy a shard.
 
 On a one-device mesh this is the engine's device-residency path: a chain
 of N ops does one pack and one fetch (``_PACK_EVENTS`` /
 ``_FETCH_EVENTS`` count them), where the host frame re-packs for every
 op.
+
+Layouts (``parallel/mesh.py``): a frame is cut along K over its
+``series`` axis and, with a ``time_axis``, along L over that axis too
+(a ``[K/n_s, L/n_t]`` block a device, ``from_tsdf``).  A series-local
+frame (:func:`reshard_frame`) holds whole rows over every device: its
+``series_axis`` is the joint tuple ``(series, time)`` and its
+``time_axis`` None, and every per-shard program runs on it unchanged.
 
 Design notes:
 
@@ -24,15 +30,23 @@ Design notes:
   in.  The join gathers the right frame's rows into the left frame's
   series order across shards (``_align_rows``: one ``index_select`` a
   source shard, moved to the destination shard's device).
+* On a time axis the per-series ops switch to the series-local layout
+  and back (:func:`reshard_frame`, or an all-to-all of the planes an op
+  reads), exactly where the reference does; the exact join joins whole
+  rows; ``EMA`` composes across time blocks (``parallel/halo.
+  ema_time_sharded``) and ``withRangeStats(strategy="halo")`` reads its
+  lookback through a neighbour halo with a deferred truncation audit.
 * Timestamps compute in int64 ns on the device.  The joined right
   timestamp rides the value planes as three 21-bit chunk planes (each
   exact in float32) and is recomposed to int64 ns at collect.
 * Counts ride as floats (exact below 2^24) and are cast to int64 at
   collect.
 * Non-numeric columns stay on the host and rejoin the frame at collect.
-* Only the series axis exists here: a mesh axis named as the time axis
-  must have size 1 (the time-sharded layout, its halo exchange and its
-  layout switches are not ported; ROADMAP A10b).
+* Several processes (``parallel/multihost.py``): a process uploads and
+  computes its own devices' shards (the others' are ``meta``
+  placeholders); the join's row gather and the time axis's moves cross
+  processes point to point, and ``collect()``, the deferred audits and
+  the host reductions gather host arrays over the process group.
 """
 
 from __future__ import annotations
@@ -56,7 +70,15 @@ from tempo_tpu_torch.ops import rolling as rk
 from tempo_tpu_torch.ops import sortmerge as sm
 from tempo_tpu_torch.ops import stats as legacy
 from tempo_tpu_torch.ops import window
-from tempo_tpu_torch.parallel.mesh import Mesh, default_mesh, shard_map, unzip
+from tempo_tpu_torch.parallel import halo as ph
+from tempo_tpu_torch.parallel.reshard import (
+    all_to_all_series_to_time, all_to_all_time_to_series, assemble, time_axes,
+)
+from tempo_tpu_torch.parallel.mesh import (
+    Mesh, default_mesh, host_gather, is_local, meta_like, place,
+    place_planes, process_index, shard_map, transfer, unzip,
+)
+from tempo_tpu_torch.parallel.mesh import upload_planes as _upload_planes
 
 logger = logging.getLogger(__name__)
 
@@ -77,8 +99,8 @@ class DistCol:
     """One device-resident column: a values shard and a validity shard a
     device, with materialisation hints."""
 
-    values: Shards             # [K_shard, L] compute dtype, one a shard
-    valid: Shards              # [K_shard, L] bool
+    values: Shards             # [K_shard, L_shard] compute dtype
+    valid: Shards              # [K_shard, L_shard] bool
     int64: bool = False        # cast to int64 at collect (counts)
     # (target ts column, bit shift): one 21-bit chunk of an int64-ns
     # timestamp; three such planes recompose the ts exactly at collect
@@ -94,23 +116,22 @@ def _time_axis_size(mesh: Mesh, time_axis: Optional[str]) -> int:
         return 1
     if time_axis not in mesh.axis_names:
         raise ValueError(f"mesh has no axis named {time_axis!r}")
-    n_t = mesh.shape[time_axis]
-    if n_t > 1:
-        raise NotImplementedError(
-            f"time axis {time_axis!r} of size {n_t}: the time-sharded "
-            f"layout (halo exchange, reshards, time-sharded joins and "
-            f"EMA) is not ported yet (ROADMAP A10b); use a series-only "
-            f"mesh or a time axis of size 1")
-    return n_t
+    return mesh.shape[time_axis]
 
 
-def _mesh_packed_geometry(layout, mesh: Mesh, series_axis: str):
-    """``(K_dev, L, n_series_shards)``: K rounded up to a multiple of the
-    shard count, L to a multiple of 8."""
+def _mesh_packed_geometry(layout, mesh: Mesh, series_axis: str,
+                          time_axis: Optional[str] = None):
+    """``(K_dev, L, n_series_shards, n_time)``: the reference's geometry.
+    K is a multiple of every mesh axis the frame spans (so the
+    layout-switching all-to-alls stay legal), L a multiple of 8 times
+    the time axis (``tempo_tpu/dist.py:1448-1462``)."""
     n_s = mesh.shape[series_axis]
-    K_dev = max(1, -(-layout.n_series // n_s)) * n_s
-    L = packing.pad_length(int(layout.lengths.max(initial=0)))
-    return K_dev, L, n_s
+    n_t = _time_axis_size(mesh, time_axis)
+    k_mult = n_s * n_t
+    K_dev = max(1, -(-layout.n_series // k_mult)) * k_mult
+    L = packing.pad_length(int(layout.lengths.max(initial=0)),
+                           multiple=8 * n_t)
+    return K_dev, L, n_s, n_t
 
 
 def _pad_k(arr: np.ndarray, K_dev: int, fill) -> np.ndarray:
@@ -121,45 +142,45 @@ def _pad_k(arr: np.ndarray, K_dev: int, fill) -> np.ndarray:
     return np.concatenate([arr, pad], axis=0)
 
 
-def _torch_dtype(np_dtype) -> torch.dtype:
-    return torch.from_numpy(np.empty(0, dtype=np_dtype)).dtype
-
-
-def _upload_planes(arrays: Sequence[np.ndarray], device) -> Shards:
-    """Host arrays -> tensors on ``device`` with ONE host-to-device copy:
-    their bytes concatenated (widest types first, so every plane starts
-    at a multiple of its item size), copied, and viewed back."""
-    order = sorted(range(len(arrays)), key=lambda i: -arrays[i].itemsize)
-    arrays = [np.ascontiguousarray(a) for a in arrays]
-    buf = np.concatenate([arrays[i].reshape(-1).view(np.uint8)
-                          for i in order]) if arrays else np.zeros(0, np.uint8)
-    dev = torch.from_numpy(buf).to(device)
-    out: List[Optional[torch.Tensor]] = [None] * len(arrays)
-    off = 0
-    for i in order:
-        a = arrays[i]
-        out[i] = dev[off:off + a.nbytes].view(
-            _torch_dtype(a.dtype)).reshape(a.shape)
-        off += a.nbytes
-    return out
+def _flat_host(tensors: Sequence[torch.Tensor]) -> np.ndarray:
+    """The bytes of tensors of one device on the host with ONE
+    device-to-host copy (their byte views concatenated on the device)."""
+    if not tensors:
+        return np.zeros(0, np.uint8)
+    return torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
+                      for t in tensors]).cpu().numpy()
 
 
 def _fetch_planes(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
-    """Tensors of one device -> host arrays with ONE device-to-host copy
-    (the byte views of all of them concatenated on the device)."""
-    if not tensors:
-        return []
-    ts = [t.contiguous() for t in tensors]
-    flat = torch.cat([t.reshape(-1).view(torch.uint8) for t in ts])
-    host = flat.cpu().numpy()
+    """Tensors of one device -> host arrays with one device-to-host
+    copy."""
+    return _split_host(_flat_host(tensors), tensors)
+
+
+def _split_host(host: np.ndarray, like: Sequence[torch.Tensor]
+                ) -> List[np.ndarray]:
     out, off = [], 0
-    for t in ts:
+    for t in like:
         dt = np.dtype(str(t.dtype).replace("torch.", ""))
         n = t.numel()
         out.append(np.frombuffer(host, dtype=dt, count=n,
                                  offset=off).reshape(tuple(t.shape)))
         off += n * dt.itemsize
     return out
+
+
+def _fetch_shards(per_shard: Sequence[Sequence[torch.Tensor]],
+                  ranks: Sequence[int]) -> List[List[np.ndarray]]:
+    """Each shard's tensors on the host, on every process: one
+    device-to-host copy a shard of this process, then the shards'
+    bytes broadcast from their owners over the process group (nothing
+    moves in one process)."""
+    bufs = [_flat_host(ts) if not ts or is_local(ts[0]) else None
+            for ts in per_shard]
+    sizes = [sum(t.numel() * t.element_size() for t in ts)
+             for ts in per_shard]
+    hosts = host_gather(bufs, ranks, sizes)
+    return [_split_host(h, ts) for h, ts in zip(hosts, per_shard)]
 
 
 def _key_perm(left_kf: pd.DataFrame, right_kf: pd.DataFrame,
@@ -181,31 +202,51 @@ def _key_perm(left_kf: pd.DataFrame, right_kf: pd.DataFrame,
     return perm, okp
 
 
-def _align_rows(src: Shards, dst_devices, perm: np.ndarray, ok: np.ndarray,
-                fill, row_axis: int = 0) -> Shards:
-    """Gather rows ``perm`` of a sharded array (rows on ``row_axis``) into
-    the destination shards (``len(perm)`` rows split evenly over
-    ``dst_devices``); rows where ``ok`` is False take ``fill``.  Each
-    destination shard takes one ``index_select`` from every source shard
-    that holds rows it needs, moved to its device."""
+def _align_rows(mesh: Mesh, src: Shards, src_axis, dst_axis,
+                perm: np.ndarray, ok: np.ndarray, fill,
+                row_axis: int = 0) -> Shards:
+    """Gather rows ``perm`` of an array held as whole rows over
+    ``src_axis`` (rows on ``row_axis``) into the whole-row shards of
+    ``dst_axis`` (``len(perm)`` rows split evenly); rows where ``ok`` is
+    False take ``fill``.  Each destination shard takes one
+    ``index_select`` from every source shard that holds rows it needs,
+    moved to its device (across processes too)."""
     ks_src = int(src[0].shape[row_axis])
-    n_dst = len(dst_devices)
+    src_ranks = mesh.axis_ranks(src_axis)
+    dst_devs, dst_ranks = mesh.axis_devices(dst_axis), \
+        mesh.axis_ranks(dst_axis)
+    n_dst = len(dst_devs)
     ks_dst = len(perm) // n_dst
     perm = np.clip(perm, 0, ks_src * len(src) - 1)
-    out = []
-    for d, dev in enumerate(dst_devices):
+    moves, plan = [], []
+    for d in range(n_dst):
         p = perm[d * ks_dst:(d + 1) * ks_dst]
         owner, local = p // ks_src, p % ks_src
-        pieces = []
         for j in np.unique(owner):
             sel = np.flatnonzero(owner == j)
-            idx = torch.from_numpy(local[sel]).to(src[j].device)
-            pieces.append((sel, src[j].index_select(row_axis, idx).to(dev)))
+            s = src[j]
+            shape = list(s.shape)
+            shape[row_axis] = len(sel)
+            if is_local(s):
+                idx = torch.from_numpy(local[sel]).to(s.device)
+                piece = s.index_select(row_axis, idx)
+            else:
+                piece = meta_like(s, shape)
+            moves.append((piece, src_ranks[j], dst_devs[d], dst_ranks[d]))
+            plan.append((d, sel))
+    moved = transfer(moves)
+    me = process_index()
+    out = []
+    for d, dev in enumerate(dst_devs):
+        pieces = [(sel, t) for (dd, sel), t in zip(plan, moved) if dd == d]
+        shape = list(src[0].shape)
+        shape[row_axis] = ks_dst
+        if dst_ranks[d] != me:
+            out.append(meta_like(src[0], shape))
+            continue
         if len(pieces) == 1:
             g = pieces[0][1]
         else:
-            shape = list(src[0].shape)
-            shape[row_axis] = ks_dst
             g = torch.empty(shape, dtype=src[0].dtype, device=dev)
             for sel, t in pieces:
                 g.index_copy_(row_axis, torch.from_numpy(sel).to(dev), t)
@@ -233,23 +274,40 @@ def _pick_range_engine_for_shard(shard_k: int, L: int, rb):
     return engine, (None if engine == "windowed" else rb)
 
 
-class DistributedTSDF:
-    """A TSDF whose packed arrays are sharded over a device mesh's series
-    axis and whose ops run on each shard's device."""
+def stream_mesh(n_devices: Optional[int] = None,
+                stream_axis: str = "streams",
+                devices: Optional[Sequence] = None) -> Mesh:
+    """A 1-D mesh whose one axis is the cohort stream axis, the
+    fleet-serving layout: scale-out is stream-parallel, so the whole
+    device budget goes to one axis (the first ``n_devices`` of
+    ``devices``, default every visible card)."""
+    from tempo_tpu_torch.parallel.mesh import make_mesh
 
-    def __init__(self, mesh: Mesh, series_axis: str,
-                 time_axis: Optional[str], ts: Shards, mask: Shards,
-                 cols: Dict[str, DistCol], layout, ts_col: str,
-                 partition_cols: List[str], ts_dtype, source_df,
+    if devices is None:
+        device_policy.resolve("cuda")
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    n = len(devices) if n_devices is None else int(n_devices)
+    return make_mesh({stream_axis: n}, devices=list(devices))
+
+
+class DistributedTSDF:
+    """A TSDF whose packed arrays are cut over a device mesh (its series
+    axis, and its time axis when it has one) and whose ops run on each
+    shard's device."""
+
+    def __init__(self, mesh: Mesh, series_axis, time_axis: Optional[str],
+                 ts: Shards, mask: Shards, cols: Dict[str, DistCol], layout,
+                 ts_col: str, partition_cols: List[str], ts_dtype, source_df,
                  host_cols: Dict[str, str], dtype: torch.dtype,
                  audits: Optional[List[Tuple[str, Shards]]] = None,
                  resampled: bool = False, seq: Optional[Shards] = None,
-                 seq_col: str = "", resample_freq: Optional[str] = None):
+                 seq_col: str = "", resample_freq: Optional[str] = None,
+                 halo_fraction: float = 0.5):
         self.mesh = mesh
-        self.series_axis = series_axis
+        self.series_axis = series_axis    # an axis name, or the joint tuple
         self.time_axis = time_axis
-        self.ts = ts                      # [K_shard, L] int64 ns, TS_PAD pads
-        self.mask = mask                  # [K_shard, L] bool (real rows)
+        self.ts = ts                      # [K_shard, L_shard] int64 ns
+        self.mask = mask                  # [K_shard, L_shard] bool
         self.cols = cols
         self.layout = layout
         self.ts_col = ts_col
@@ -260,53 +318,84 @@ class DistributedTSDF:
         self.dtype = dtype
         self.audits = list(audits or [])
         self.resampled = resampled
-        self.seq = seq                    # [K_shard, L] sort key or None
+        self.seq = seq                    # [K_shard, L_shard] sort key
         self.seq_col = seq_col
         self._resample_freq = resample_freq
+        self.halo_fraction = halo_fraction
 
     # ------------------------------------------------------------------
     # Construction
     # ------------------------------------------------------------------
 
     @property
+    def n_time(self) -> int:
+        return self.mesh.shape[self.time_axis] if self.time_axis else 1
+
+    @property
     def n_series_shards(self) -> int:
-        return self.mesh.shape[self.series_axis]
+        # a series-local frame (reshard_frame) cuts K over the joint
+        # (series, time) axis: the shard count is the product
+        return self.mesh.axis_size(self.series_axis)
+
+    @property
+    def axes(self):
+        """The mesh axes of the frame's flat shard list: (series, time)
+        on a time axis, else the series axis (or the joint tuple)."""
+        if self.time_axis is not None:
+            return (self.series_axis, self.time_axis)
+        return self.series_axis
+
+    @property
+    def spec(self) -> tuple:
+        """The layout of the frame's [K, L] planes."""
+        return (self.series_axis, self.time_axis)
 
     @property
     def devices(self) -> List[torch.device]:
-        return self.mesh.axis_devices(self.series_axis)
+        return self.mesh.axis_devices(self.axes)
 
     @property
     def L(self) -> int:
-        return int(self.ts[0].shape[1])
+        return int(self.ts[0].shape[1]) * self.n_time
 
     @property
     def K_dev(self) -> int:
-        return sum(int(t.shape[0]) for t in self.ts)
+        return int(self.ts[0].shape[0]) * self.n_series_shards
 
     def _map(self, fn, *shards) -> list:
-        return shard_map(fn, self.mesh, *shards, axis=self.series_axis)
+        return shard_map(fn, self.mesh, *shards, axis=self.axes)
+
+    def _halo(self, L: int) -> int:
+        shard = L // self.n_time
+        return max(1, min(shard, int(shard * self.halo_fraction)))
+
+    def _place(self, plane: np.ndarray) -> Shards:
+        """A global host [K_dev, L] plane cut into this frame's layout."""
+        return place(plane, self.mesh, self.spec)
 
     @classmethod
     def from_tsdf(cls, tsdf, mesh: Optional[Mesh] = None,
                   series_axis: str = "series",
                   time_axis: Optional[str] = None,
                   halo_fraction: float = 0.5) -> "DistributedTSDF":
-        """Pack a host TSDF and cut it over the mesh's series axis (the
-        ingest boundary, the analog of Spark's shuffle on the partition
-        columns): one host-to-device copy a shard.  With no mesh,
-        ``parallel.default_mesh`` of the frame's device: every visible
-        card for a CUDA frame, one shard for a CPU frame.
-        ``halo_fraction`` sizes the time axis's halo in the reference and
-        is accepted for the same calls; without a time axis it has no
-        effect."""
+        """Pack a host TSDF and cut it over the mesh (the ingest
+        boundary, the analog of Spark's shuffle on the partition
+        columns): along K over ``series_axis`` and, with ``time_axis``,
+        along L over it, one ``[K_dev/n_s, L/n_t]`` block a device with
+        one host-to-device copy a block (only the blocks of this
+        process's devices).  With no mesh, ``parallel.default_mesh`` of
+        the frame's device: every visible card for a CUDA frame, one
+        shard for a CPU frame.  ``halo_fraction`` sizes the time axis's
+        halo (``withRangeStats(strategy="halo")``)."""
         global _PACK_EVENTS
         if mesh is None:
             mesh = default_mesh(tsdf.device)
         if series_axis not in mesh.axis_names:
             raise ValueError(f"mesh has no axis named {series_axis!r}")
         _time_axis_size(mesh, time_axis)
-        devs = mesh.axis_devices(series_axis)
+        spec = (series_axis, time_axis)
+        devs = mesh.axis_devices(
+            (series_axis, time_axis) if time_axis else series_axis)
         if len({d.type for d in devs}) != 1:
             raise ValueError("a mesh's devices must be all CUDA or all CPU")
         dtype = (tsdf.dtype if tsdf.device.type == devs[0].type
@@ -314,7 +403,8 @@ class DistributedTSDF:
         dt = np.float32 if dtype == torch.float32 else np.float64
 
         layout = tsdf.layout
-        K_dev, L, n_s = _mesh_packed_geometry(layout, mesh, series_axis)
+        K_dev, L, _, _ = _mesh_packed_geometry(layout, mesh, series_axis,
+                                               time_axis)
         planes = [
             _pad_k(packing.pack_column(layout.ts_ns, layout, L,
                                        fill=packing.TS_PAD),
@@ -358,9 +448,7 @@ class DistributedTSDF:
                 host_cols[c] = c
         if has_seq:
             planes.append(seq_p)
-        ks = K_dev // n_s
-        shards = [_upload_planes([p[i * ks:(i + 1) * ks] for p in planes],
-                                 dev) for i, dev in enumerate(devs)]
+        shards = place_planes(planes, mesh, spec)
         ts_d = [s[0] for s in shards]
         mask_d = [s[1] for s in shards]
         cols = {c: DistCol([s[2 + 2 * j] for s in shards],
@@ -371,7 +459,8 @@ class DistributedTSDF:
         return cls(mesh, series_axis, time_axis, ts_d, mask_d, cols, layout,
                    tsdf.ts_col, tsdf.partitionCols, tsdf.ts_dtype(), tsdf.df,
                    host_cols, dtype, seq=seq_d,
-                   seq_col=tsdf.sequence_col or "")
+                   seq_col=tsdf.sequence_col or "",
+                   halo_fraction=halo_fraction)
 
     def _with(self, **kw) -> "DistributedTSDF":
         base = dict(
@@ -383,6 +472,7 @@ class DistributedTSDF:
             dtype=self.dtype,
             audits=self.audits, resampled=self.resampled, seq=self.seq,
             seq_col=self.seq_col, resample_freq=self._resample_freq,
+            halo_fraction=self.halo_fraction,
         )
         base.update(kw)
         return DistributedTSDF(**base)
@@ -392,13 +482,37 @@ class DistributedTSDF:
                 if col.ts_chunk is None and col.host_gather is None]
 
     def _stack(self, cols: Sequence[str]) -> Tuple[Shards, Shards]:
-        """[C, K_shard, L] value and validity stacks a shard."""
-        n = self.n_series_shards
+        """[C, K_shard, L_shard] value and validity stacks a shard."""
         vals = [torch.stack([self.cols[c].values[i] for c in cols])
-                for i in range(n)]
+                for i in range(len(self.ts))]
         valids = [torch.stack([self.cols[c].valid[i] for c in cols])
-                  for i in range(n)]
+                  for i in range(len(self.ts))]
         return vals, valids
+
+    def _to_local(self, *planes: Shards) -> List[Shards]:
+        """Planes of a time-sharded frame in the series-local layout, one
+        tiled all-to-all a plane (the reference's ``_to_series_local_fn``);
+        unchanged on any other layout."""
+        if self.n_time <= 1:
+            return list(planes)
+        return [all_to_all_series_to_time(p, self.mesh, self.series_axis,
+                                          self.time_axis)
+                for p in planes]
+
+    def _to_blocks(self, *planes: Shards) -> List[Shards]:
+        """The inverse of :meth:`_to_local`: series-local planes back to
+        this frame's time-sharded blocks."""
+        if self.n_time <= 1:
+            return list(planes)
+        return [all_to_all_time_to_series(p, self.mesh, self.series_axis,
+                                              self.time_axis)
+                for p in planes]
+
+    @property
+    def _local_axes(self):
+        """The axes of this frame's series-local layout."""
+        return (time_axes(self.mesh, self.series_axis, self.time_axis)
+                if self.n_time > 1 else self.axes)
 
     def _window_rowbounds(self, window_secs: float):
         """Static (max rows back, max tie rows ahead) of any
@@ -414,10 +528,11 @@ class DistributedTSDF:
 
     def _range_engine_choice(self, window_secs: float):
         """``(engine, rowbounds)`` of ``withRangeStats(exact)``: the host
-        frame's pick at one shard's size."""
+        frame's pick at one shard's size (whole rows: the exact strategy
+        runs series-local)."""
         if not sm.use_sort_kernels():
             return "windowed", None
-        shard_k = self.K_dev // self.n_series_shards
+        shard_k = self.K_dev // (self.n_series_shards * self.n_time)
         return _pick_range_engine_for_shard(
             shard_k, self.L, self._window_rowbounds(window_secs))
 
@@ -428,27 +543,62 @@ class DistributedTSDF:
     def withRangeStats(self, colsToSummarize=None,
                        rangeBackWindowSecs: int = 1000,
                        strategy: str = "exact") -> "DistributedTSDF":
-        """Rolling range stats, shard by shard.  On a series-only mesh
-        both strategies compute the exact Spark rangeBetween frames
-        (``"halo"`` exchanges nothing without a time axis and takes the
-        windowed form, as the reference does on one time shard)."""
+        """Rolling range stats.  On a time-sharded mesh:
+
+        * ``strategy="exact"`` (default): one switch to the series-local
+          layout (:func:`reshard_frame`), the series-local stats every
+          frame runs, and one switch back; exact Spark rangeBetween
+          frames for any window;
+        * ``strategy="halo"``: stay time-sharded and read the lookback
+          through a neighbour halo of ``halo_fraction`` of a block
+          (``parallel/halo.range_stats_time_sharded``); windows longer
+          than the halo are cut, and a deferred audit (a warning at
+          ``collect()``) counts the rows affected, the reference's own
+          ``tsPartitionVal`` trade-off (tsdf.py:164-190).
+
+        Without a time axis both strategies compute the exact frames
+        (``"halo"`` takes the windowed form, as the reference does on one
+        time shard)."""
         if strategy not in ("exact", "halo"):
             raise ValueError("strategy must be 'exact' or 'halo'")
+        if strategy == "exact" and self.n_time > 1:
+            local = reshard_frame(self, RESHARD_SERIES_LOCAL)
+            out = local.withRangeStats(
+                colsToSummarize=colsToSummarize,
+                rangeBackWindowSecs=rangeBackWindowSecs, strategy=strategy)
+            return reshard_frame(out, RESHARD_TIME_SHARDED)
         cols = colsToSummarize or self.numeric_columns()
         if not cols:
             return self._with()
         w = float(rangeBackWindowSecs)
+        new_cols = dict(self.cols)
+        audits = list(self.audits)
+        if strategy == "halo" and self.n_time > 1:
+            halo = self._halo(self.L)
+            secs = self._map(_secs, self.ts)
+            for c in cols:
+                col = self.cols[c]
+                valid = self._map(torch.logical_and, col.valid, self.mask)
+                stats, clipped = ph.range_stats_time_sharded(
+                    self.mesh, secs, col.values, valid, w, halo,
+                    time_axis=self.time_axis, series_axis=self.series_axis)
+                audits.append((
+                    f"withRangeStats({c}): %d rows had windows truncated "
+                    f"at the time-shard halo ({halo} rows); increase the "
+                    f"halo_fraction or shard count", clipped))
+                for stat in packing.RANGE_STATS:
+                    new_cols[f"{stat}_{c}"] = DistCol(
+                        stats[stat], self.mask, int64=(stat == "count"))
+            return self._with(cols=new_cols, audits=audits)
         if strategy == "exact":
             engine, rowbounds = self._range_engine_choice(w)
         else:
             engine, rowbounds = "windowed", None
         xs, vs = self._stack(cols)
         stats, clipped = unzip(self._map(
-            lambda ts, x, v: _range_stats_shard(ts, x, v, w, rowbounds,
-                                                engine),
-            self.ts, xs, vs))
-        new_cols = dict(self.cols)
-        audits = list(self.audits)
+            lambda ts, mask, x, v: _range_stats_shard(ts, x, v & mask, w,
+                                                      rowbounds, engine),
+            self.ts, self.mask, xs, vs))
         for ci, c in enumerate(cols):
             if rowbounds is not None:
                 # deferred audit: the host-derived row bounds cover every
@@ -470,10 +620,21 @@ class DistributedTSDF:
             exact: bool = False,
             inclusive_window: bool = False) -> "DistributedTSDF":
         """EMA with ``TSDF.EMA``'s defaults (the truncated-lag reference
-        form, or ``exact=True`` for the infinite-horizon ladder)."""
+        form, or ``exact=True`` for the infinite-horizon ladder).  The
+        exact form composes across time blocks (an associative carry,
+        ``parallel/halo.ema_time_sharded``); the truncated form does not,
+        so a time-sharded frame needs ``exact=True``."""
         col = self.cols[colName]
         alpha = float(exp_factor)
-        if exact:
+        if self.n_time > 1:
+            if not exact:
+                raise ValueError(
+                    "truncated-lag EMA does not cross time shards; use "
+                    "exact=True (or a series-only mesh)")
+            y = ph.ema_time_sharded(self.mesh, col.values, col.valid, alpha,
+                                    time_axis=self.time_axis,
+                                    series_axis=self.series_axis)
+        elif exact:
             y = self._map(lambda x, v: rk.ema_exact(x, v, alpha),
                           col.values, col.valid)
         else:
@@ -488,6 +649,22 @@ class DistributedTSDF:
     # Materialisation
     # ------------------------------------------------------------------
 
+    def _host_planes(self, planes: Sequence[Shards]) -> List[np.ndarray]:
+        """Global host arrays of [.., K, L] planes in this frame's layout:
+        one fetch a shard (the planes of a shard in one copy), the
+        blocks joined along L within a series group, then along K."""
+        per_shard = [[p[i] for p in planes] for i in range(len(self.ts))]
+        fetched = _fetch_shards(per_shard, self.mesh.axis_ranks(self.axes))
+        n_t = self.n_time
+        n_g = len(fetched) // n_t
+        out = []
+        for j in range(len(planes)):
+            rows = [np.concatenate([fetched[g * n_t + t][j]
+                                    for t in range(n_t)], axis=-1)
+                    for g in range(n_g)]
+            out.append(np.concatenate(rows, axis=-2))
+        return out
+
     def collect(self):
         """One device-to-host copy a shard -> a host-backed TSDF on the
         mesh's first device."""
@@ -495,18 +672,17 @@ class DistributedTSDF:
         from tempo_tpu_torch.frame import TSDF
 
         names = list(self.cols)
-        fetched = self._map(
-            lambda ts, mask, *rest: _fetch_planes([ts, mask, *rest]),
-            self.ts, self.mask,
-            *[self.cols[c].values for c in names],
-            *[self.cols[c].valid for c in names],
-            *[counts for _, counts in self.audits])
+        planes = [self.ts, self.mask] \
+            + [self.cols[c].values for c in names] \
+            + [self.cols[c].valid for c in names]
+        n_planes = len(planes)
+        # the audit counts ride the same fetch (a [1, 1] block a shard)
+        counts = [[c.reshape(1, 1) for c in counts]
+                  for _, counts in self.audits]
+        host = self._host_planes(planes + counts)
         _FETCH_EVENTS += 1
-        n_planes = 2 + 2 * len(names)
-        host = [np.concatenate([f[i] for f in fetched])
-                for i in range(n_planes)]
         for j, (msg, _) in enumerate(self.audits):
-            n = int(sum(float(f[n_planes + j]) for f in fetched))
+            n = int(round(float(host[n_planes + j].astype(np.float64).sum())))
             if n > 0:
                 logger.warning(msg, n) if "%d" in msg else logger.warning(msg)
         K = self.layout.n_series
@@ -574,11 +750,24 @@ class DistributedTSDF:
         return TSDF(pd.DataFrame(out), self.ts_col, self.partitionCols,
                     device=self.devices[0], dtype=self.dtype)
 
+    def audit_counts(self) -> List[Tuple[str, int]]:
+        """Each deferred audit's message and count, summed over the
+        shards (gathered over the process group), without a collect."""
+        if not self.audits:
+            return []
+        host = self._host_planes([[c.reshape(1, 1) for c in counts]
+                                  for _, counts in self.audits])
+        return [(msg, int(round(float(h.astype(np.float64).sum()))))
+                for (msg, _), h in zip(self.audits, host)]
+
     def to_pandas(self) -> pd.DataFrame:
         return self.collect().df
 
     def count(self) -> int:
-        return int(sum(int(m.sum()) for m in self.mask))
+        sums = self._map(lambda m: m.sum().reshape(1), self.mask)
+        got = _fetch_shards([[s] for s in sums],
+                            self.mesh.axis_ranks(self.axes))
+        return int(sum(int(g[0][0]) for g in got))
 
     def show(self, n: int = 20, truncate: bool = True) -> None:
         """Materialise and display (host TSDF.show semantics)."""
@@ -621,7 +810,7 @@ class DistributedTSDF:
         if tsPartitionVal is not None:
             logger.info("asofJoin: tsPartitionVal ignored on the mesh — "
                         "the packed layout needs no skew brackets")
-        if right.mesh != self.mesh or right.series_axis != self.series_axis:
+        if right.mesh != self.mesh:
             raise ValueError("both frames must live on the same mesh")
         if self.partitionCols != right.partitionCols:
             raise ValueError(
@@ -629,10 +818,17 @@ class DistributedTSDF:
             )
         perm, ok = _key_perm(self.layout.key_frame, right.layout.key_frame,
                              self.partitionCols, self.K_dev)
-        devs = self.devices
+        mesh = self.mesh
+        # the join runs on whole rows: a time-sharded side switches to its
+        # series-local layout (one all-to-all a plane), the right rows are
+        # gathered into the left's series-local shards, and the outputs
+        # switch back to the left's blocks
+        l_axes, r_axes = self._local_axes, right._local_axes
+        n_dst = mesh.axis_size(l_axes)
 
         def align(shards, fill, row_axis=0):
-            return _align_rows(shards, devs, perm, ok, fill, row_axis)
+            return _align_rows(mesh, shards, r_axes, l_axes, perm, ok, fill,
+                               row_axis)
 
         r_recs = list(right.cols.items())
         h_names = [c for c in right.host_cols
@@ -641,19 +837,13 @@ class DistributedTSDF:
         dt = self.dtype
         host_flat: Dict[str, np.ndarray] = {}
         h_notna: List[Shards] = []
-        if h_names:
-            ks_r = right.K_dev // right.n_series_shards
-            for c in h_names:
-                flat = right._source_df[right.host_cols[c]].to_numpy()[
-                    right.layout.order]
-                host_flat[c] = flat
-                pm = _pad_k(packing.pack_column(
-                    ~pd.isna(flat), right.layout, right.L, fill=False),
-                    right.K_dev, False)
-                h_notna.append([
-                    torch.from_numpy(np.ascontiguousarray(
-                        pm[i * ks_r:(i + 1) * ks_r])).to(d)
-                    for i, d in enumerate(right.devices)])
+        for c in h_names:
+            flat = right._source_df[right.host_cols[c]].to_numpy()[
+                right.layout.order]
+            host_flat[c] = flat
+            h_notna.append(right._place(_pad_k(packing.pack_column(
+                ~pd.isna(flat), right.layout, right.L, fill=False),
+                right.K_dev, False)))
 
         # value stack layout (offsets named below):
         #   [0, n)              right col values (all kinds)
@@ -681,14 +871,15 @@ class DistributedTSDF:
                 vstack = [mask] * len(planes)
             return torch.stack(planes), torch.stack(vstack)
 
-        pstack, vstack = unzip(shard_map(
-            right_stacks, right.mesh, right.ts, right.mask,
-            *[col.values for _, col in r_recs],
-            *[col.valid for _, col in r_recs], *h_notna,
-            axis=right.series_axis))
+        r_local = right._to_local(right.ts, right.mask,
+                                  *[col.values for _, col in r_recs],
+                                  *[col.valid for _, col in r_recs],
+                                  *h_notna)
+        pstack, vstack = unzip(shard_map(right_stacks, mesh, *r_local,
+                                         axis=r_axes))
         pstack = align(pstack, float("nan"), row_axis=1)
         vstack = align(vstack, False, row_axis=1)
-        r_ts = align(right.ts, int(packing.TS_PAD))
+        r_ts = align(r_local[0], int(packing.TS_PAD))
 
         ml = int(maxLookback or 0)
         # resampled (bucket-head) views keep real-looking ts on masked
@@ -696,10 +887,9 @@ class DistributedTSDF:
         # sorted to the row's tail first, on either side
         compact = bool(ml and right.resampled)
         compact_left = bool(ml and self.resampled)
-        r_mask = (align(right.mask, False) if compact
-                  else [None] * len(devs))
-        r_seq = (align(right.seq, float("inf")) if right.seq is not None
-                 else [None] * len(devs))
+        r_mask = (align(r_local[1], False) if compact else [None] * n_dst)
+        r_seq = (align(right._to_local(right.seq)[0], float("inf"))
+                 if right.seq is not None else [None] * n_dst)
 
         def join(l_ts, l_mask, rt, rm, rs, vs, ps):
             if compact:
@@ -712,8 +902,10 @@ class DistributedTSDF:
                 vals, found = _uncompact_left(src, vals, found)
             return vals, found
 
-        vals, found = unzip(self._map(join, self.ts, self.mask, r_ts, r_mask,
-                                      r_seq, vstack, pstack))
+        l_ts, l_mask = self._to_local(self.ts, self.mask)
+        vals, found = unzip(shard_map(join, mesh, l_ts, l_mask, r_ts, r_mask,
+                                      r_seq, vstack, pstack, axis=l_axes))
+        vals, found = self._to_blocks(vals, found)
 
         def plane(p):
             return [v[p] for v in vals], [f[p] for f in found]
@@ -777,6 +969,13 @@ class DistributedTSDF:
         and the columns hold the bucket's aggregate there.  ``collect()``
         compacts the view; chained ops treat it as any masked frame."""
         validateFuncExists(func)
+        if self.n_time > 1:
+            # a whole-frame switch to the series-local layout, the
+            # series-local resample, and a switch back
+            local = reshard_frame(self, RESHARD_SERIES_LOCAL)
+            return reshard_frame(local.resample(freq, func,
+                                                metricCols=metricCols),
+                                 RESHARD_TIME_SHARDED)
         step = freq_to_seconds(freq) * packing.NS_PER_S
         cols = metricCols or self.numeric_columns()
         fkey = {floor: 0, ceiling: 1, average: 2, min_func: 3,
@@ -818,10 +1017,15 @@ class DistributedTSDF:
     # ------------------------------------------------------------------
 
     def _bucket_stats(self, step_ns: int, xs: Shards, vs: Shards):
-        return unzip(self._map(
+        """Bucket stats of [C, K, L] stacks; a time-sharded frame's
+        planes switch to the series-local layout around the reduction
+        (the reference's ``_bucket_stats_fn``)."""
+        ts, mask, xs, vs = self._to_local(self.ts, self.mask, xs, vs)
+        out = unzip(shard_map(
             lambda ts, mask, x, v: _bucket_stats_shard(ts, mask, x, v,
                                                        step_ns),
-            self.ts, self.mask, xs, vs))
+            self.mesh, ts, mask, xs, vs, axis=self._local_axes))
+        return tuple(self._to_blocks(*out))
 
     def withGroupedStats(self, metricCols=None,
                          freq: str = None) -> "DistributedTSDF":
@@ -894,6 +1098,12 @@ class DistributedTSDF:
                 f"Please select from one of the following fill options: "
                 f"['zero', 'null', 'bfill', 'ffill', 'linear']: got {method}"
             )
+        if self.n_time > 1:
+            # the result is a new dense frame: the inputs switch to the
+            # series-local layout once and the grid stays there
+            return reshard_frame(self, RESHARD_SERIES_LOCAL).interpolate(
+                freq=freq, func=func, method=method, target_cols=target_cols,
+                show_interpolated=show_interpolated)
         if self.resampled:
             freq = freq or self._resample_freq
             if freq != self._resample_freq:
@@ -961,8 +1171,10 @@ class DistributedTSDF:
             vs = [torch.zeros((0,) + tuple(t.shape), dtype=torch.bool,
                               device=t.device) for t in self.ts]
         parts = self._map(_describe_shard, self.ts, self.mask, xs, vs)
-        r = _combine_describe([{k: v.cpu().numpy() for k, v in p.items()}
-                               for p in parts])
+        keys = list(_DESCRIBE_COMBINE)
+        host = _fetch_shards([[p[k] for k in keys] for p in parts],
+                             self.mesh.axis_ranks(self.axes))
+        r = _combine_describe([dict(zip(keys, h)) for h in host])
 
         n = int(r["n_rows"])
         gran = classify_granularity(r["has_frac"], r["sub_min"],
@@ -1031,13 +1243,18 @@ class DistributedTSDF:
         Bucket-head views first move their valid rows to the front of the
         row (a stable sort), so the lag pairs consecutive observations."""
         dcol = self.cols[col]
-        res = self._map(
+        # the lag pairs need series-contiguous rows: a time-sharded
+        # frame's three planes switch to the series-local layout
+        planes = self._to_local(dcol.values, dcol.valid, self.mask)
+        axes = self._local_axes
+        res = shard_map(
             lambda v, ok, mask: _autocorr_shard(v, ok, mask, int(lag),
                                                 self.resampled),
-            dcol.values, dcol.valid, self.mask)
+            self.mesh, *planes, axis=axes)
+        host = _fetch_shards([list(r) for r in res],
+                             self.mesh.axis_ranks(axes))
         K = self.layout.n_series
-        ac_h, cnt_h, len_h = (np.concatenate([r[i].cpu().numpy()
-                                              for r in res])[:K]
+        ac_h, cnt_h, len_h = (np.concatenate([h[i] for h in host])[:K]
                               for i in range(3))
         # a series yields a row only when the numerator join is
         # non-empty (reference tsdf.py:248-253)
@@ -1071,9 +1288,18 @@ class DistributedTSDF:
                 "bucket-head (resampled) view" if self.resampled
                 else "no plain device plane for the column")
             host = self.collect().fourier_transform(timestep, valueCol)
+            s_ax, t_ax = self.series_axis, self.time_axis
+            if isinstance(s_ax, tuple):
+                # a series-local frame packs again onto the plain series
+                # axis (nothing of its layout is left to keep)
+                s_ax, t_ax = s_ax[0], None
             return DistributedTSDF.from_tsdf(
-                host, self.mesh, series_axis=self.series_axis,
-                time_axis=self.time_axis)
+                host, self.mesh, series_axis=s_ax, time_axis=t_ax,
+                halo_fraction=self.halo_fraction)
+        if self.n_time > 1:
+            local = reshard_frame(self, RESHARD_SERIES_LOCAL)
+            return reshard_frame(local.fourier_transform(timestep, valueCol),
+                                 RESHARD_TIME_SHARDED)
         vc = matches[0]
         col = self.cols[vc]
         lengths = _pad_k(self.layout.lengths, self.K_dev, 0)
@@ -1081,7 +1307,7 @@ class DistributedTSDF:
         freq, ftr, fti = unzip(self._map(
             lambda v, mask, i: _fourier_shard(
                 v, mask, lengths[i * ks:(i + 1) * ks], float(timestep)),
-            col.values, self.mask, list(range(self.n_series_shards))))
+            col.values, self.mask, list(range(len(self.ts)))))
         new_cols = {
             vc: col,
             "freq": DistCol(freq, self.mask),
@@ -1134,13 +1360,83 @@ class DistributedTSDF:
                 f"{bad} are missing or host/join-resident "
                 f"(available: {sorted(eligible)})")
         w = int(lookbackWindowSize)
-        xs, vs = self._stack(cols)
-        vals, masks = unzip(self._map(
+        # the shifts cross time blocks: a time-sharded frame's stacks
+        # switch to the series-local layout first
+        xs, vs = self._to_local(*self._stack(cols))
+        axes = self._local_axes
+        vals, masks = unzip(shard_map(
             lambda x, v: lookback_stack(x.permute(1, 2, 0),
-                                        v.permute(1, 2, 0), w), xs, vs))
-        dev = self.mesh.axis_devices(self.series_axis)[0]
-        return (torch.cat([t.to(dev) for t in vals]),
-                torch.cat([t.to(dev) for t in masks]))
+                                        v.permute(1, 2, 0), w),
+            self.mesh, xs, vs, axis=axes))
+        spec = (axes, None, None, None)
+        return (assemble(vals, self.mesh, spec),
+                assemble(masks, self.mesh, spec))
+
+
+# ----------------------------------------------------------------------
+# Layout switches of the time axis
+# ----------------------------------------------------------------------
+
+#: targets of :func:`reshard_frame`: ``series_local`` re-lays a
+#: time-sharded frame so every device owns whole series (K cut over the
+#: joint (series, time) axis, rows whole), the layout every per-series
+#: op wants; ``time_sharded`` is the inverse.
+RESHARD_SERIES_LOCAL = "series_local"
+RESHARD_TIME_SHARDED = "time_sharded"
+
+
+def reshard_frame(d: DistributedTSDF, target: str) -> DistributedTSDF:
+    """The whole-frame layout switch: every plane of the frame (ts,
+    mask, each column's values and validity, seq) moves in one call, by
+    the tiled all-to-all of ``parallel/reshard.py``.  The global logical
+    ``[K, L]`` arrays are bitwise the same before and after (blocks
+    move; nothing computes).  A no-op when the frame is already in the
+    target layout.  Deliberately whole-frame, untouched columns too: a
+    frame's planes always share one layout."""
+    if target == RESHARD_SERIES_LOCAL:
+        if d.time_axis is None:
+            return d
+        s_ax, t_ax = d.series_axis, d.time_axis
+        new_series, new_time = (s_ax, t_ax), None
+        move = all_to_all_series_to_time
+    elif target == RESHARD_TIME_SHARDED:
+        if d.time_axis is not None or not (
+                isinstance(d.series_axis, tuple)
+                and len(d.series_axis) == 2):
+            return d
+        s_ax, t_ax = d.series_axis
+        new_series, new_time = s_ax, t_ax
+        move = all_to_all_time_to_series
+    else:
+        raise ValueError(f"unknown reshard target {target!r}")
+    names = list(d.cols)
+    planes = [d.ts, d.mask] + [d.cols[c].values for c in names] \
+        + [d.cols[c].valid for c in names] \
+        + ([d.seq] if d.seq is not None else [])
+    if d.mesh.shape[t_ax] > 1:
+        planes = [move(p, d.mesh, s_ax, t_ax) for p in planes]
+    n = len(names)
+    new_cols = {c: dataclasses.replace(d.cols[c], values=planes[2 + j],
+                                       valid=planes[2 + n + j])
+                for j, c in enumerate(names)}
+    return d._with(ts=planes[0], mask=planes[1], cols=new_cols,
+                   seq=planes[-1] if d.seq is not None else None,
+                   series_axis=new_series, time_axis=new_time)
+
+
+def relayout_comm_bytes(K_dev: int, L: int, n_cols: int, n_shards: int,
+                        has_seq: bool = False,
+                        dtype: torch.dtype = torch.float32) -> int:
+    """Modelled bytes a shard sends in one :func:`reshard_frame`: every
+    plane's per-shard element count (K*L / shards) times its item size:
+    int64 ts + bool mask + n_cols x (value of ``dtype``, the compute
+    type, + bool validity) [+ seq]."""
+    val_itemsize = torch.empty(0, dtype=dtype).element_size()
+    elems = (K_dev * L) // max(n_shards, 1)
+    per_elem = 8 + 1 + n_cols * (val_itemsize + 1)
+    if has_seq:
+        per_elem += val_itemsize
+    return int(elems * per_elem)
 
 
 # ----------------------------------------------------------------------
@@ -1226,7 +1522,10 @@ def _bucket_heads(ts, mask, step_ns: int):
 
 def _bucket_stats_shard(ts, mask, xs, valids, step_ns: int):
     """Six aggregates per bucket at bucket-head rows: ``(new_ts, head,
-    [6, C, K, L])``, by the bucket-stats kernel."""
+    [6, C, K, L])``, by the bucket-stats kernel.  Values count on real
+    rows only (a join marks its pad lanes found), so the row's centre,
+    and with it every bit, does not depend on the row's padding."""
+    valids = valids & mask
     b, head, bid = _bucket_heads(ts, mask, step_ns)
     stats = rk.bucket_stats_multi(bid, xs, valids)
     new_ts = torch.where(mask, b, int(packing.TS_PAD))
@@ -1249,7 +1548,9 @@ def _last_real_lane_seg(fence, real):
 def _resample_shard(ts, mask, xs, valids, step_ns: int, fkey: int):
     """Bucket-head resample of a [C, K, L] stack: floor (0) takes the
     bucket's first row, ceil (1) its last real row, mean/min/max (2-4)
-    the bucket-stats kernel's aggregate."""
+    the bucket-stats kernel's aggregate (real rows only, as
+    :func:`_bucket_stats_shard`)."""
+    valids = valids & mask
     b, head, bid = _bucket_heads(ts, mask, step_ns)
     if fkey == 1:
         # ceil reads each bucket's last REAL row: a bucket-head view can

@@ -468,15 +468,15 @@ class TSDF:
                 halo_fraction: float = 0.5):
         """Distribute this frame over a device mesh
         (``parallel.make_mesh``): packs the columns once, cuts them over
-        the mesh's series axis and returns a
+        the mesh's series axis (and, with ``time_axis``, the time axis
+        over that one: a ``[K/n_s, L/n_t]`` block a device) and returns a
         :class:`~tempo_tpu_torch.dist.DistributedTSDF` whose ops run on
         each shard's device and chain there until ``collect()``.  With no
         mesh, as the reference: one ``series`` axis over every visible
         card for a CUDA frame (``parallel.default_mesh``; on one card the
         device-residency path for chained ops), one shard for a CPU
-        frame.  A ``time_axis`` of size above 1 is not ported
-        (``NotImplementedError``); ``halo_fraction`` (the time axis's halo
-        size) is accepted for the reference's calls and has no effect."""
+        frame.  ``halo_fraction`` sizes the time axis's halo (a fraction
+        of a block, for ``withRangeStats(strategy="halo")``)."""
         from tempo_tpu_torch.dist import DistributedTSDF
 
         return DistributedTSDF.from_tsdf(

@@ -13,8 +13,10 @@ DistributedTSDF` with bounded host memory:
   a dataset written sort-clustered by ``io.writer``), sorts and packs
   each numeric column to ``[K_shard, L]`` (``packing``: the native
   engine unless ``TEMPO_TPU_NATIVE=0``), and uploads the shard's planes
-  to its device with one host-to-device copy (``dist._upload_planes``),
-  the way ``DistributedTSDF.from_tsdf`` builds its shards.  No host holds
+  to its device with one host-to-device copy (``dist._upload_planes``;
+  on a mesh with a time axis, one copy a ``[K_shard, L/n_t]`` block to
+  each device of the series group), the way
+  ``DistributedTSDF.from_tsdf`` builds its shards.  No host holds
   more than one shard (plus one streaming batch).
 
 ``budget_bytes`` bounds the host working set: ingest fails loudly
@@ -40,8 +42,10 @@ Transactional ingest:
   after ``TEMPO_TPU_BREAKER_THRESHOLD`` consecutive failures.
 
 Non-numeric columns are skipped with a log notice; sequence columns are
-not supported here.  A mesh time axis of size > 1 raises
-``NotImplementedError`` (ROADMAP A10b), as ``dist.py`` does.
+not supported here.  A mesh with a time axis takes the reference's
+geometry (K a multiple of every axis, L of 8 times the time axis).
+One process only: a ``torch.distributed`` run of several processes
+raises ``NotImplementedError`` (ROADMAP A10c).
 
 Slab pipelining (``TEMPO_TPU_INGEST_RING``, default 2; the port has no
 tuner): the shard loop, and any out-of-core sweep built on
@@ -381,9 +385,8 @@ def from_parquet(
     depth of the shard pipeline (:func:`sweep_slabs`): a producer thread
     streams and packs shard N+1 while the calling thread uploads shard N
     and commits its manifest in shard order; every depth gives the same
-    bits.  ``halo_fraction`` sizes the reference's time-axis halo and is
-    accepted for the same calls; without a time axis it has no
-    effect."""
+    bits.  ``halo_fraction`` sizes the time axis's halo
+    (``withRangeStats(strategy="halo")``) and is stored on the frame."""
     from tempo_tpu_torch import device as device_policy
     from tempo_tpu_torch import dist as dist_mod
     from tempo_tpu_torch.dist import DistCol, DistributedTSDF
@@ -401,9 +404,14 @@ def from_parquet(
     mesh = mesh if mesh is not None else make_mesh()
     if series_axis not in mesh.axis_names:
         raise ValueError(f"mesh has no axis named {series_axis!r}")
-    dist_mod._time_axis_size(mesh, time_axis)
-    devs = mesh.axis_devices(series_axis)
-    n_s = len(devs)
+    from tempo_tpu_torch import checkpoint
+
+    checkpoint._single_process("Parquet ingest")
+    n_t = dist_mod._time_axis_size(mesh, time_axis)
+    n_s = mesh.shape[series_axis]
+    # one device a (series shard, time block), series-major
+    devs = mesh.axis_devices((series_axis, time_axis) if time_axis
+                             else series_axis)
 
     if deadline_s is None:
         deadline_s = config.get_float("TEMPO_TPU_INGEST_DEADLINE_S")
@@ -449,8 +457,10 @@ def from_parquet(
         if resume is not None:
             resume.save_census(key_frame, lengths, ctx)
     K = len(lengths)
-    K_dev = max(1, -(-K // n_s)) * n_s
-    L = packing.pad_length(int(lengths.max(initial=0)))
+    k_mult = n_s * n_t
+    K_dev = max(1, -(-K // k_mult)) * k_mult
+    L = packing.pad_length(int(lengths.max(initial=0)), multiple=8 * n_t)
+    Lt = L // n_t
     num_cols = _numeric_schema_cols(ds, ts_col, pcols, columns)
 
     blk = K_dev // n_s
@@ -560,8 +570,10 @@ def from_parquet(
             shard order and the ordered manifest commit."""
             kind, planes, n_rows, ledger = loaded
             ctx.check(f"shard {si} place")
-            shards.append(dist_mod._upload_planes(
-                [planes[n] for n in plane_names], devs[si]))
+            for t in range(n_t):
+                shards.append(dist_mod._upload_planes(
+                    [planes[n][:, t * Lt:(t + 1) * Lt] for n in plane_names],
+                    devs[si * n_t + t]))
             if kind == "pad":
                 return
             k0, k1 = si * blk, min((si + 1) * blk, K)
@@ -628,7 +640,8 @@ def from_parquet(
     frame = DistributedTSDF(
         mesh, series_axis, time_axis, by_name["__ts__"],
         by_name["__mask__"], cols, layout, ts_col, pcols,
-        np.dtype("datetime64[ns]"), None, {}, tdtype, audits=audits)
+        np.dtype("datetime64[ns]"), None, {}, tdtype, audits=audits,
+        halo_fraction=halo_fraction)
     frame.ingest_quarantined = tuple(ctx.quarantined)
     # one logical pack event for the residency accounting
     dist_mod._PACK_EVENTS += 1

@@ -32,6 +32,11 @@ NS_PER_S = 1_000_000_000
 # kernels ignore them, with headroom against int64 overflow
 TS_PAD = np.int64(2**62)
 
+# any ts at or above this is a sentinel, not data (real ns timestamps
+# stay far below 2^61, about the year 2043): the time axis's halo and
+# join audits tell real rows from padding by it
+TS_REAL_MAX = np.int64(2**61)
+
 # canonical name/order of the per-column withRangeStats aggregates
 RANGE_STATS = ("mean", "count", "min", "max", "sum", "stddev", "zscore")
 

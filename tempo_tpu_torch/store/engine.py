@@ -241,10 +241,8 @@ def source_fingerprint(obj) -> str:
                        tuple(obj.partitionCols),
                        obj.seq_col or "")).encode())
         planes = ckpt._frame_planes(obj)
-        shards = ckpt._fetch_shards(planes)
-        for name in planes:
-            for shard in shards:
-                h.update(np.ascontiguousarray(shard[name]).tobytes())
+        for arr in obj._host_planes(list(planes.values())):
+            h.update(np.ascontiguousarray(arr).tobytes())
         for col in obj.cols.values():
             if col.host_gather is not None:
                 vals, starts, perm = col.host_gather

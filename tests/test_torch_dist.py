@@ -273,8 +273,17 @@ def test_chain_packs_once_a_side_and_fetches_once(frames, meshes):
 def test_time_axis_and_meshes(frames):
     _, port = frames
     two = make_mesh({"series": 2, "time": 2}, devices=["cpu"] * 4)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        port["l"].on_mesh(two, time_axis="time")
+    series = make_mesh({"series": 2}, devices=["cpu"] * 2)
+    d2 = port["l"].on_mesh(two, time_axis="time")
+    # a [K_dev/2, L/2] block a device, K a multiple of 4, L of 16
+    assert (d2.n_time, len(d2.ts), d2.K_dev % 4, d2.L % 16) == (2, 4, 0, 0)
+    assert tuple(d2.ts[0].shape) == (d2.K_dev // 2, d2.L // 2)
+    pd.testing.assert_frame_equal(d2.collect().df,
+                                  port["l"].on_mesh(series).collect().df)
+    stats = dict(colsToSummarize=["price"], rangeBackWindowSecs=30)
+    pd.testing.assert_frame_equal(
+        d2.withRangeStats(**stats).collect().df,
+        port["l"].on_mesh(series).withRangeStats(**stats).collect().df)
     flat = make_mesh({"series": 2, "time": 1}, devices=["cpu"] * 2)
     got = port["l"].on_mesh(flat, time_axis="time").EMA(
         "price", exact=True).collect().df

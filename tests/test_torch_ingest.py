@@ -212,9 +212,21 @@ def test_a_flapping_file_trips_the_breaker(dataset, meshes):
     assert len(frame.collect().df) == N_ROWS - N_ROWS // N_FILES
 
 
-def test_a_time_axis_raises(dataset):
+def test_a_time_axis_raises(dataset, meshes, monkeypatch):
+    """A time axis ingests now (the blocks of the series-only frame,
+    bitwise); several processes still raise (ROADMAP A10c)."""
     mesh = make_mesh({"series": 2, "time": 2}, devices=["cpu"] * 4)
-    with pytest.raises(NotImplementedError, match="A10b"):
+    frame = ingest.from_parquet(dataset, mesh=mesh, time_axis="time",
+                                halo_fraction=0.25, **KW)
+    assert frame.n_time == 2 and frame.halo_fraction == 0.25
+    pd.testing.assert_frame_equal(
+        _srt(frame), _srt(ingest.from_parquet(dataset, mesh=meshes[0], **KW)),
+        check_exact=True)
+    import torch.distributed as td
+
+    monkeypatch.setattr(td, "is_initialized", lambda: True)
+    monkeypatch.setattr(td, "get_world_size", lambda group=None: 2)
+    with pytest.raises(NotImplementedError, match="A10c"):
         ingest.from_parquet(dataset, mesh=mesh, time_axis="time", **KW)
 
 
