@@ -231,11 +231,35 @@ K. The seventh slice: the mesh's time axis on one card (four mesh
    -> ``process_series_range`` -> ``shard_series_global`` -> phase H's
    chain on 64 users over a ``series: 2`` mesh spread over both ranks;
    what each rank collects equals one process's run bitwise.
+   e. The same ranks save the 64-user frame as one sharded checkpoint
+   (``shard_p0`` / ``shard_p1``, a manifest with ``n_processes`` 2) and
+   load it, then run ``run_resumable(sharded=True)`` (range stats, EMA,
+   resample) killed by ``testing.faults`` while both save step 2, and
+   resume it from step 1: each rank's collects bitwise one process's.
+
+L. The planner (``TEMPO_TPU_PLAN=1``) at HHAR scale.  a. The planned
+   ``on_mesh -> asofJoin -> withRangeStats(10 s) -> EMA`` on
+   ``make_mesh()``: ``explain()`` shows one ``fused_asof_stats_ema``
+   node; the first call builds the plan and captures the node as a CUDA
+   graph, the second hits the cache and replays it (no capture, no
+   kernel build); every plane of both results is bitwise phase H's; the
+   calls' wall seconds beside phase H's steps to the EMA, and the
+   graph pool's bytes.  b. ``resample(floor) -> EMA(exact)`` on the
+   right frame fuses onto ``resampleEMA`` and equals it bitwise.  c. A
+   stitched ``resample -> interpolate -> EMA -> withRangeStats`` run,
+   captured then replayed, every plane bitwise the op-by-op chain's.
+   d. A checkpointed plan on 64 users killed while saving its second
+   barrier resumes from the first, bitwise the uninterrupted run.  e.
+   ``filter`` / ``selectExpr`` lowered through ``plan/sql_compile.py``,
+   equal to the eager frame.  Then the cost priors of ``plan/cost.py``
+   measured on the card (``L cost priors``).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line
 (each kernel's launches summed over the main-path runs of phases C, E,
 F, G's legacy step, H, I and K; the staged forms' rows, one a depth,
-name their counter), and last ``{"ok": true, "device": {...}}``.  Without a
+name their counter; phase L's planned runs are not counted: a replayed
+graph launches through no wrapper), and last ``{"ok": true, "device":
+{...}}``.  Without a
 CUDA device, or without the repository's ``tempo_tpu_torch`` package
 beside it, it prints no result and exits with 2.
 """
@@ -247,6 +271,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -3084,8 +3109,43 @@ def rank_worker(rank: int, port: int, out_dir: str, rows: int,
     grouped.to_pickle(os.path.join(out_dir, f"rank{rank}.pkl"))
     print(f"rank {rank}/2: series [{lo}, {hi}) of {K_dev}, shards {mine}, "
           f"{len(grouped)} bucket rows", flush=True)
+    # K.e: a sharded checkpoint both ranks write and load, and a
+    # run_resumable pipeline killed while both save step 2, resumed
+    from tempo_tpu_torch import checkpoint, resilience
+    from tempo_tpu_torch.testing import faults
+
+    t0 = time.perf_counter()
+    ck = os.path.join(out_dir, "ck")
+    checkpoint.save(dl, ck, sharded=True)
+    back = checkpoint.load(ck, mesh=mesh)
+    if back.ts[1 - rank].device.type != "meta":
+        raise AssertionError(f"rank {rank}: loaded the other rank's shard")
+    back.collect().df.to_pickle(os.path.join(out_dir, f"back{rank}.pkl"))
+    rd = os.path.join(out_dir, "resume")
+    with faults.FaultInjector() as fi:
+        # rank 0 writes its shard file and host_arrays.npz a step
+        fi.kill_on_call(np, "savez", call_no=3 if rank == 0 else 2)
+        try:
+            resilience.run_resumable(dl, RESUME_STEPS, rd, sharded=True)
+        except faults.SimulatedKill:
+            pass
+        else:
+            raise AssertionError("K.e: the injected kill did not fire")
+    resumed = resilience.run_resumable(dl, RESUME_STEPS, rd, sharded=True)
+    resumed.collect().df.to_pickle(os.path.join(out_dir,
+                                                f"resumed{rank}.pkl"))
+    print(f"rank {rank}/2: K.e sharded save + load, run_resumable killed "
+          f"at step 2 and resumed in {time.perf_counter() - t0:.3f} s",
+          flush=True)
     torch.distributed.destroy_process_group()
     return 0
+
+
+#: K.e's ``run_resumable`` pipeline
+RESUME_STEPS = [("withRangeStats", {"colsToSummarize": ["x"],
+                                    "rangeBackWindowSecs": 10}),
+                ("EMA", {"colName": "x", "exact": True}),
+                ("resample", {"freq": "1 minute", "func": "mean"})]
 
 
 def two_ranks(pd, TSDF, rows: int, series: int):
@@ -3124,11 +3184,30 @@ def two_ranks(pd, TSDF, rows: int, series: int):
             raise AssertionError(f"rank {r} failed ({p.returncode}):\n"
                                  f"{out[-3000:]}")
     left, right, _ = make_frames(pd, rows, series)
-    _, want = mesh_chain(TSDF, left, right,
-                         make_mesh({"series": 2}, devices=["cuda:0"] * 2))
+    one = make_mesh({"series": 2}, devices=["cuda:0"] * 2)
+    _, want = mesh_chain(TSDF, left, right, one)
     for r in range(2):
         got = pd.read_pickle(os.path.join(out_dir, f"rank{r}.pkl"))
         pd.testing.assert_frame_equal(got, want, check_exact=True)
+    # K.e against one process: the frame saved, and the pipeline run
+    # through without a kill
+    from tempo_tpu_torch import resilience
+
+    dl = TSDF(left, "event_ts", ["user"]).on_mesh(one)
+    whole = resilience.run_resumable(dl, RESUME_STEPS,
+                                     os.path.join(out_dir, "one"),
+                                     sharded=True).collect().df
+    for r in range(2):
+        pd.testing.assert_frame_equal(
+            pd.read_pickle(os.path.join(out_dir, f"back{r}.pkl")),
+            dl.collect().df, check_exact=True)
+        pd.testing.assert_frame_equal(
+            pd.read_pickle(os.path.join(out_dir, f"resumed{r}.pkl")),
+            whole, check_exact=True)
+    with open(os.path.join(out_dir, "ck", "manifest.json")) as f:
+        n_proc = json.load(f)["n_processes"]
+    if n_proc != 2:
+        raise AssertionError(f"K.e manifest n_processes {n_proc}")
     shutil.rmtree(out_dir, ignore_errors=True)
     lines = [ln for out in outs for ln in out.splitlines()
              if ln.startswith("rank ")]
@@ -3137,7 +3216,10 @@ def two_ranks(pd, TSDF, rows: int, series: int):
         f"distributed_init -> process_series_range -> shard_series_global "
         f"(equal to on_mesh's shards) -> phase H's chain on a series: 2 "
         f"mesh over both ranks -> collect on each rank bitwise equal to "
-        f"one process's run; {'; '.join(lines)}")
+        f"one process's run; K.e: checkpoint.save(sharded=True) by both "
+        f"ranks (n_processes 2) -> load, and run_resumable(sharded=True) "
+        f"killed while both save step 2 and resumed, each rank's collect "
+        f"bitwise the one-process frame and run; {'; '.join(lines)}")
 
 
 def phase_k(pd, TSDF, left, right, n, keep, rows, series):
@@ -3250,6 +3332,383 @@ def phase_k(pd, TSDF, left, right, n, keep, rows, series):
     return add_counts(*counts)
 
 
+def measure_cost_priors(pd, left, right, dev) -> dict:
+    """The planner's cost priors (``plan/cost.py`` ``PRIORS``) that a run
+    can measure, on this card at HHAR shapes; printed for PERF.md and
+    the cost module's defaults (``cost.FIXED`` names the others)."""
+    from tempo_tpu_torch import TSDF, packing
+    from tempo_tpu_torch import rolling as rolling_frame
+    from tempo_tpu_torch.ops import merge, scan, window
+    from tempo_tpu_torch.ops import rolling as rk
+    from tempo_tpu_torch.parallel.reshard import all_to_all_series_to_time
+
+    out = {}
+    lt = TSDF(left, "event_ts", ["user"], device=dev, dtype=torch.float32)
+    x, valid = lt.packed_numeric("x")
+    _, rb, ts_long, _ = rolling_frame.plan_range_engine(lt, 10)
+    secs = torch.from_numpy(ts_long).to(dev)
+    K, L = x.shape
+    # range stats (row 2) at 10 s and at 1000 s: the stream rate, and the
+    # window walk's re-read rate a window row
+    t1 = time_ms(lambda: window.range_stats(secs, x[None], valid[None], 10,
+                                            int(rb[0]), int(rb[1])))
+    rb2 = packing.layout_rowbounds(lt.layout, 1000)
+    t2 = time_ms(lambda: window.range_stats(secs, x[None], valid[None],
+                                            1000, int(rb2[0]), int(rb2[1])))
+    n = K * L
+    # plan/cost.py's STATS_ROW_BYTES a lane: its estimate is this time
+    out["hbm_stream_rate"] = n * 41 / (t1 / 1e3)
+    dw = (int(rb2[0]) + int(rb2[1])) - (int(rb[0]) + int(rb[1]))
+    extra = max(t2 - t1, 1e-6) / 1e3
+    out["vmem_pass_rate_multiple"] = max(
+        1.0, n * 4.0 * dw / (out["hbm_stream_rate"] * extra))
+    # the windowed form against the row-bounded kernel on the same planes
+    def windowed():
+        start, end = rk.range_window_bounds(secs.long(), 10)
+        return rk.windowed_stats(x, valid, start, end, max_window=32)
+    out["windowed_gather_penalty"] = time_ms(windowed, reps=3) / t1
+    # the merge join's row walk and the lookback kernel's tiles on the
+    # packed HHAR join, 17 bytes a merged lane
+    l_ts = torch.from_numpy(lt.packed_ts()).to(dev)
+    r_ts = l_ts - NS
+    r_val = torch.stack([x, x])
+    r_ok = torch.stack([valid, valid])
+    lanes = K * (l_ts.shape[1] + r_ts.shape[1])
+    tw = time_ms(lambda: merge.asof_merge_cuda(l_ts, r_ts, r_ok, r_val,
+                                               _form="walk"))
+    tt = time_ms(lambda: merge.asof_merge_cuda(l_ts, r_ts, r_ok, r_val,
+                                               _form="tiles"))
+    out["join_single_rate"] = lanes * 17 / (tw / 1e3)
+    out["join_chunked_rate"] = lanes * 17 / (tt / 1e3)
+    # one wrapper call on a [1, 8] row: launch and synchronise
+    tiny_x = torch.zeros(1, 8, device=dev)
+    tiny_v = torch.ones(1, 8, dtype=torch.bool, device=dev)
+
+    def one():
+        scan.ema_cuda(tiny_x, tiny_v, 0.2)
+        torch.cuda.synchronize()
+    one()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        one()
+    out["dispatch_overhead_s"] = (time.perf_counter() - t0) / 200
+    # the frame join forced onto host time brackets over 64 series, its
+    # merged lanes counted as the device rates count theirs (a series'
+    # padded left and right lengths), 17 bytes a lane over the wall time
+    lc, rc = left[left["user"] < 64], right[right["user"] < 64]
+    b_lanes = 64 * (packing.pad_length(int(lc.groupby("user").size().max()))
+                    + packing.pad_length(int(rc.groupby("user").size().max())))
+
+    def bracketed():
+        j = TSDF(lc, "event_ts", ["user"], device=dev).asofJoin(
+            TSDF(rc, "event_ts", ["user"], device=dev))
+        torch.cuda.synchronize()
+        return j
+    with env_set("TEMPO_TPU_JOIN_ENGINE", "bracket"):
+        bracketed()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            bracketed()
+        tb = (time.perf_counter() - t0) / 2
+    out["host_bracket_rate"] = b_lanes * 17 / tb
+    # a layout switch's copy rate on one card: the all-to-all of one
+    # float32 plane cut over series 2 x time 2 entries of this card
+    from tempo_tpu_torch import make_mesh
+
+    mesh = make_mesh({"series": 2, "time": 2}, devices=[str(dev)] * 4)
+    blocks = [x[i * (K // 2):(i + 1) * (K // 2),
+                j * (L // 2):(j + 1) * (L // 2)].contiguous()
+              for i in range(2) for j in range(2)]
+    ta = time_ms(lambda: all_to_all_series_to_time(blocks, mesh, "series",
+                                                   "time"))
+    out["ici_rate"] = n * 4 / (ta / 1e3)
+    return out
+
+
+def phase_l(pd, TSDF, left, right, n, keep):
+    """The planner on the card (``TEMPO_TPU_PLAN=1``): the fused mesh
+    chain captured once and replayed, the resampleEMA fusion, a stitched
+    mesh run, a checkpointed plan killed and resumed, SQL lowering; then
+    the cost priors."""
+    import tempfile
+
+    from tempo_tpu_torch import checkpoint, make_mesh, profiling
+    from tempo_tpu_torch.ops import cuda_lib
+    from tempo_tpu_torch.plan import cache as plan_cache
+    from tempo_tpu_torch.plan import checkpoints as plan_ckpt
+    from tempo_tpu_torch.plan import executor, fused, optimizer
+    from tempo_tpu_torch.testing import faults
+
+    stats = lambda: profiling.plan_cache_stats()
+    plan_cache.CACHE.clear()
+    mesh = make_mesh()
+    want = keep["H"]["planes"]
+    h_steps = keep["H"]["steps"]
+    h_s = sum(h_steps[k] for k in ("on_mesh x2", "asofJoin",
+                                   "withRangeStats", "EMA"))
+
+    def lazy_chain():
+        return (TSDF(left, "event_ts", ["user"]).on_mesh(mesh)
+                .asofJoin(TSDF(right, "event_ts", ["user"]).on_mesh(mesh))
+                .withRangeStats(colsToSummarize=["x"],
+                                rangeBackWindowSecs=10)
+                .EMA("x", exact=True))
+
+    with env_set("TEMPO_TPU_PLAN", "1"):
+        text = lazy_chain().explain()
+        if "fused_asof_stats_ema" not in text:
+            raise AssertionError("L.a: explain shows no fused node")
+        runs = []
+        for call in range(2):
+            before, b0 = stats(), cuda_lib.builds
+            lz = lazy_chain()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = executor.execute(lz.plan)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            after = stats()
+            got = global_planes(out)
+            for c, (wv, wok) in want.items():
+                gv, gok = got[c]
+                if not (torch.equal(gok, wok) and torch.equal(
+                        gv.view(torch.int32), wv.view(torch.int32))):
+                    raise AssertionError(f"L.a call {call}: {c} is not "
+                                         f"bitwise phase H's")
+            d = {k: after[k] - before[k] for k in
+                 ("hits", "misses", "graph_captures", "graph_replays")}
+            want_d = ({"hits": 0, "misses": 1, "graph_captures": 1,
+                       "graph_replays": 1} if call == 0 else
+                      {"hits": 1, "misses": 0, "graph_captures": 0,
+                       "graph_replays": 1})
+            if d != want_d or cuda_lib.builds != b0:
+                raise AssertionError(f"L.a call {call}: cache {d}, kernel "
+                                     f"builds {cuda_lib.builds - b0}")
+            runs.append(secs)
+            collected = out.collect().df
+            del out, got
+        (exe,) = plan_cache.CACHE._entries.values()
+        (fnode,) = [m for m in exe.plan.walk()
+                    if m.op == "fused_asof_stats_ema"]
+        pool = fused.pool_bytes(fnode)
+        if pool is None:
+            raise AssertionError("L.a: the fused node was not captured")
+        held = sum(exe.graph_bytes().values())
+    if len(collected) != n or not np.isfinite(
+            collected["EMA_x"].to_numpy()).all():
+        raise AssertionError("L.a: collected frame lost rows")
+    log(f"L.a planned on_mesh -> asofJoin -> withRangeStats(10 s) -> EMA on "
+        f"{mesh.shape} ({n} rows a side), one fused_asof_stats_ema node "
+        f"captured as a CUDA graph: first call {runs[0]:.3f} s (optimize, "
+        f"pack, warm-up, capture, replay), second {runs[1]:.3f} s (cache "
+        f"hit, one replay, 0 captures, 0 kernel builds), phase H's eager "
+        f"steps to the EMA {h_s:.3f} s; every plane bitwise phase H's both "
+        f"times; graph pool {pool} bytes, {held} with its static inputs; "
+        f"collected {len(collected)} rows")
+    del collected
+    plan_cache.CACHE.clear()
+    torch.cuda.empty_cache()
+    with env_set("TEMPO_TPU_PLAN", "1"):
+        text = lazy_chain().explain(cost=True)
+    card_name = torch.cuda.get_device_name(0)
+    costed = [ln for ln in text.splitlines()
+              if ln.startswith("fused_asof_stats_ema: ")]
+    if f"== Captured cost ({card_name}) ==" not in text or not costed \
+            or "temp_bytes=" not in costed[0]:
+        raise AssertionError(f"L.a: explain(cost=True) gave {text[-800:]}")
+    log(f"L.a explain(cost=True): {costed[0]}")
+    torch.cuda.empty_cache()
+
+    # b. floor resample -> exact EMA fuses onto resampleEMA
+    rt = TSDF(right, "event_ts", ["user"])
+    with env_set("TEMPO_TPU_PLAN", "1"):
+        lz = rt.resample("1 minute", "floor", metricCols=["wx"]).EMA(
+            "wx", exact=True)
+        ops = [m.op for m in optimizer.optimize(lz.plan).walk()
+               if not m.is_source()]
+        if ops != ["resample_ema"]:
+            raise AssertionError(f"L.b: optimized ops {ops}")
+        planned, b_s, b_launches, _ = counted(lambda: lz.df)
+    eager = rt.resampleEMA("1 minute", "wx").df
+    pd.testing.assert_frame_equal(planned, eager, check_exact=True)
+    if b_launches["resample_ema"] + b_launches["resample_ema_ring"] == 0:
+        raise AssertionError(f"L.b launches {b_launches}")
+    log(f"L.b planned resample('1 minute', 'floor') -> EMA(exact) on the "
+        f"right frame: fused onto resample_ema, {b_s:.3f} s, bitwise "
+        f"TSDF.resampleEMA; launches {b_launches}")
+    del planned, eager
+    plan_cache.CACHE.clear()
+
+    # c. a stitched mesh run, captured and replayed
+    def stitched_chain(d):
+        return (d.resample("10 seconds", "floor")
+                .interpolate(method="linear").EMA("x", exact=True)
+                .withRangeStats(colsToSummarize=["x"],
+                                rangeBackWindowSecs=60))
+
+    def planes(frame):
+        from tempo_tpu_torch.parallel.reshard import assemble
+
+        out = global_planes(frame)
+        out["(ts, mask)"] = (assemble(frame.ts, frame.mesh, frame.spec),
+                             assemble(frame.mask, frame.mesh, frame.spec))
+        return out
+
+    lt = TSDF(left, "event_ts", ["user"])
+    eager, e_s, _, _ = counted(
+        lambda: planes(stitched_chain(lt.on_mesh(mesh))))
+    c_runs = []
+    with env_set("TEMPO_TPU_PLAN", "1"):
+        for call in range(2):
+            before = stats()
+            lz = stitched_chain(lt.on_mesh(mesh))
+            out, secs, _, _ = counted(lambda: executor.execute(lz.plan))
+            after = stats()
+            if [m.op for m in optimizer.optimize(lz.plan).walk()
+                    if not m.is_source()] != ["on_mesh", "stitched"]:
+                raise AssertionError("L.c: the chain did not stitch")
+            got = planes(out)
+            for c, (wv, wok) in eager.items():
+                gv, gok = got[c]
+                if not (torch.equal(gok, wok) and torch.equal(
+                        gv.view(torch.uint8), wv.view(torch.uint8))):
+                    raise AssertionError(f"L.c call {call}: {c} is not "
+                                         f"bitwise the op-by-op chain's")
+            caps = after["graph_captures"] - before["graph_captures"]
+            reps = after["graph_replays"] - before["graph_replays"]
+            if (caps, reps) != ((1, 1) if call == 0 else (0, 1)):
+                raise AssertionError(f"L.c call {call}: {caps} captures, "
+                                     f"{reps} replays")
+            c_runs.append(secs)
+            del out, got
+        (s_exe,) = plan_cache.CACHE._entries.values()
+        (snode,) = [m for m in s_exe.plan.walk() if m.op == "stitched"]
+        s_pool = fused.pool_bytes(snode)
+        # two threads replay the cached graph at once: the node's lock
+        # makes them take turns, and each result is its own
+        results = [None, None]
+
+        def replay_in_thread(i):
+            with torch.cuda.stream(torch.cuda.Stream()):
+                results[i] = planes(executor.execute(
+                    stitched_chain(lt.on_mesh(mesh)).plan))
+                torch.cuda.synchronize()
+        before = stats()
+        pair = [threading.Thread(target=replay_in_thread, args=(i,))
+                for i in range(2)]
+        for t in pair:
+            t.start()
+        for t in pair:
+            t.join()
+        after = stats()
+        for i, got in enumerate(results):
+            if got is None:
+                raise AssertionError(f"L.c thread {i} raised")
+            for c, (wv, wok) in eager.items():
+                gv, gok = got[c]
+                if not (torch.equal(gok, wok) and torch.equal(
+                        gv.view(torch.uint8), wv.view(torch.uint8))):
+                    raise AssertionError(f"L.c thread {i}: {c} is not "
+                                         f"bitwise the op-by-op chain's")
+        if (after["graph_replays"] - before["graph_replays"],
+                after["graph_captures"] - before["graph_captures"]) != (2, 0):
+            raise AssertionError(f"L.c threads: {after} after {before}")
+        del results
+        # the byte bound: under a budget below one graph, running another
+        # plan evicts this one and frees its graph
+        share = plan_cache.GRAPH_MEMORY_SHARE
+        plan_cache.GRAPH_MEMORY_SHARE = 1e-9
+        plan_cache.graph_budget.cache_clear()
+        try:
+            ev0 = stats()["evictions"]
+            executor.execute(stitched_chain(lt.on_mesh(mesh)).EMA(
+                "x", exact=True).plan)
+            evicted = stats()["evictions"] - ev0
+        finally:
+            plan_cache.GRAPH_MEMORY_SHARE = share
+            plan_cache.graph_budget.cache_clear()
+        if evicted != 1 or s_exe.graph_bytes():
+            raise AssertionError(f"L.c byte bound: {evicted} evictions, "
+                                 f"{s_exe.graph_bytes()} still held")
+    log(f"L.c planned resample('10 seconds', 'floor') -> interpolate("
+        f"'linear') -> EMA(exact) -> withRangeStats(60 s) on {mesh.shape}: "
+        f"one stitched node, captured ({c_runs[0]:.3f} s) then replayed "
+        f"({c_runs[1]:.3f} s), op by op {e_s:.3f} s; every plane bitwise "
+        f"the op-by-op chain's, and so in two threads replaying it at "
+        f"once; graph pool {s_pool} bytes; under a budget below one graph "
+        f"a second plan evicted it and its graph was freed")
+    del eager
+    plan_cache.CACHE.clear()
+    torch.cuda.empty_cache()
+
+    # d. a checkpointed plan killed after its first barrier, resumed
+    users = WORKER_USERS
+    per = n // left["user"].nunique()
+    sl, sr = left.iloc[:users * per], right.iloc[:users * per]
+
+    def ck_chain():
+        return (TSDF(sl, "event_ts", ["user"]).on_mesh(mesh)
+                .asofJoin(TSDF(sr, "event_ts", ["user"]).on_mesh(mesh),
+                          skipNulls=False)
+                .withRangeStats(colsToSummarize=["x"],
+                                rangeBackWindowSecs=10)
+                .EMA("x", exact=True))
+
+    whole = ck_chain().collect().df
+    d = tempfile.mkdtemp()
+    t0 = time.perf_counter()
+    with env_set("TEMPO_TPU_PLAN", "1"):
+        with faults.FaultInjector() as fi:
+            fi.kill_on_call(np, "savez", call_no=2)
+            try:
+                with plan_ckpt.checkpointed(d):
+                    ck_chain().collect()
+            except faults.SimulatedKill:
+                pass
+            else:
+                raise AssertionError("L.d: the injected kill did not fire")
+        if not checkpoint.latest(d).endswith("step_00001"):
+            raise AssertionError(f"L.d: newest barrier {checkpoint.latest(d)}")
+        with plan_ckpt.checkpointed(d):
+            resumed = ck_chain().collect().df
+    pd.testing.assert_frame_equal(resumed, whole, check_exact=True)
+    import shutil
+
+    shutil.rmtree(d, ignore_errors=True)
+    log(f"L.d checkpointed plan (asofJoin(skipNulls=False) -> withRangeStats "
+        f"-> EMA, three barriers) on {users} users: killed while saving "
+        f"barrier 2, resumed from barrier 1, bitwise the uninterrupted run "
+        f"({time.perf_counter() - t0:.3f} s)")
+
+    # e. selectExpr / filter lowered through sql_compile
+    with env_set("TEMPO_TPU_PLAN", "1"):
+        lz = lt.filter("x > 0").selectExpr("user", "event_ts",
+                                           "x * 2 AS x2")
+        text = lz.explain()
+        if "eval[sql]=jit-plane" not in text or "sql_project" not in text:
+            raise AssertionError("L.e: explain shows no lowered SQL")
+        planned, e_s, _, _ = counted(lambda: lz.df)
+    eager = lt.filter("x > 0").selectExpr("user", "event_ts", "x * 2 AS x2")
+    pd.testing.assert_frame_equal(planned, eager.df, check_exact=True)
+    log(f"L.e planned filter('x > 0') -> selectExpr on the left frame: "
+        f"sql_filter (plane backend) -> sql_project, {e_s:.3f} s, "
+        f"{len(planned)} rows, equal to the eager frame")
+    plan_cache.CACHE.clear()
+    torch.cuda.empty_cache()
+
+    from tempo_tpu_torch.plan import cost
+
+    t0 = time.perf_counter()
+    priors = measure_cost_priors(pd, left, right, torch.device("cuda"))
+    log(f"L cost priors ({time.perf_counter() - t0:.1f} s, {card_line()}): "
+        f"measured {json.dumps(priors)}; fixed, not measured "
+        + json.dumps({k: cost.PRIORS[k] for k in cost.FIXED}))
+    if set(priors) | set(cost.FIXED) != set(cost.PRIORS):
+        raise AssertionError(f"L: priors measured {sorted(priors)}, fixed "
+                             f"{cost.FIXED}, declared {sorted(cost.PRIORS)}")
+    return priors
+
+
 def add_counts(*counts):
     """Launch counters of several runs, summed by kernel."""
     out = {}
@@ -3352,6 +3811,9 @@ def main(argv=None) -> int:
                         WORKER_USERS * (args.rows // args.series),
                         WORKER_USERS)
     log(f"K took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_l(pd, TSDF, left, right, n, keep)
+    log(f"L took {time.perf_counter() - t0:.1f} s")
     del left, right, keep
     torch.cuda.empty_cache()
 

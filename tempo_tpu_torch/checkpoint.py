@@ -27,9 +27,17 @@ file.  :func:`list_steps`, :func:`latest`, :func:`resolve_step` and
 :func:`~tempo_tpu_torch.resilience.run_resumable`.  Host IO rides the
 transient-IO retry policy.
 
-One process only: the reference reads its process index and count from
-the JAX runtime; here they are 0 and 1, and a ``torch.distributed`` run
-of several processes raises ``NotImplementedError`` (ROADMAP A10c).
+Several processes (``torch.distributed``): the process index and count
+come from the process group (0 and 1 without one).  ``save(sharded=
+True)`` writes each process's own shards into ``shard_p<pid>.npz`` /
+``blocks_p<pid>.json``; process 0 writes the manifest (with
+``n_processes``) and the host-side state and makes the swap, the
+processes meeting at three barriers (``parallel.multihost.
+sync_processes``) as the reference's ``sync_global_devices`` points.  A
+dense (``sharded=False``) mesh save refuses several processes by name,
+as the reference does.  ``load`` gives each process its own shards
+(the others' are ``meta`` placeholders); one process assembles every
+shard.
 """
 
 from __future__ import annotations
@@ -59,16 +67,18 @@ _IO_RETRY = resilience.retrying(resilience.DEFAULT_IO_POLICY,
                                 label="checkpoint-io")
 
 
-def _single_process(what: str = "checkpoints") -> None:
-    """Refuse a run of several ``torch.distributed`` processes: the
-    port's checkpoints (and the Parquet ingest and ``run_resumable``
-    built on them) are written and read by one process."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            f"{what} across {dist.get_world_size()} processes are not "
-            f"ported yet (ROADMAP A10c): run them from one process")
+def _procs() -> Tuple[int, int]:
+    """``(process index, process count)`` of the ``torch.distributed``
+    group, ``(0, 1)`` without one."""
+    from tempo_tpu_torch.parallel.mesh import process_count, process_index
+
+    return process_index(), process_count()
+
+
+def _sync(name: str) -> None:
+    from tempo_tpu_torch.parallel.multihost import sync_processes
+
+    sync_processes(name)
 
 
 # ----------------------------------------------------------------------
@@ -195,7 +205,7 @@ def _clean_stale_tmp(path: str) -> None:
     A tmp with a manifest is a complete checkpoint whose rename never
     happened: it stays, with a warning."""
     tmp = path + ".tmp"
-    if not os.path.isdir(tmp):
+    if not os.path.isdir(tmp) or _procs()[0] != 0:
         return
     if os.path.exists(os.path.join(tmp, "manifest.json")):
         logger.warning(
@@ -225,29 +235,49 @@ def save(frame, path: str, sharded: bool = False,
     """Snapshot a :class:`DistributedTSDF` or a host :class:`TSDF` to the
     directory ``path``, atomically.  ``meta`` (JSON-serializable) rides
     in the manifest under ``"meta"``.  ``sharded=True`` (mesh frames)
-    writes one block a shard into ``shard_p0.npz``, the reference's
-    per-process layout."""
+    writes each process's blocks into its own ``shard_p<pid>.npz``, the
+    reference's per-process layout; several processes need it (the
+    dense format fetches the global planes).  Process 0 writes the
+    manifest and the host-side state (a host frame is process-replicated
+    state: process 0 writes it) and makes the swap; the processes wait
+    for each other where the directory exists, where every shard file is
+    written and where the swap is done."""
     from tempo_tpu_torch.dist import DistributedTSDF
     from tempo_tpu_torch.frame import TSDF
 
-    _single_process()
-    if not isinstance(frame, (DistributedTSDF, TSDF)):
+    pid, n_proc = _procs()
+    # validation before the tmp directory and the first barrier exist:
+    # every process raises the same error with nothing on disk
+    if isinstance(frame, DistributedTSDF):
+        if not sharded and n_proc > 1:
+            raise ValueError(
+                "multi-process checkpoints must use sharded=True (the "
+                "dense format fetches the global array)")
+    elif not isinstance(frame, TSDF):
         raise TypeError(f"cannot checkpoint {type(frame)}")
     tmp = path + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
+    if pid == 0:
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+    _sync("tempo_ckpt_dir")
     try:
         if isinstance(frame, DistributedTSDF):
             if sharded:
                 _save_dist_sharded(frame, tmp, meta)
             else:
                 _save_dist(frame, tmp, meta)
-        else:
+        elif pid == 0:
             _save_host(frame, tmp, meta)
-        _swap_into_place(tmp, path)
+        _sync("tempo_ckpt_written")
+        if pid == 0:
+            _swap_into_place(tmp, path)
+        _sync("tempo_ckpt_swapped")
     except BaseException:
-        shutil.rmtree(tmp, ignore_errors=True)
+        # several processes: ``tmp`` stays (peers may still write into
+        # it; no swap happened, so the previous checkpoint is intact)
+        if pid == 0 and n_proc == 1:
+            shutil.rmtree(tmp, ignore_errors=True)
         raise
 
 
@@ -268,7 +298,6 @@ def load(path: str, mesh=None, series_axis: str = "series",
     ``verify=True`` checks every artifact against the manifest's CRC-32s
     and raises :class:`CheckpointError` naming the corrupt array or
     file.  Stale ``<path>.tmp`` residue is cleaned."""
-    _single_process()
     _clean_stale_tmp(path)
     path = _resolve_bak(path)
     man = _manifest(path)
@@ -318,7 +347,6 @@ def save_state(arrays: Dict[str, np.ndarray], path: str,
     """Atomic, CRC'd snapshot of a flat ``name -> array`` dict (host
     arrays, or tensors, which are fetched).  The same guarantees as
     :func:`save`; ``meta`` rides in the manifest."""
-    _single_process()
     tmp = path + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -344,7 +372,6 @@ def load_state(path: str, verify: bool = True,
     ``kind`` names the expected snapshot family; a mismatch raises by
     name.  ``verify=True`` checks every array against the manifest's
     CRCs and raises :class:`CheckpointError` naming the corrupt array."""
-    _single_process()
     _clean_stale_tmp(path)
     path = _resolve_bak(path)
     man = _manifest(path)
@@ -480,8 +507,10 @@ def latest(parent: str, verify: bool = True) -> Optional[str]:
 
 
 def prune(parent: str, keep_last: int = 2) -> None:
-    """Keep-last-K retention of a step-checkpoint family."""
-    _single_process()
+    """Keep-last-K retention of a step-checkpoint family (process 0
+    prunes)."""
+    if _procs()[0] != 0:
+        return
     for _, path in list_steps(parent)[max(keep_last, 1):]:
         logger.info("pruning old checkpoint %s (keep_last=%d)",
                     path, keep_last)
@@ -529,19 +558,6 @@ def _frame_planes(frame) -> Dict[str, list]:
     return planes
 
 
-def _fetch_shards(frame, planes: Dict[str, list]
-                  ) -> List[Dict[str, np.ndarray]]:
-    """Every plane of every shard on the host: one device-to-host copy a
-    shard."""
-    from tempo_tpu_torch.dist import _fetch_shards as fetch
-
-    names = list(planes)
-    got = fetch([[planes[k][i] for k in names]
-                 for i in range(len(planes["ts"]))],
-                frame.mesh.axis_ranks(frame.axes))
-    return [dict(zip(names, g)) for g in got]
-
-
 def _column_meta(frame):
     """(per-column manifest entries, host-gather arrays)."""
     col_meta, hg_arrays = {}, {}
@@ -572,11 +588,14 @@ def _layout_arrays(frame) -> Dict[str, np.ndarray]:
 
 
 def _audit_counts(frame) -> list:
+    if _procs()[1] > 1:
+        # other processes' counts are placeholders: gather them
+        return [list(a) for a in frame.audit_counts()]
     return [(msg, int(sum(int(round(float(c))) for c in counts)))
             for msg, counts in frame.audits]
 
 
-def _dist_manifest(frame) -> dict:
+def _dist_manifest(frame, audits: Optional[list] = None) -> dict:
     """Manifest payload both mesh formats share."""
     return {
         "format_version": FORMAT_VERSION,
@@ -588,7 +607,7 @@ def _dist_manifest(frame) -> dict:
         "resampled": frame.resampled,
         "seq_col": frame.seq_col,
         "resample_freq": frame._resample_freq,
-        "audits": _audit_counts(frame),
+        "audits": _audit_counts(frame) if audits is None else audits,
     }
 
 
@@ -626,25 +645,36 @@ def _write_host_side(frame, d: str, obj_arrays: dict) -> None:
 
 
 def _save_dist_sharded(frame, d: str, meta: Optional[dict] = None) -> None:
-    """``shard_p0.npz`` with one block a shard of every plane (a
-    time-sharded frame's blocks carry their lane ranges), its
-    ``blocks_p0.json`` index, and ``host_arrays.npz``."""
+    """``shard_p<pid>.npz`` with one block of every plane a shard of this
+    process (a time-sharded frame's blocks carry their lane ranges) and
+    its ``blocks_p<pid>.json`` index; process 0 adds
+    ``host_arrays.npz``, the host-side state and the manifest."""
+    from tempo_tpu_torch.dist import _fetch_planes
     from tempo_tpu_torch.parallel.mesh import block_slices
 
+    pid, n_proc = _procs()
     planes = _frame_planes(frame)
-    shards = _fetch_shards(frame, planes)
+    names = list(planes)
+    ranks = frame.mesh.axis_ranks(frame.axes)
     local, blocks = {}, []
     shape = (frame.K_dev, frame.L)
-    for j, (shard, (rs, ls)) in enumerate(zip(
-            shards, block_slices(frame.mesh, frame.spec, shape))):
-        for name, arr in shard.items():
+    for j, ((rs, ls), rank) in enumerate(zip(
+            block_slices(frame.mesh, frame.spec, shape), ranks)):
+        if rank != pid:
+            continue
+        # one device-to-host copy a shard of this process
+        for name, arr in zip(names, _fetch_planes(
+                [planes[k][j] for k in names])):
             blocks.append({"plane": name, "key": f"{name}_b{j}",
                            "rows": [rs.start, rs.stop],
                            "lanes": [ls.start, ls.stop]})
             local[f"{name}_b{j}"] = arr
-    shard_crcs = _savez(os.path.join(d, "shard_p0.npz"), local)
-    with open(os.path.join(d, "blocks_p0.json"), "w") as f:
+    shard_crcs = _savez(os.path.join(d, f"shard_p{pid}.npz"), local)
+    with open(os.path.join(d, f"blocks_p{pid}.json"), "w") as f:
         json.dump({"blocks": blocks, "checksums": shard_crcs}, f)
+    audits = _audit_counts(frame)     # a gather: every process calls it
+    if pid != 0:
+        return
 
     col_meta, hg_arrays = _column_meta(frame)
     host_arrays = dict(_layout_arrays(frame),
@@ -652,12 +682,12 @@ def _save_dist_sharded(frame, d: str, meta: Optional[dict] = None) -> None:
                           if v.dtype != object})
     host_crcs = _savez(os.path.join(d, "host_arrays.npz"), host_arrays)
     _write_host_side(frame, d, hg_arrays)
-    man = _dist_manifest(frame)
+    man = _dist_manifest(frame, audits)
     man.update({
         "kind": "dist_sharded",
         "columns": col_meta,
         "n_cols": len(frame.cols),
-        "n_processes": 1,
+        "n_processes": n_proc,
         "shape": list(shape),
         "has_seq": frame.seq is not None,
         "array_checksums": {"host_arrays.npz": host_crcs},
@@ -765,11 +795,16 @@ def _place(man: dict, mesh, series_axis: str, time_axis: Optional[str],
         dtype = next(iter(cols.values())).values[0].dtype
     else:
         dtype = device_policy.compute_dtype(devs[0])
+    # the count rides the first shard; another process's shard is a
+    # placeholder (its owner holds the count)
+    ranks = mesh.axis_ranks((series_axis, time_axis) if time_axis
+                            else series_axis)
+    me = _procs()[0]
     audits = []
     for msg, cnt in man["audits"]:
         audits.append((msg, [torch.tensor(float(cnt) if i == 0 else 0.0,
-                                          device=dev)
-                             for i, dev in enumerate(devs)]))
+                                          device=dev if r == me else "meta")
+                             for i, (dev, r) in enumerate(zip(devs, ranks))]))
     layout = packing.FlatLayout(
         key_ids=z["layout_key_ids"], ts_ns=z["layout_ts_ns"],
         order=z["layout_order"], starts=z["layout_starts"],

@@ -1,7 +1,7 @@
 """The ``TEMPO_TPU_*`` environment knobs this package reads.
 
 Counterpart of ``tempo_tpu/config.py``, cut to the knobs the port's
-eager frame consults.  The
+frame and planner consult.  The
 names are kept so one environment drives both packages the same way.
 Every ``os.environ`` read of the package goes through :func:`get`.
 """
@@ -66,6 +66,26 @@ KNOBS = {
     "TEMPO_TPU_INGEST_RING":
         "slab-buffer ring depth of io.ingest.sweep_slabs and the "
         "from_parquet shard loop; 1 runs serially (default 2)",
+    "TEMPO_TPU_PLAN":
+        "1 turns on the lazy query planner: recorded op chains are "
+        "optimized (fusion, engine hoisting, column pruning) and executed "
+        "at collect(); eager is the default (read live)",
+    "TEMPO_TPU_PLAN_CACHE_SIZE":
+        "LRU bound of the planner's executable cache (entries keyed by "
+        "plan signature + shapes + mesh; 0 disables caching); default 64",
+    "TEMPO_TPU_COST_MODEL":
+        "0 reverts engine picks, fusion, stitching and reshard placement "
+        "to the rule-based decisions; on (default) they are argmins over "
+        "estimated cost among bitwise-equal candidates",
+    "TEMPO_TPU_CKPT_PLACEMENT":
+        "auto | off: checkpoint barrier nodes on planned chains run inside "
+        "plan.checkpoints.checkpointed() (default auto)",
+    "TEMPO_TPU_STITCH_MAX_OPS":
+        "longest run of adjacent series-local planned mesh ops stitched "
+        "into one captured CUDA graph; below 2 disables (default 8)",
+    "TEMPO_TPU_RESHARD_PLACEMENT":
+        "auto | declarative | explicit: plan-placed reshard nodes on "
+        "time-sharded mesh chains (default auto)",
     "TEMPO_TPU_INGEST_DEADLINE_S":
         "default end-to-end deadline of from_parquet in seconds (unset: "
         "none)",
@@ -106,6 +126,14 @@ def get_bool(name: str, default: bool = False) -> bool:
     if val is None:
         return default
     return val.strip().lower() not in ("", "0", "false", "no", "off")
+
+
+def snapshot() -> tuple:
+    """``(name, value)`` of every declared knob that is set: what a
+    captured CUDA graph's key folds in, since the knobs pick kernel
+    forms and engines."""
+    return tuple((k, os.environ[k]) for k in sorted(KNOBS)
+                 if k in os.environ)
 
 
 def env_external(name: str, default: Optional[str] = None) -> Optional[str]:

@@ -274,6 +274,22 @@ def _pick_range_engine_for_shard(shard_k: int, L: int, rb):
     return engine, (None if engine == "windowed" else rb)
 
 
+def plan_range_engine_choice(layout, mesh: Mesh, series_axis: str,
+                             time_axis: Optional[str],
+                             window_secs: float):
+    """``(engine, rowbounds)`` a frame packed from ``layout`` onto
+    ``mesh`` takes in :meth:`DistributedTSDF._range_engine_choice`,
+    computed without packing (the plan optimizer's hoist)."""
+    if not sm.use_sort_kernels():
+        return "windowed", None
+    K_dev, L, n_s, n_t = _mesh_packed_geometry(layout, mesh, series_axis,
+                                               time_axis)
+    rb = (packing.layout_rowbounds(layout, window_secs)
+          if layout.n_rows > 0 and int(layout.starts[-1]) == layout.n_rows
+          else None)
+    return _pick_range_engine_for_shard(K_dev // (n_s * max(n_t, 1)), L, rb)
+
+
 def stream_mesh(n_devices: Optional[int] = None,
                 stream_axis: str = "streams",
                 devices: Optional[Sequence] = None) -> Mesh:
@@ -462,6 +478,26 @@ class DistributedTSDF:
                    seq_col=tsdf.sequence_col or "",
                    halo_fraction=halo_fraction)
 
+    def _plan_record(self, op: str, others=(), params=None, objs=None):
+        """Record a deferred plan node over this (already packed) mesh
+        frame instead of executing (``TEMPO_TPU_PLAN=1``); the lazy
+        wrapper's ``collect()`` optimizes and executes it through the
+        plan's executable cache (``plan/``)."""
+        from tempo_tpu_torch.plan import lazy as plan_lazy
+
+        return plan_lazy.record(self, op, others, params, objs)
+
+    def explain(self, cost: bool = False) -> str:
+        """Render this frame's query plan (a bare mesh source when eager;
+        the lazy wrappers show recorded chains and the optimizer's
+        rewrites)."""
+        from tempo_tpu_torch.plan import ir, render
+
+        text = render.explain_text(ir.Node("dist_source", payload=self),
+                                   cost=cost)
+        print(text)
+        return text
+
     def _with(self, **kw) -> "DistributedTSDF":
         base = dict(
             mesh=self.mesh, series_axis=self.series_axis,
@@ -559,6 +595,13 @@ class DistributedTSDF:
         Without a time axis both strategies compute the exact frames
         (``"halo"`` takes the windowed form, as the reference does on one
         time shard)."""
+        from tempo_tpu_torch import plan
+
+        if plan.recording():
+            return self._plan_record("range_stats", params=dict(
+                colsToSummarize=tuple(colsToSummarize) if colsToSummarize
+                else None,
+                rangeBackWindowSecs=rangeBackWindowSecs, strategy=strategy))
         if strategy not in ("exact", "halo"):
             raise ValueError("strategy must be 'exact' or 'halo'")
         if strategy == "exact" and self.n_time > 1:
@@ -624,6 +667,12 @@ class DistributedTSDF:
         exact form composes across time blocks (an associative carry,
         ``parallel/halo.ema_time_sharded``); the truncated form does not,
         so a time-sharded frame needs ``exact=True``."""
+        from tempo_tpu_torch import plan
+
+        if plan.recording():
+            return self._plan_record("ema", params=dict(
+                colName=colName, window=window, exp_factor=exp_factor,
+                exact=exact, inclusive_window=inclusive_window))
         col = self.cols[colName]
         alpha = float(exp_factor)
         if self.n_time > 1:
@@ -807,6 +856,15 @@ class DistributedTSDF:
         trailing maxLookback+1 merged rows (asofJoin.scala:64-88).
         ``tsPartitionVal``, ``fraction`` and ``sql_join_opt`` are accepted
         and ignored, as in the reference's mesh join."""
+        from tempo_tpu_torch import plan
+
+        if plan.recording():
+            return self._plan_record("asof_join", (right,), dict(
+                left_prefix=left_prefix, right_prefix=right_prefix,
+                tsPartitionVal=tsPartitionVal, fraction=fraction,
+                skipNulls=skipNulls, sql_join_opt=sql_join_opt,
+                suppress_null_warning=suppress_null_warning,
+                maxLookback=maxLookback))
         if tsPartitionVal is not None:
             logger.info("asofJoin: tsPartitionVal ignored on the mesh — "
                         "the packed layout needs no skew brackets")
@@ -968,6 +1026,12 @@ class DistributedTSDF:
         bucket start, only the first real row of each bucket is valid,
         and the columns hold the bucket's aggregate there.  ``collect()``
         compacts the view; chained ops treat it as any masked frame."""
+        from tempo_tpu_torch import plan
+
+        if plan.recording():
+            return self._plan_record("resample", params=dict(
+                freq=freq, func=func,
+                metricCols=tuple(metricCols) if metricCols else None))
         validateFuncExists(func)
         if self.n_time > 1:
             # a whole-frame switch to the series-local layout, the
@@ -998,19 +1062,29 @@ class DistributedTSDF:
         bucket grids, their columns combined by name (no join);
         ``fill=True`` zero-fills each series' dense bucket grid through
         ``interpolate(method="zero")``."""
-        mc = metricCols or self.numeric_columns()
-        new_cols: Dict[str, DistCol] = {}
-        base = None
-        for prefix, f in (("open", "floor"), ("low", "min"),
-                          ("high", "max"), ("close", "ceil")):
-            base = self.resample(freq, f, metricCols=mc)
-            for c in mc:
-                new_cols[f"{prefix}_{c}"] = base.cols[c]
-        # host column order parity: prefixed metrics sorted by name
-        bars = base._with(cols={c: new_cols[c] for c in sorted(new_cols)})
-        if fill:
-            bars = bars.interpolate(method="zero")
-        return bars
+        from tempo_tpu_torch import plan
+
+        if plan.recording():
+            return self._plan_record("calc_bars", params=dict(
+                freq=freq, func=func,
+                metricCols=tuple(metricCols) if metricCols else None,
+                fill=fill))
+        with plan.suspended():
+            # its body chains recorded methods (resample, interpolate)
+            mc = metricCols or self.numeric_columns()
+            new_cols: Dict[str, DistCol] = {}
+            base = None
+            for prefix, f in (("open", "floor"), ("low", "min"),
+                              ("high", "max"), ("close", "ceil")):
+                base = self.resample(freq, f, metricCols=mc)
+                for c in mc:
+                    new_cols[f"{prefix}_{c}"] = base.cols[c]
+            # host column order parity: prefixed metrics sorted by name
+            bars = base._with(cols={c: new_cols[c]
+                                    for c in sorted(new_cols)})
+            if fill:
+                bars = bars.interpolate(method="zero")
+            return bars
 
     # ------------------------------------------------------------------
     # withGroupedStats (tsdf.py:723-759) / vwap (TSDF.scala:378-401)
@@ -1093,6 +1167,13 @@ class DistributedTSDF:
         weights from exact bucket indices.  ``show_interpolated`` adds
         the reference's ``is_ts_interpolated`` / ``is_interpolated_<col>``
         flags (interpol.py:330-364)."""
+        from tempo_tpu_torch import plan
+
+        if plan.recording():
+            return self._plan_record("interpolate", params=dict(
+                freq=freq, func=func, method=method,
+                target_cols=tuple(target_cols) if target_cols else None,
+                show_interpolated=show_interpolated))
         if method not in ("zero", "null", "ffill", "bfill", "linear"):
             raise ValueError(
                 f"Please select from one of the following fill options: "
@@ -1277,6 +1358,11 @@ class DistributedTSDF:
         (real rows not front-packed) and columns without a plain device
         plane go through ``collect()`` and the host frame, and are
         packed again."""
+        from tempo_tpu_torch import plan
+
+        if plan.recording():
+            return self._plan_record("fourier", params=dict(
+                timestep=timestep, valueCol=valueCol))
         matches = [c for c in self.cols if c.lower() == valueCol.lower()
                    and self.cols[c].ts_chunk is None
                    and self.cols[c].host_gather is None]
@@ -1284,10 +1370,12 @@ class DistributedTSDF:
             logger.warning(
                 "fourier_transform(%r): materialization barrier — the "
                 "mesh chain collects to the host here (%s) and packs "
-                "again afterwards", valueCol,
+                "again afterwards; under TEMPO_TPU_PLAN=1 explain() marks "
+                "this barrier in the plan", valueCol,
                 "bucket-head (resampled) view" if self.resampled
                 else "no plain device plane for the column")
-            host = self.collect().fourier_transform(timestep, valueCol)
+            with plan.suspended():
+                host = self.collect().fourier_transform(timestep, valueCol)
             s_ax, t_ax = self.series_axis, self.time_axis
             if isinstance(s_ax, tuple):
                 # a series-local frame packs again onto the plain series
@@ -1325,13 +1413,22 @@ class DistributedTSDF:
         materialises them as array-of-array columns (collect_list,
         tsdf.py:637-671), a row materialisation, so the mesh frame
         collects once; the dense device form is :meth:`lookback_tensor`."""
+        from tempo_tpu_torch import plan
+
+        if plan.recording():
+            return self._plan_record("lookback_features", params=dict(
+                featureCols=tuple(featureCols),
+                lookbackWindowSize=lookbackWindowSize,
+                exactSize=exactSize, featureColName=featureColName))
         logger.warning(
             "withLookbackFeatures: materialization barrier — the mesh "
             "chain collects to the host here (collect_list semantics "
             "materialise rows); use lookback_tensor for the "
-            "device-resident dense form")
-        return self.collect().withLookbackFeatures(
-            featureCols, lookbackWindowSize, exactSize, featureColName)
+            "device-resident dense form, or TEMPO_TPU_PLAN=1 explain() "
+            "to see the barrier in the plan")
+        with plan.suspended():
+            return self.collect().withLookbackFeatures(
+                featureCols, lookbackWindowSize, exactSize, featureColName)
 
     def lookback_tensor(self, featureCols, lookbackWindowSize: int):
         """The dense lookback tensor: one ``([K_dev, L, w, F] values,
@@ -1465,11 +1562,20 @@ def _range_stats_shard(ts, xs, valids, w: float, rowbounds, engine: str):
         clipped = stats.pop("clipped").sum(dim=(1, 2))
         return stats, clipped
     start, end = rk.range_window_bounds(secs, math.floor(w))
-    real = valids.any(0)
-    max_w = max(1, int(torch.where(real, end - start, 0).max())) if L else 1
+    if xs.is_cuda and torch.cuda.is_current_stream_capturing():
+        # inside a captured graph (plan/stitch.py) the widest window
+        # cannot be read back: bound it by the row (0); the min/max
+        # tables then build more levels, and every window still reads
+        # the level its length picks, so the bits are the same
+        max_w = 0
+    else:
+        real = valids.any(0)
+        max_w = (max(1, int(torch.where(real, end - start, 0).max()))
+                 if L else 1)
     flat = rk.windowed_stats(xs.reshape(C * K, L), valids.reshape(C * K, L),
                              start.repeat(C, 1), end.repeat(C, 1),
-                             max_window=1 << (max_w - 1).bit_length())
+                             max_window=(1 << (max_w - 1).bit_length()
+                                         if max_w else 0))
     stats = {k: v.reshape(C, K, L) for k, v in flat.items()}
     return stats, torch.zeros(C, dtype=xs.dtype, device=xs.device)
 

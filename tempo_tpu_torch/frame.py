@@ -9,12 +9,14 @@ features, ``fourier_transform``, ``autocorr``, ``describe``, the
 resample family, ``fromOrderingColumns``, ``on_mesh`` (the
 series-sharded ``DistributedTSDF``, ``dist.py``) and the I/O (``write``
 through ``io/writer.py``, ``to_arrow``/``from_arrow``,
-``from_spark``/``to_spark``).  Not here: ``explain`` and plan
-recording.  The frame wraps host pandas data plus a cache of packed
-[K series, L lanes] tensors on its device; every op is eager (the
-reference's lazy planner is not part of this port), and every derived
-frame keeps the device and dtype.  ``device=None`` means the CUDA card;
-``device="cpu"`` runs the kernels' plain versions.
+``from_spark``/``to_spark``) and ``explain``.  The frame wraps host
+pandas data plus a cache of packed [K series, L lanes] tensors on its
+device; every op is eager unless ``TEMPO_TPU_PLAN=1``, under which the
+methods named in ``plan.ir.PLANNED_METHODS`` record plan nodes and
+return lazy wrappers (``plan/lazy.py``) that optimize and execute at a
+terminal.  Every derived frame keeps the device and dtype.
+``device=None`` means the CUDA card; ``device="cpu"`` runs the kernels'
+plain versions.
 """
 
 from __future__ import annotations
@@ -141,6 +143,32 @@ class TSDF:
         partition and sequence columns), device and dtype."""
         return self._with_df(df, sequence_col=self.sequence_col or None)
 
+    # ------------------------------------------------------------------
+    # Lazy query planning (plan/; TEMPO_TPU_PLAN=1)
+    # ------------------------------------------------------------------
+
+    def _plan_record(self, op: str, others=(), params=None, objs=None):
+        """Record a deferred plan node over this frame instead of
+        executing (planning on).  Returns the lazy wrapper the planned
+        chain continues on; its terminals (``collect``, ``.df``, ...)
+        optimize and execute it through the executable cache."""
+        from tempo_tpu_torch.plan import lazy as plan_lazy
+
+        return plan_lazy.record(self, op, others, params, objs)
+
+    def explain(self, cost: bool = False) -> str:
+        """Render this frame's query plan.  An eager frame defers
+        nothing, so its plan is a bare source; under ``TEMPO_TPU_PLAN=1``
+        the lazy wrappers' ``explain`` shows the recorded logical plan,
+        the optimizer's rewrites, per-node engine choices and barriers
+        (the analog of the reference's ``explain cost``)."""
+        from tempo_tpu_torch.plan import ir, render
+
+        text = render.explain_text(ir.Node("source", payload=self),
+                                   cost=cost)
+        print(text)
+        return text
+
     def _check_partition_cols_match(self, other: "TSDF") -> None:
         for lc, rc in zip(self.partitionCols, other.partitionCols):
             if lc != rc:
@@ -259,6 +287,10 @@ class TSDF:
         """Parity: tsdf.py:319-343 - structural columns must be kept."""
         if len(cols) == 1 and isinstance(cols[0], (list, tuple)):
             cols = tuple(cols[0])
+        from tempo_tpu_torch import plan
+
+        if plan.recording():
+            return self._plan_record("select", params=dict(cols=tuple(cols)))
         if "*" in cols:
             cols = tuple(self.df.columns)
         seq_stub = [self.sequence_col] if self.sequence_col else []
@@ -278,10 +310,31 @@ class TSDF:
         switch is logged (the two engines differ on NULL semantics and
         function surface), and ``strict=True`` (or
         ``TEMPO_TPU_SQL_STRICT=1`` / the legacy ``TEMPO_TPU_STRICT_SQL=1``)
-        raises ``StrictSqlFallback`` instead."""
-        from tempo_tpu_torch import sql
+        raises ``StrictSqlFallback`` instead.  Under plan recording the
+        parsed expressions lower into a ``sql_project`` node
+        (``plan/sql_compile.py``)."""
+        from tempo_tpu_torch import plan, sql
 
         strict = _strict_sql(strict)
+        if plan.recording():
+            from tempo_tpu_torch.plan import sql_compile
+
+            try:
+                lowered, objs = sql_compile.lower_select_exprs(
+                    exprs, columns=list(self.df.columns))
+            except sql.SqlError as e:
+                if strict:
+                    raise sql.StrictSqlFallback(
+                        f"selectExpr{tuple(exprs)!r} left the compiled "
+                        f"SQL surface ({e}); strict mode forbids the "
+                        f"host-pandas fallback") from e
+                logger.debug("selectExpr%r: outside the SQL grammar "
+                             "(%s); evaluating eagerly", tuple(exprs), e)
+            else:
+                return self._plan_record("sql_project", params=dict(
+                    exprs=lowered["exprs"], aliases=lowered["aliases"],
+                    asts=lowered["asts"], cols=lowered["cols"],
+                    strict=strict), objs=objs)
         out = {}
         for raw in exprs:
             try:
@@ -315,7 +368,31 @@ class TSDF:
         because the engines disagree on NULL handling, and turned into a
         ``StrictSqlFallback`` error by ``strict=True`` /
         ``TEMPO_TPU_SQL_STRICT=1`` (legacy ``TEMPO_TPU_STRICT_SQL``).  A
-        callable gets the frame's DataFrame; anything else is a mask."""
+        callable gets the frame's DataFrame; anything else is a mask.
+        Under plan recording a string predicate lowers into a
+        ``sql_filter`` node (``plan/sql_compile.py``)."""
+        from tempo_tpu_torch import plan
+
+        if plan.recording() and isinstance(condition, str):
+            from tempo_tpu_torch import sql
+            from tempo_tpu_torch.plan import sql_compile
+
+            try:
+                lowered, objs = sql_compile.lower_filter(
+                    condition, columns=list(self.df.columns))
+            except sql.SqlError as e:
+                if _strict_sql(strict):
+                    raise sql.StrictSqlFallback(
+                        f"filter({condition!r}) left the compiled SQL "
+                        f"surface ({e}); strict mode forbids the "
+                        f"host-pandas fallback") from e
+                logger.debug("filter(%r): outside the SQL grammar (%s); "
+                             "evaluating eagerly", condition, e)
+            else:
+                return self._plan_record("sql_filter", params=dict(
+                    condition=condition, ast=lowered["ast"],
+                    cols=lowered["cols"],
+                    strict=_strict_sql(strict)), objs=objs)
         if callable(condition):
             mask = condition(self.df)
         elif isinstance(condition, str):
@@ -354,6 +431,12 @@ class TSDF:
     unionAll = union
 
     def withColumn(self, colName: str, values) -> "TSDF":
+        from tempo_tpu_torch import plan
+
+        if plan.recording():
+            return self._plan_record(
+                "with_column", params=dict(colName=colName, values=values),
+                objs=dict(values=values))
         df = self.df.copy()
         df[colName] = values(df) if callable(values) else values
         return self._with_rows(df)
@@ -477,6 +560,15 @@ class TSDF:
         device-residency path for chained ops), one shard for a CPU
         frame.  ``halo_fraction`` sizes the time axis's halo (a fraction
         of a block, for ``withRangeStats(strategy="halo")``)."""
+        from tempo_tpu_torch import plan
+
+        if plan.recording():
+            from tempo_tpu_torch.plan import ir as plan_ir
+
+            return self._plan_record("on_mesh", params=dict(
+                time_axis=time_axis, series_axis=series_axis,
+                halo_fraction=halo_fraction,
+                mesh=plan_ir._mesh_state(mesh)), objs=dict(mesh=mesh))
         from tempo_tpu_torch.dist import DistributedTSDF
 
         return DistributedTSDF.from_tsdf(
@@ -495,8 +587,15 @@ class TSDF:
                  maxLookback: int = 0) -> "TSDF":
         """AS-OF join (parity: tsdf.py:463-560; maxLookback from scala
         asofJoin.scala:64-88)."""
-        from tempo_tpu_torch import join
+        from tempo_tpu_torch import join, plan
 
+        if plan.recording():
+            return self._plan_record("asof_join", (right_tsdf,), dict(
+                left_prefix=left_prefix, right_prefix=right_prefix,
+                tsPartitionVal=tsPartitionVal, fraction=fraction,
+                skipNulls=skipNulls, sql_join_opt=sql_join_opt,
+                suppress_null_warning=suppress_null_warning,
+                maxLookback=maxLookback))
         return join.asof_join(
             self, right_tsdf, left_prefix=left_prefix,
             right_prefix=right_prefix, tsPartitionVal=tsPartitionVal,
@@ -508,8 +607,14 @@ class TSDF:
     def withRangeStats(self, type: str = "range", colsToSummarize=None,
                        rangeBackWindowSecs: int = 1000) -> "TSDF":
         """Rolling range statistics (parity: tsdf.py:673-721)."""
-        from tempo_tpu_torch import rolling
+        from tempo_tpu_torch import plan, rolling
 
+        if plan.recording():
+            return self._plan_record("range_stats", params=dict(
+                type=type,
+                colsToSummarize=tuple(colsToSummarize)
+                if colsToSummarize else None,
+                rangeBackWindowSecs=rangeBackWindowSecs))
         return rolling.with_range_stats(self, colsToSummarize,
                                         rangeBackWindowSecs)
 
@@ -518,8 +623,12 @@ class TSDF:
         """Exponential moving average (parity: tsdf.py:615-635;
         ``exact=True`` is the untruncated recursive EMA;
         ``inclusive_window=True`` the Scala 0..window lag range)."""
-        from tempo_tpu_torch import rolling
+        from tempo_tpu_torch import plan, rolling
 
+        if plan.recording():
+            return self._plan_record("ema", params=dict(
+                colName=colName, window=window, exp_factor=exp_factor,
+                exact=exact, inclusive_window=inclusive_window))
         return rolling.ema(self, colName, window, exp_factor, exact,
                            inclusive_window)
 
@@ -527,24 +636,37 @@ class TSDF:
                  fill=None):
         """Downsample by a coarser frequency (parity: tsdf.py:764-776).
         Returns a ``_ResampledTSDF`` supporting chained ``.interpolate``."""
+        from tempo_tpu_torch import plan
         from tempo_tpu_torch import resample as rs
 
+        if plan.recording():
+            return self._plan_record("resample", params=dict(
+                freq=freq, func=func,
+                metricCols=tuple(metricCols) if metricCols else None,
+                prefix=prefix, fill=fill))
         return rs.resample(self, freq, func, metricCols, prefix, fill)
 
     def calc_bars(self, freq: str, func=None, metricCols=None,
                   fill=None) -> "TSDF":
         """OHLC bars (parity: tsdf.py:813-826)."""
+        from tempo_tpu_torch import plan
         from tempo_tpu_torch import resample as rs
 
-        return rs.calc_bars(self, freq, func, metricCols, fill)
+        with plan.suspended():
+            # an eager-only op whose body chains recorded methods
+            return rs.calc_bars(self, freq, func, metricCols, fill)
 
     def resampleEMA(self, freq: str, colName: str,
                     exp_factor: float = 0.2) -> "TSDF":
         """Fused floor-resample + exact EMA in one kernel pass: the
         single-read form of ``resample(freq, 'floor')`` followed by
         ``EMA(..., exact=True)`` (``resample.resample_ema``)."""
+        from tempo_tpu_torch import plan
         from tempo_tpu_torch import resample as rs
 
+        if plan.recording():
+            return self._plan_record("resample_ema", params=dict(
+                freq=freq, colName=colName, exp_factor=exp_factor))
         return rs.resample_ema(self, freq, colName, exp_factor)
 
     def interpolate(self, freq: str = None, func: str = None,
@@ -552,8 +674,16 @@ class TSDF:
                     partition_cols=None,
                     show_interpolated: bool = False) -> "TSDF":
         """Resample + fill missing values (parity: tsdf.py:778-811)."""
-        from tempo_tpu_torch import interpol
+        from tempo_tpu_torch import interpol, plan
 
+        if plan.recording():
+            return self._plan_record("interpolate", params=dict(
+                freq=freq, func=func, method=method,
+                target_cols=tuple(target_cols) if target_cols else None,
+                ts_col=ts_col,
+                partition_cols=tuple(partition_cols) if partition_cols
+                else None,
+                show_interpolated=show_interpolated))
         return interpol.interpolate_frame(
             self, freq, func, method, target_cols, ts_col, partition_cols,
             show_interpolated)

@@ -44,8 +44,13 @@ Transactional ingest:
 Non-numeric columns are skipped with a log notice; sequence columns are
 not supported here.  A mesh with a time axis takes the reference's
 geometry (K a multiple of every axis, L of 8 times the time axis).
-One process only: a ``torch.distributed`` run of several processes
-raises ``NotImplementedError`` (ROADMAP A10c).
+One process only, as the reference's: its ``from_parquet`` places
+every shard from one host (``device_put`` on every device of the mesh,
+then ``make_array_from_single_device_arrays``), which no process of
+several can do, so a ``torch.distributed`` run of several processes
+raises ``NotImplementedError``.  Several processes pack their own
+series instead (``parallel.multihost.process_series_range``,
+``shard_series_global``).
 
 Slab pipelining (``TEMPO_TPU_INGEST_RING``, default 2; the port has no
 tuner): the shard loop, and any out-of-core sweep built on
@@ -404,9 +409,15 @@ def from_parquet(
     mesh = mesh if mesh is not None else make_mesh()
     if series_axis not in mesh.axis_names:
         raise ValueError(f"mesh has no axis named {series_axis!r}")
-    from tempo_tpu_torch import checkpoint
+    from tempo_tpu_torch.parallel.mesh import process_count
 
-    checkpoint._single_process("Parquet ingest")
+    if process_count() > 1:
+        raise NotImplementedError(
+            f"from_parquet across {process_count()} processes: the JAX "
+            f"package has no such path either (its from_parquet places "
+            f"every shard from one host); ingest in one process, or pack "
+            f"each process's series with parallel.multihost."
+            f"process_series_range and shard_series_global")
     n_t = dist_mod._time_axis_size(mesh, time_axis)
     n_s = mesh.shape[series_axis]
     # one device a (series shard, time block), series-major

@@ -67,6 +67,8 @@ _lib = None
 #: compiler output of the build this process made (ptxas register and
 #: shared-memory report), empty when an existing library was loaded
 build_log: List[str] = []
+#: libraries this process compiled (nvcc runs of :func:`build`)
+builds = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -142,6 +144,7 @@ def _digest() -> str:
 
 def build() -> Path:
     """Path of the built library, compiling it first when missing."""
+    global builds
     out_dir = build_dir()
     lib_path = out_dir / f"libtempo_kernels_{_digest()}.so"
     if lib_path.exists():
@@ -168,6 +171,7 @@ def build() -> Path:
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
         os.replace(tmp_lib, lib_path)
+    builds += 1
     build_log[:] = [log for log in logs if log.strip()]
     return lib_path
 

@@ -139,8 +139,10 @@ def windowed_stats(x, valid, start, end, max_window: int = 0
     dt, dev = x.dtype, x.device
     zero = torch.zeros((), dtype=dt, device=dev)
     one = torch.ones((), dtype=dt, device=dev)
-    nan = torch.tensor(float("nan"), dtype=dt, device=dev)
-    pinf = torch.tensor(float("inf"), dtype=dt, device=dev)
+    # fills made on the device (no host-to-device copy, no host read):
+    # the form runs inside captured CUDA graphs too (plan/stitch.py)
+    nan = torch.full((), float("nan"), dtype=dt, device=dev)
+    pinf = torch.full((), float("inf"), dtype=dt, device=dev)
     xz = torch.where(valid, x, zero)
     n_valid = valid.to(dt).sum(-1, keepdim=True)
     center = xz.sum(-1, keepdim=True) / torch.maximum(n_valid, one)
@@ -163,10 +165,10 @@ def windowed_stats(x, valid, start, end, max_window: int = 0
     nlev = max(1, (L - 1).bit_length() + 1)
     if max_window:
         nlev = min(nlev, (max(1, int(max_window)) - 1).bit_length() + 1)
-    tmin = _sparse_table(torch.where(valid, x, pinf), pinf, torch.minimum,
-                         nlev)
-    tmax = _sparse_table(torch.where(valid, x, -pinf), -pinf, torch.maximum,
-                         nlev)
+    tmin = _sparse_table(torch.where(valid, x, pinf), float("inf"),
+                         torch.minimum, nlev)
+    tmax = _sparse_table(torch.where(valid, x, -pinf), float("-inf"),
+                         torch.maximum, nlev)
     wmin = _range_query(tmin, start, end, torch.minimum)
     wmax = _range_query(tmax, start, end, torch.maximum)
     return {

@@ -24,6 +24,7 @@ One process (tests, one card) is the same code with every rank 0.
 from __future__ import annotations
 
 import datetime
+import logging
 import threading
 from typing import Optional, Sequence, Tuple
 
@@ -33,6 +34,8 @@ import torch
 from tempo_tpu_torch.parallel.mesh import (Mesh, make_mesh, meta_like,
                                            process_count, process_index)
 from tempo_tpu_torch.resilience import FailureKind, classify
+
+logger = logging.getLogger(__name__)
 
 
 class DistributedInitTimeout(TimeoutError):
@@ -120,6 +123,15 @@ def distributed_init(coordinator_address: Optional[str] = None,
         if classify(e) is FailureKind.DEADLINE:
             _diagnostic(e)
         raise
+
+
+def sync_processes(name: str) -> None:
+    """Wait for every process of the group at the barrier ``name`` (the
+    reference's ``multihost_utils.sync_global_devices``): a gloo
+    ``barrier``; a no-op in one process."""
+    if process_count() > 1:
+        logger.debug("sync_processes(%s)", name)
+        torch.distributed.barrier()
 
 
 def _local_devices() -> list:

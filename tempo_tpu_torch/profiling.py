@@ -1,18 +1,23 @@
-"""AS-OF join strategy and engine picks.
+"""AS-OF join strategy and engine picks, the planner's counters and the
+cost probe of a device segment.
 
 Counterpart of ``tempo_tpu/profiling.py`` (``pick_asof_strategy``,
-``join_engine_override``, ``pick_join_engine``) and of
-``tempo_tpu.resilience.max_merged_lanes``.  The planner hints and the
-cost model of the reference are not part of this eager-only port, so
-the picks are the reference's rule forms.
+``join_engine_override``, ``pick_join_engine``, ``compiled_cost``,
+``plan_cache_stats``) and of ``tempo_tpu.resilience.max_merged_lanes``.
+``pick_join_engine`` honours the planner's hoisted hint
+(``plan/hints.py``) and, with the cost model on, takes the cost
+argmin (``plan/cost.py``), which reproduces the rule under the default
+priors.  ``trace`` / ``annotate`` (a whole-chain device trace) and
+``window_roofline`` are not ported yet (ROADMAP A1, A14).
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Optional
+from typing import Dict, Optional
 
 import pandas as pd
+import torch
 
 from tempo_tpu_torch import config
 
@@ -49,10 +54,27 @@ def join_engine_override() -> Optional[str]:
 def pick_join_engine(est_lanes: int, limit: int, chunked_ok: bool) -> str:
     """'single' | 'chunked' | 'bracket': one program while the merged
     width fits ``limit``, else the lane-chunked engine, else host time
-    brackets.  ``TEMPO_TPU_JOIN_ENGINE`` forces one."""
+    brackets.  A plan-time hoisted decision (``plan/hints.py``) wins
+    while the planner replays the node, when the freshly probed bounds
+    still admit it; ``TEMPO_TPU_JOIN_ENGINE`` forces one; with the cost
+    model on the unforced pick is the cost argmin (every engine gives
+    the same bits)."""
+    from tempo_tpu_torch.plan import hints as plan_hints
+
+    hinted = plan_hints.get("join_engine")
+    if hinted == "single" and (limit <= 0 or est_lanes <= limit):
+        return "single"
+    if hinted == "chunked" and chunked_ok:
+        return "chunked"
+    if hinted == "bracket":
+        return "bracket"
     forced = join_engine_override()
     if forced is not None:
         return forced
+    from tempo_tpu_torch.plan import cost as plan_cost
+
+    if plan_cost.enabled():
+        return plan_cost.decide_join_engine(est_lanes, limit, chunked_ok)
     if limit <= 0 or est_lanes <= limit:
         return "single"
     return "chunked" if chunked_ok else "bracket"
@@ -77,3 +99,52 @@ def pick_asof_strategy(left_df: pd.DataFrame, right_df: pd.DataFrame,
     if has_sequence:
         return "merge"
     return "searchsorted"
+
+
+def plan_cache_stats() -> Dict[str, object]:
+    """Counters of the planner's executable cache (``plan/cache.py``;
+    LRU bound ``TEMPO_TPU_PLAN_CACHE_SIZE``): hits, misses, evictions,
+    builds, the ``by_signature`` and ``by_tenant`` breakdowns, and the
+    CUDA graphs captured (``graph_captures``) and replayed
+    (``graph_replays``).  A steady-state query mix should be all hits
+    and replays: a miss re-runs the optimizer, a capture re-records a
+    graph."""
+    from tempo_tpu_torch.plan.cache import CACHE
+
+    return CACHE.stats()
+
+
+def compiled_cost(fn, *args) -> Dict[str, Optional[float]]:
+    """What the card states of ``fn(*args)`` (tensors in, a sequence of
+    tensors out), under the reference's keys: ``argument_bytes`` and
+    ``output_bytes``, and, for CUDA tensors, ``temp_bytes``, the bytes
+    the private pool of a CUDA graph of the call takes (captured after
+    one warm-up run, then dropped).  The reference reads XLA's compiled
+    cost and memory analysis; a CUDA graph states no flop count, so
+    ``flops``, ``bytes_accessed`` and ``generated_code_bytes`` stay
+    None, as the reference leaves a key a backend does not report."""
+    out: Dict[str, Optional[float]] = {
+        "flops": None,
+        "bytes_accessed": None,
+        "output_bytes": None,
+        "temp_bytes": None,
+        "argument_bytes": None,
+        "generated_code_bytes": None,
+    }
+    if fn is None:
+        return out
+    nbytes = lambda ts: int(sum(t.numel() * t.element_size() for t in ts
+                                if isinstance(t, torch.Tensor)))
+    out["argument_bytes"] = nbytes(args)
+    dev = next((a.device for a in args if isinstance(a, torch.Tensor)),
+               torch.device("cpu"))
+    if dev.type != "cuda":
+        out["output_bytes"] = nbytes(fn(*args))
+        return out
+    from tempo_tpu_torch.plan.fused import capture
+
+    graph = capture(None, dev, fn, args)
+    out["temp_bytes"] = graph.pool_bytes
+    out["output_bytes"] = nbytes(graph.static_out)
+    graph.free()
+    return out

@@ -539,7 +539,6 @@ def run_resumable(
 
     if every < 1:
         raise ValueError(f"every must be >= 1, got {every}")
-    checkpoint._single_process("run_resumable")
     os.makedirs(ckpt_dir, exist_ok=True)
     sig = signature or resume_signature(frame, steps)
     mesh = getattr(frame, "mesh", None)

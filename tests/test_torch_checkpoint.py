@@ -226,5 +226,9 @@ def test_time_axis_and_several_processes_raise(tmp_path, joined,
 
     monkeypatch.setattr(td, "is_initialized", lambda: True)
     monkeypatch.setattr(td, "get_world_size", lambda group=None: 2)
-    with pytest.raises(NotImplementedError, match="A10c"):
+    monkeypatch.setattr(td, "get_rank", lambda group=None: 0)
+    # several processes: a dense save refuses by name, as the
+    # reference's, before anything is on disk
+    with pytest.raises(ValueError, match="sharded=True"):
         checkpoint.save(joined["port"], str(tmp_path / "two"))
+    assert not os.path.exists(str(tmp_path / "two.tmp"))

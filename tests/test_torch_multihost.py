@@ -12,8 +12,8 @@ real two-rank run.
   (``process_series_range``, ``shard_series_global``), run chains on a
   ``series: 2`` mesh and on a ``time: 2`` mesh spread over both ranks
   and collect on each rank: bitwise the frames one process computes on
-  ``["cpu"] * 2``.  Checkpoints across processes still refuse (ROADMAP
-  A10c).
+  ``["cpu"] * 2``, and round-trip a sharded checkpoint both ranks write
+  (``shard_p0`` / ``shard_p1``) and load, bitwise.
 """
 
 import datetime
@@ -113,12 +113,13 @@ def _worker(rank: int, port: int, out_dir: str) -> None:
     else:
         assert vals.device.type == "meta" and mask.device.type == "meta"
     frame = TSDF(left, "event_ts", ["id"], device="cpu").on_mesh(mesh_s)
-    try:
-        checkpoint.save(frame, os.path.join(out_dir, f"ck{rank}"))
-    except NotImplementedError as e:
-        assert "A10c" in str(e)
-    else:
-        raise AssertionError("a checkpoint across processes did not refuse")
+    ck = os.path.join(out_dir, "ck")
+    checkpoint.save(frame, ck, sharded=True)
+    assert os.path.exists(os.path.join(ck, f"shard_p{rank}.npz"))
+    back = checkpoint.load(ck, mesh=mesh_s)
+    assert back.ts[1 - rank].device.type == "meta"
+    pd.testing.assert_frame_equal(back.collect().df, frame.collect().df,
+                                  check_exact=True)
     torch.distributed.destroy_process_group()
     print(f"rank {rank} OK", flush=True)
 
