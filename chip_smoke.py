@@ -7,7 +7,7 @@
 
 Phases (each raises on failure, and the script then exits non-zero):
 
-A. Build the nine CUDA sources of ``tempo_tpu_torch/csrc`` (one nvcc
+A. Build the ten CUDA sources of ``tempo_tpu_torch/csrc`` (one nvcc
    per source, in parallel; ``ring.cuh`` is a header of three of them)
    and print the build seconds.
 B. Hold each kernel against its plain PyTorch version on the card, in
@@ -254,12 +254,51 @@ L. The planner (``TEMPO_TPU_PLAN=1``) at HHAR scale.  a. The planned
    equal to the eager frame.  Then the cost priors of ``plan/cost.py``
    measured on the card (``L cost priors``).
 
+M. Serving one stream (``tempo_tpu_torch.serve``), the launch counters
+   zeroed just before each stream's warm-up and read just after its last
+   push, before its batch operators run: the streams must launch
+   ``ema_scan`` (their graphs' warm-up and capture runs: a replay goes
+   through no wrapper, so the traced M.b pushes must show the kernel on
+   the card once a right push).  The batch operators' launches are
+   counted apart and must include the lookback and merge kernels.
+   a. The reference benchmark's config 11
+   verbatim (``bench.py`` ``bench_serving``: 16 series, bid/ask, a 10 s
+   window of at most 32 rows, EMA 0.2, ``maxLookback`` 64,
+   ``MicroBatchExecutor(batch_rows=16)``, ``warmup(16)``, 600 warm and
+   4,000 measured Poisson ticks, 25% left, 5% NaN, seed 11): zero builds
+   and captures over the measured part, ``clipped`` 0, every emission
+   bitwise the batch operators on the card over the concatenated stream
+   (``sortmerge.asof_merge_values``, row 4's lookback kernel;
+   ``window_stats_batch``; ``ema_scan`` over the whole history); ticks/s
+   and p50/p99 per side.  b. Phase C's 1024 series as one stream: the
+   first 1,048,576 right (watch ``wx``) rows in time order and the left
+   (phone) rows up to the last of them, each series in merged order,
+   pushed straight in side-homogeneous batches of at most 64 rows a
+   series (10 s window of at most 64 rows, EMA 0.2, ``maxLookback`` 16):
+   the same checks, events/s, the share of host time in admission, the
+   replays and the CUDA graphs' pool bytes.  c. The first 262,144 right
+   rows of b. and their left rows at ``maxLookback`` 0, ``skip_nulls``
+   both ways, bitwise ``sortmerge.asof_merge_values`` (row 1's merge
+   kernel).
+
+Traces: phases C and H wrap pack, join, stats, EMA and collect in
+``profiling.annotate`` spans; one extra run each of C's chain, H's
+chain, L.a's cache hit, L.c's op-by-op run and 200 pushes of M.b's
+steady state runs under ``profiling.trace`` (the timed runs stay
+untraced), and for each the script prints the top 10 device kernels and
+copies, the top 10 host spans, the host<->device copy bytes and time,
+and the card's busy share of the traced window (``trace_summary``).
+Phase B also holds ``ema_scan`` (``csrc/ema_scan.cu``) against its plain
+version bitwise at [2, 1024, 4096], [1, 16, 64] and [1, 2^20] (plain on
+the CPU there), with split runs bitwise one run.
+
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line
 (each kernel's launches summed over the main-path runs of phases C, E,
-F, G's legacy step, H, I and K; the staged forms' rows, one a depth,
+F, G's legacy step, H, I, K and M; the staged forms' rows, one a depth,
 name their counter; phase L's planned runs are not counted: a replayed
-graph launches through no wrapper), and last ``{"ok": true, "device":
-{...}}``.  Without a
+graph launches through no wrapper, and phase M's ``ema_scan`` counts
+its streams' warm-up and capture runs, not the batch operators'),
+and last ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the repository's ``tempo_tpu_torch`` package
 beside it, it prints no result and exits with 2.
 """
@@ -1165,16 +1204,21 @@ def chain(TSDF, left, right, steps=None, max_lookback=0, window_secs=10,
             steps[name] = time.perf_counter() - t0
             t0 = time.perf_counter()
 
-    lt = TSDF(left, "event_ts", ["user"], **kw)
-    rt = TSDF(right, "event_ts", ["user"], **kw)
-    joined = lt.asofJoin(rt, maxLookback=max_lookback)
+    with span("pack"):
+        lt = TSDF(left, "event_ts", ["user"], **kw)
+        rt = TSDF(right, "event_ts", ["user"], **kw)
+    with span("join"):
+        joined = lt.asofJoin(rt, maxLookback=max_lookback)
     mark("asofJoin")
-    stats = joined.withRangeStats(colsToSummarize=["x"],
-                                  rangeBackWindowSecs=window_secs)
+    with span("stats"):
+        stats = joined.withRangeStats(colsToSummarize=["x"],
+                                      rangeBackWindowSecs=window_secs)
     mark("withRangeStats")
-    out = stats.EMA("x", exact=True)
+    with span("EMA"):
+        out = stats.EMA("x", exact=True)
     mark("EMA")
-    return out.df
+    with span("collect"):
+        return out.df
 
 
 def phase_c(pd, TSDF, left, right, n, n_series, keep):
@@ -1211,6 +1255,7 @@ def phase_c(pd, TSDF, left, right, n, n_series, keep):
     log("C steps (wall s, card synchronised after each): "
         + ", ".join(f"{k} {v:.3f}" for k, v in steps.items()))
     keep["C"] = dict(df=df, steps=steps, seconds=seconds)
+    traced("C chain", lambda: len(chain(TSDF, left, right)))
 
     # the same chain on a small slice: kernels (float32) vs the plain
     # versions on the CPU (float64)
@@ -2041,24 +2086,30 @@ def mesh_chain(TSDF, left, right, mesh, steps=None, grouped=True,
             steps[name] = time.perf_counter() - t0
             t0 = time.perf_counter()
 
-    dl = TSDF(left, "event_ts", ["user"], **kw).on_mesh(mesh,
-                                                        time_axis=time_axis)
-    dr = TSDF(right, "event_ts", ["user"], **kw).on_mesh(mesh,
-                                                         time_axis=time_axis)
+    with span("pack/on_mesh"):
+        dl = TSDF(left, "event_ts", ["user"], **kw).on_mesh(
+            mesh, time_axis=time_axis)
+        dr = TSDF(right, "event_ts", ["user"], **kw).on_mesh(
+            mesh, time_axis=time_axis)
     mark("on_mesh x2")
-    joined = dl.asofJoin(dr)
+    with span("join"):
+        joined = dl.asofJoin(dr)
     mark("asofJoin")
-    stats = joined.withRangeStats(colsToSummarize=["x"],
-                                  rangeBackWindowSecs=10)
+    with span("stats"):
+        stats = joined.withRangeStats(colsToSummarize=["x"],
+                                      rangeBackWindowSecs=10)
     mark("withRangeStats")
-    ema = stats.EMA("x", exact=True)
+    with span("EMA"):
+        ema = stats.EMA("x", exact=True)
     mark("EMA")
     if not grouped:
         return ema, None
-    grouped = ema.withGroupedStats(metricCols=["x", "right_wx", "EMA_x"],
-                                   freq="1 minute")
+    with span("grouped stats"):
+        grouped = ema.withGroupedStats(metricCols=["x", "right_wx", "EMA_x"],
+                                       freq="1 minute")
     mark("withGroupedStats")
-    out = grouped.collect().df
+    with span("collect"):
+        out = grouped.collect().df
     mark("collect")
     return ema, out
 
@@ -2568,6 +2619,7 @@ def phase_h(pd, TSDF, left, right, n, n_series, c_seconds, keep):
         + ", ".join(f"{k} {v:.3f}" for k, v in steps.items()))
     keep["H"] = dict(df=grouped, steps=steps, seconds=seconds,
                      planes=global_planes(ema))
+    traced("H chain", lambda: len(mesh_chain(TSDF, left, right, mesh)[1]))
     log(f"H staged forms at the default depth "
         f"(TEMPO_TPU_DMA_BUFFERS={stream.dma_buffers()}): {plans}")
 
@@ -3487,6 +3539,17 @@ def phase_l(pd, TSDF, left, right, n, keep):
             runs.append(secs)
             collected = out.collect().df
             del out, got
+        hit0 = stats()
+        lz = lazy_chain()
+
+        def cache_hit():
+            executor.execute(lz.plan)
+
+        traced("L.a cache hit", cache_hit)
+        hit1 = stats()
+        if (hit1["hits"] - hit0["hits"], hit1["graph_captures"]
+                - hit0["graph_captures"]) != (1, 0):
+            raise AssertionError(f"L.a traced call: {hit1} after {hit0}")
         (exe,) = plan_cache.CACHE._entries.values()
         (fnode,) = [m for m in exe.plan.walk()
                     if m.op == "fused_asof_stats_ema"]
@@ -3557,6 +3620,8 @@ def phase_l(pd, TSDF, left, right, n, keep):
     lt = TSDF(left, "event_ts", ["user"])
     eager, e_s, _, _ = counted(
         lambda: planes(stitched_chain(lt.on_mesh(mesh))))
+    traced("L.c op by op",
+           lambda: len(planes(stitched_chain(lt.on_mesh(mesh)))))
     c_runs = []
     with env_set("TEMPO_TPU_PLAN", "1"):
         for call in range(2):
@@ -3709,6 +3774,650 @@ def phase_l(pd, TSDF, left, right, n, keep):
     return priors
 
 
+# ----------------------------------------------------------------------
+# Whole-chain traces (profiling.trace / annotate)
+# ----------------------------------------------------------------------
+
+def span(name: str):
+    """A named span of the port's trace (``profiling.annotate``)."""
+    from tempo_tpu_torch import profiling
+
+    return profiling.annotate(name)
+
+
+#: Chrome-trace categories of work on the card
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _top(events, n: int = 10):
+    """[name, total ms, count] of the ``n`` names with the most time."""
+    tot, cnt = {}, {}
+    for e in events:
+        tot[e["name"]] = tot.get(e["name"], 0.0) + float(e["dur"])
+        cnt[e["name"]] = cnt.get(e["name"], 0) + 1
+    ranked = sorted(tot.items(), key=lambda kv: -kv[1])[:n]
+    return [[name[:90], round(us / 1e3, 4), cnt[name]] for name, us in ranked]
+
+
+def trace_summary(events, window: str, kernels=()) -> dict:
+    """What a Chrome trace of ``profiling.trace`` says about the span
+    named ``window``: its wall seconds, the seconds some kernel, copy or
+    memset ran on the card inside it (the union of their intervals) and
+    that busy share of the window, the host<->device copies (count,
+    bytes, ms), the top 10 device kernels and copies, the top 10 host
+    spans (annotations and torch ops) by total time, and how many device
+    kernels' names hold each string of ``kernels``."""
+    xs = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    win = [e for e in xs if e.get("name") == window
+           and e.get("cat") == "user_annotation"]
+    if len(win) != 1:
+        raise AssertionError(f"trace holds {len(win)} spans {window!r}")
+    w0 = float(win[0]["ts"])
+    w1 = w0 + float(win[0]["dur"])
+    dev = [e for e in xs if e.get("cat") in DEVICE_CATS]
+    busy, cur = 0.0, None
+    for s, t in sorted((max(float(e["ts"]), w0),
+                        min(float(e["ts"]) + float(e["dur"]), w1))
+                       for e in dev):
+        if t <= s:
+            continue
+        if cur is None or s > cur[1]:
+            busy += 0.0 if cur is None else cur[1] - cur[0]
+            cur = [s, t]
+        else:
+            cur[1] = max(cur[1], t)
+    busy += 0.0 if cur is None else cur[1] - cur[0]
+    copies = {}
+    for e in dev:
+        if e.get("cat") != "gpu_memcpy":
+            continue
+        kind = next((k for k in ("HtoD", "DtoH", "DtoD") if k in e["name"]),
+                    "other")
+        c = copies.setdefault(kind, {"count": 0, "bytes": 0, "ms": 0.0})
+        c["count"] += 1
+        c["bytes"] += int((e.get("args") or {}).get("bytes", 0))
+        c["ms"] = round(c["ms"] + float(e["dur"]) / 1e3, 4)
+    host = [e for e in xs if e.get("cat") in ("user_annotation", "cpu_op")
+            and e is not win[0]]
+    inside = [e for e in dev if e.get("cat") == "kernel"
+              and w0 <= float(e["ts"]) <= w1]
+    return {"window_s": round((w1 - w0) / 1e6, 6),
+            "device_busy_s": round(busy / 1e6, 6),
+            "busy_share": (round(busy / (w1 - w0), 4) if dev else None),
+            "device_events": len(dev), "copies": copies,
+            "top_device": _top(dev), "top_host": _top(host),
+            "kernel_counts": {k: sum(k in e["name"] for e in inside)
+                              for k in kernels}}
+
+
+def traced(label: str, fn, kernels=()):
+    """One extra run of ``fn()`` under ``profiling.trace`` (a temporary
+    directory, removed after), the whole run in one span; prints its
+    ``trace_summary`` (counting the device kernels named by ``kernels``)
+    with the card's name and power limit and returns ``(fn(),
+    summary)``.  The timed runs stay untraced."""
+    import glob
+    import shutil
+    import tempfile
+
+    from tempo_tpu_torch import profiling
+
+    tmp = tempfile.mkdtemp(prefix="tempo-trace-")
+    window = f"traced {label}"
+    try:
+        torch.cuda.synchronize()
+        with profiling.trace(tmp):
+            with profiling.annotate(window):
+                out = fn()
+                torch.cuda.synchronize()
+        files = glob.glob(os.path.join(tmp, "*.json"))
+        if len(files) != 1:
+            raise AssertionError(f"{label}: trace wrote {files}")
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    summary = trace_summary(events, window, kernels)
+    if summary["device_events"] == 0:
+        log(f"{label} trace: the profiler recorded no device activity; the "
+            f"card's busy share is not measured")
+    log(f"{label} trace ({card_line()}): {json.dumps(summary)}")
+    return out, summary
+
+
+# ----------------------------------------------------------------------
+# The sequential-EMA kernel (csrc/ema_scan.cu) against its plain version
+# ----------------------------------------------------------------------
+
+EMA_SCAN_LONG = 1 << 20
+
+
+def phase_b_ema_scan(dev):
+    """``ema_scan`` bitwise against its plain version at [2, 1024, 4096],
+    [1, 16, 64] and one row of 2^20 lanes (whose plain run is on the CPU:
+    two torch ops a lane take seconds either way), alpha 0.2 and 1, with
+    and without a carry, -0.0 in x and NaN in null lanes (and, but for
+    the long row, whose plain run writes the CPU's NaN bits, +-inf and
+    NaN in valid lanes); split invariance on the card (A, then B from
+    A's ``y_end``, bitwise one run over A + B).
+    Returns its row of the result line (launches filled in by phase M)."""
+    from tempo_tpu_torch.ops import scan
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+
+    def case(shape):
+        x = torch.randn(shape, generator=gen, device=dev) * 50
+        v = torch.rand(shape, generator=gen, device=dev) > 0.2
+        x[..., 0] = -0.0
+        x[..., 1::7] = -0.0
+        lanes = torch.arange(shape[-1], device=dev)
+        # NaN in null lanes (ignored: their input is 0), as the serving
+        # steps pass them
+        x = torch.where(~v & (lanes % 3 == 0), float("nan"), x)
+        if shape[-1] < EMA_SCAN_LONG:
+            # +-inf and NaN in valid lanes near the end of three rows,
+            # carried to the end (the plain run is on the card, so the
+            # NaN bits are the card's)
+            rows2 = x.view(-1, shape[-1])
+            vrows = v.view(-1, shape[-1])
+            for r, val in enumerate((float("inf"), -float("inf"),
+                                     float("nan"))):
+                rows2[r % rows2.shape[0], -4 + r] = val
+                vrows[r % rows2.shape[0], -4 + r] = True
+        y0 = torch.randn(shape[:-1], generator=gen, device=dev)
+        return x, v, y0
+
+    inputs = {}
+    for shape in ((2, 1024, 4096), (1, 16, 64), (1, EMA_SCAN_LONG)):
+        x, v, y0 = inputs[shape] = case(shape)
+        L = shape[-1]
+        checks = ([(0.2, y0)] if L == EMA_SCAN_LONG
+                  else [(a, c) for a in (0.2, 1.0) for c in (None, y0)])
+        for alpha, carry in checks:
+            got, got_end = scan.ema_scan_cuda(x, v, alpha, carry)
+            on = "cpu" if L == EMA_SCAN_LONG else dev
+            want, want_end = scan.ema_scan_plain(
+                x.to(on), v.to(on), alpha, None if carry is None
+                else carry.to(on))
+            what = f"ema_scan {list(shape)} alpha {alpha} " \
+                   f"{'y0' if carry is not None else 'zero carry'}"
+            check_bitwise(got, want.to(dev), what)
+            check_bitwise(got_end, want_end.to(dev), what + " (y_end)")
+        cut = L // 3 + 1
+        a, a_end = scan.ema_scan_cuda(x[..., :cut], v[..., :cut], 0.2, y0)
+        b, b_end = scan.ema_scan_cuda(x[..., cut:], v[..., cut:], 0.2, a_end)
+        whole, whole_end = scan.ema_scan_cuda(x, v, 0.2, y0)
+        check_bitwise(torch.cat([a, b], -1), whole,
+                      f"ema_scan {list(shape)} split at {cut}")
+        check_bitwise(b_end, whole_end, f"ema_scan {list(shape)} split y_end")
+
+    def nbytes(shape):
+        R, L = int(np.prod(shape[:-1])), shape[-1]
+        return R * L * (4 + 1 + 4) + R * 8        # x, valid, ys; y0, y_end
+
+    main = (2, 1024, 4096)
+    x, v, y0 = inputs[main]
+    b, by = bound_ms(nbytes(main), 2 * x.numel())
+    xs, vs, ys0 = inputs[(1, 16, 64)]
+    xl, vl, yl0 = inputs[(1, EMA_SCAN_LONG)]
+    row = dict(
+        name="ema_scan", route="cuda",
+        source="tempo_tpu_torch/csrc/ema_scan.cu",
+        replaces="tempo_tpu/ops/rolling.py:485 (ema_scan, a lax.scan; no "
+                 "Pallas kernel)",
+        max_abs_err=0.0,
+        ms=time_ms(lambda: scan.ema_scan_cuda(x, v, 0.2, y0)),
+        plain_ms=time_ms(lambda: scan.ema_scan_plain(x, v, 0.2, y0), reps=2),
+        bound_ms=b, bound_by=by, library_ms=None,
+        shape=f"{list(main)}",
+        ms_serving_shape=time_ms(lambda: scan.ema_scan_cuda(xs, vs, 0.2, ys0)),
+        bound_ms_serving_shape=bound_ms(nbytes((1, 16, 64)), 2 * 16 * 64)[0],
+        ms_long_row=time_ms(lambda: scan.ema_scan_cuda(xl, vl, 0.2, yl0),
+                            reps=3),
+        bound_ms_long_row=bound_ms(nbytes((1, EMA_SCAN_LONG)),
+                                   2 * EMA_SCAN_LONG)[0])
+    log(f"B ema_scan: bitwise (bit views) equal to the plain version at "
+        f"[2, 1024, 4096], [1, 16, 64] (alpha 0.2 and 1, with and without a "
+        f"carry; -0.0, NaN in null lanes, +-inf and NaN in valid lanes) and "
+        f"[1, {EMA_SCAN_LONG}] (plain on the CPU; -0.0 and NaN in null "
+        f"lanes); split runs bitwise one run at every shape; kernel "
+        f"{row['ms']:.4f} ms at [2, 1024, 4096] (bound {b:.4f}, plain "
+        f"{row['plain_ms']:.2f} ms), {row['ms_serving_shape']:.4f} ms at "
+        f"[1, 16, 64], {row['ms_long_row']:.3f} ms at [1, {EMA_SCAN_LONG}] "
+        f"(bound {row['bound_ms_long_row']:.4f}: a thread a row runs the "
+        f"row's lanes one after another) ({card_line()})")
+    return {"ema_scan": row}
+
+
+# ----------------------------------------------------------------------
+# Phase M: serving one stream
+# ----------------------------------------------------------------------
+
+#: what the streams themselves must launch, and their batch operators
+SLICE16_KERNELS = ("ema_scan",)
+ORACLE_KERNELS = ("ema_scan", "asof_merge_lookback", "asof_merge")
+SERVE_COLS = ("bid", "ask")
+
+
+def sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def take_counts(dev) -> dict:
+    """The launch counters since they were last zeroed (once the card's
+    queued work is done), then zeroed for the next run."""
+    from tempo_tpu_torch.ops import cuda_lib
+
+    sync(dev)
+    out = dict(cuda_lib.launches)
+    cuda_lib.reset_launches()
+    return out
+
+
+def side_positions(k, n_series: int):
+    """Each event's index among the earlier events of its series (the
+    events in order)."""
+    order = np.argsort(k, kind="stable")
+    ks = k[order]
+    first = np.r_[True, ks[1:] != ks[:-1]]
+    start = np.maximum.accumulate(np.where(first, np.arange(len(k)), 0))
+    pos = np.empty(len(k), np.int64)
+    pos[order] = np.arange(len(k)) - start
+    return pos
+
+
+def serve_history(k, ts, is_left, vals, K: int):
+    """The concatenated history as the batch operators take it: packed
+    left keys, right keys and values (pads TS_PAD and NaN), and each
+    event's position within its side of its series."""
+    from tempo_tpu_torch.packing import TS_PAD
+
+    pos = np.empty(len(k), np.int64)
+    out = {}
+    for side, sel in (("l", is_left), ("r", ~is_left)):
+        idx = np.flatnonzero(sel)
+        p = side_positions(k[idx], K)
+        pos[idx] = p
+        L = int(p.max()) + 1 if len(p) else 1
+        t = np.full((K, L), TS_PAD, np.int64)
+        t[k[idx], p] = ts[idx]
+        out[f"{side}_ts"] = t
+        if side == "r":
+            C = vals.shape[1]
+            v = np.full((C, K, L), np.nan, np.float32)
+            for c in range(C):
+                v[c, k[idx], p] = vals[idx, c]
+            out["r_vals"] = v
+    return out, pos
+
+
+def serve_oracle(hist, dev, *, skip_nulls, ml, w_ns=None, rows_bound=None,
+                 alpha=None):
+    """The batch operators over the history on ``dev``: the join
+    (``sortmerge.asof_merge_values``), the window stats and the EMA, as
+    numpy planes."""
+    from tempo_tpu_torch.ops import scan, sortmerge
+    from tempo_tpu_torch.serve import state as sst
+
+    t = lambda a: torch.from_numpy(a).to(dev)
+    r_vals = t(hist["r_vals"])
+    r_valids = ~torch.isnan(r_vals)
+    vals, found, idx = sortmerge.asof_merge_values(
+        t(hist["l_ts"]), t(hist["r_ts"]), r_valids, r_vals,
+        skip_nulls=skip_nulls, max_lookback=ml)
+    out = {"join": (vals.cpu().numpy(), found.cpu().numpy(),
+                    idx.cpu().numpy())}
+    if w_ns is not None:
+        st, clip = sst.window_stats_batch(t(hist["r_ts"]), r_vals, r_valids,
+                                          w_ns, rows_bound)
+        out["stats"] = {key: v.cpu().numpy() for key, v in st.items()}
+        out["clipped"] = int(clip.sum().item())
+    if alpha is not None:
+        out["ema"] = scan.ema_scan(r_vals, r_valids,
+                                   float(np.float32(alpha)))[0].cpu().numpy()
+    sync(dev)
+    return out
+
+
+def check_served(what, k, pos, is_left, got, oracle, cols):
+    """Raise unless every emission (``got``: key -> per-event array over
+    all events, NaN/False where the event's side does not emit it) is the
+    oracle's bits at the event's (series, position)."""
+    def same(a, b, key):
+        a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+        if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+            bad = (np.flatnonzero((a.view(np.uint8).reshape(len(a), -1)
+                                   != b.view(np.uint8).reshape(len(b), -1)
+                                   ).any(1)) if a.dtype == b.dtype else [])
+            raise AssertionError(f"{what}: {key} differs from the batch "
+                                 f"operators ({a.dtype} vs {b.dtype}; first "
+                                 f"events {list(bad[:5])})")
+
+    li, ri = np.flatnonzero(is_left), np.flatnonzero(~is_left)
+    wv, wf, wi = oracle["join"]
+    kl, pl = k[li], pos[li]
+    for c, col in enumerate(cols):
+        same(got[col][li], wv[c, kl, pl], col)
+        same(got[f"{col}_found"][li], wf[c, kl, pl], f"{col}_found")
+    same(got["right_row_idx"][li].astype(np.int64),
+         wi[kl, pl].astype(np.int64), "right_row_idx")
+    kr, pr = k[ri], pos[ri]
+    planes = dict(oracle.get("stats") or {})
+    if "ema" in oracle:
+        planes["ema"] = oracle["ema"]
+    for key, plane in planes.items():
+        for c, col in enumerate(cols):
+            same(got[f"{col}_{key}"][ri], plane[c, kr, pr], f"{col}_{key}")
+    return len(li) + len(ri)
+
+
+def serve_steps(k, is_left, cap: int):
+    """The push a ``step`` each event goes in when every series' events
+    are pushed straight in merged order, side-homogeneous batches of at
+    most ``cap`` rows a series: runs of one side (cut at ``cap``) of a
+    series take steps of their side's parity, each after the last."""
+    n = len(k)
+    order = np.argsort(k, kind="stable")
+    ks, side = k[order], is_left[order].astype(np.int64)
+    first = np.r_[True, ks[1:] != ks[:-1]]
+    new_run = first | np.r_[True, side[1:] != side[:-1]]
+    run_start = np.maximum.accumulate(np.where(new_run, np.arange(n), 0))
+    new_run |= (np.arange(n) - run_start) % cap == 0
+    r = np.flatnonzero(new_run)                    # the runs' first events
+    rs, rk = side[r], ks[r]
+    rfirst = np.r_[True, rk[1:] != rk[:-1]]
+    # step_0 = side_0; step_j = step_{j-1} + 1 + (side_j == side_{j-1}),
+    # a cumulative sum restarted at each series' first run
+    inc = np.where(rfirst, rs, 1 + (rs == np.r_[-1, rs[:-1]]))
+    grp = np.maximum.accumulate(np.where(rfirst, np.arange(len(r)), 0))
+    csum = np.cumsum(inc)
+    step_r = csum - csum[grp] + inc[grp]
+    step = np.empty(n, np.int64)
+    step[order] = step_r[np.cumsum(new_run) - 1]
+    return step
+
+
+def drive_stream(stream, k, ts, is_left, vals, step, cols, names=None,
+                 limit=None):
+    """Push every event straight to ``stream`` (one push or push_left a
+    step, the steps in order; ``limit`` steps at most): per-event
+    emissions over all events (NaN / False / -1 where the event's side
+    does not emit a key), the pushes, and the host seconds spent in
+    admission (``serve.stream.admit_batch``)."""
+    from tempo_tpu_torch.serve import stream as stream_mod
+
+    names = np.arange(stream.cfg.n_series) if names is None else names
+    n = len(k)
+    got = {}
+    order = np.argsort(step, kind="stable")
+    bounds = np.flatnonzero(np.r_[True, np.diff(step[order]) != 0, True])
+    admit_s = [0.0]
+    real_admit = stream_mod.admit_batch
+
+    def timed_admit(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real_admit(*a, **kw)
+        finally:
+            admit_s[0] += time.perf_counter() - t0
+
+    stream_mod.admit_batch = timed_admit
+    pushes = 0
+    try:
+        for b0, b1 in zip(bounds[:-1], bounds[1:]):
+            if limit is not None and pushes >= limit:
+                break
+            idx = order[b0:b1]
+            ids = names[k[idx]].tolist()
+            if is_left[idx[0]]:
+                out = stream.push_left(ids, ts[idx])
+            else:
+                out = stream.push(ids, ts[idx],
+                                  {c: vals[idx, j] for j, c in enumerate(cols)})
+            pushes += 1
+            for key, a in out.items():
+                if key not in got:
+                    fill = (False if a.dtype == bool else -1
+                            if a.dtype.kind == "i" else np.nan)
+                    got[key] = np.full(n, fill, a.dtype)
+                got[key][idx] = a
+    finally:
+        stream_mod.admit_batch = real_admit
+    return got, pushes, admit_s[0]
+
+
+def m_hhar_events(pd, left, right, n_right: int):
+    """Phase C's frames as a serving feed: the first ``n_right`` right
+    (watch) rows in time order and the left (phone) rows up to the last
+    of them, each series' events in merged order (time, right before left
+    on a tie).  Returns (series, ts ns, is_left, values [n, 1])."""
+    r_ts = right["event_ts"].to_numpy().astype("datetime64[ns]").view(np.int64)
+    r_order = np.argsort(r_ts, kind="stable")[:n_right]
+    cut = r_ts[r_order].max()
+    l_ts = left["event_ts"].to_numpy().astype("datetime64[ns]").view(np.int64)
+    l_idx = np.flatnonzero(l_ts <= cut)
+    k = np.r_[right["user"].to_numpy()[r_order], left["user"].to_numpy()[l_idx]]
+    ts = np.r_[r_ts[r_order], l_ts[l_idx]]
+    is_left = np.r_[np.zeros(len(r_order), bool), np.ones(len(l_idx), bool)]
+    vals = np.r_[right["wx"].to_numpy()[r_order],
+                 np.full(len(l_idx), np.nan)].astype(np.float32)[:, None]
+    order = np.lexsort((is_left, ts, k))
+    return (k[order].astype(np.int64), ts[order], is_left[order],
+            vals[order])
+
+
+def phase_m(pd, left, right, n_series: int, dev):
+    """Serving one stream (``tempo_tpu_torch.serve``) on the card.  a. The
+    reference benchmark's config 11 through ``MicroBatchExecutor``;
+    b. phase C's frames at HHAR scale pushed straight to a stream; c.
+    the first quarter of b. with no lookback, ``skip_nulls`` both ways.
+    Each streamed emission is bitwise the batch operators' on the card
+    over the same history (the lookback join, row 4's kernel, for a. and
+    b.; the merge join, row 1's, for c.), with zero builds and captures
+    after warm-up.  Returns the streams' launch counts (each stream's, from
+    just before its warm-up to just after its last push; the batch
+    operators' are counted apart)."""
+    from tempo_tpu_torch import profiling
+    from tempo_tpu_torch.plan import cache as plan_cache
+    from tempo_tpu_torch.serve import MicroBatchExecutor, StreamingTSDF
+    from tempo_tpu_torch.serve import state as sst
+
+    stats = profiling.plan_cache_stats
+    plan_cache.CACHE.clear()
+    served, oracles = [], []
+    t_phase = time.perf_counter()
+
+    # -- a. config 11 verbatim (bench.py bench_serving) -----------------
+    rng = np.random.default_rng(11)
+    Ks, C, ml = 16, 2, 64
+    cols = SERVE_COLS
+    n_warm, n_meas = 600, 4000
+    stream = StreamingTSDF([f"sym{i}" for i in range(Ks)], cols,
+                           window_secs=10.0, window_rows_bound=32,
+                           ema_alpha=0.2, max_lookback=ml, device=dev)
+    ex = MicroBatchExecutor(stream, batch_rows=16)
+    take_counts(dev)
+    t0 = time.perf_counter()
+    stream.warmup(16)
+    warm_s = time.perf_counter() - t0
+    n = n_warm + n_meas
+    gaps = rng.exponential(scale=4e7, size=n).astype(np.int64) + 1
+    ts = np.cumsum(gaps) + np.int64(10**9)
+    series = rng.integers(0, Ks, n)
+    is_left = rng.random(n) < 0.25
+    vals = rng.standard_normal((n, C)).astype(np.float32)
+    vals[rng.random(n) < 0.05, 0] = np.nan
+
+    def feed(i0, i1):
+        out = []
+        for i in range(i0, i1):
+            sym = f"sym{series[i]}"
+            if is_left[i]:
+                out.append(ex.submit("left", sym, ts[i], timeout=120))
+            else:
+                out.append(ex.submit(
+                    "right", sym, ts[i],
+                    {c: vals[i, j] for j, c in enumerate(cols)}, timeout=120))
+        return out
+
+    warm = [tk.result(timeout=120) for tk in feed(0, n_warm)]
+    s0 = stats()
+    t0 = time.perf_counter()
+    tickets = feed(n_warm, n)
+    measured = [tk.result(timeout=300) for tk in tickets]
+    wall = time.perf_counter() - t0
+    ex.close(timeout=120)
+    served.append(take_counts(dev))
+    s1 = stats()
+    moved = {key: s1[key] - s0[key]
+             for key in ("builds", "graph_captures", "graph_replays")}
+    if moved["builds"] or moved["graph_captures"]:
+        raise AssertionError(f"M.a steady state built or captured: {moved}")
+    if stream.clipped:
+        raise AssertionError(f"M.a clipped {stream.clipped} rows")
+    hist, pos = serve_history(series, ts, is_left, vals, Ks)
+    oracle = serve_oracle(hist, dev, skip_nulls=True, ml=ml,
+                          w_ns=sst.window_ns(10.0), rows_bound=32, alpha=0.2)
+    oracles.append(take_counts(dev))
+    got = {}
+    for i, res in enumerate(warm + measured):
+        for key, v in res.items():
+            if key not in got:
+                a = np.asarray(v)
+                fill = (False if a.dtype == bool else -1
+                        if a.dtype.kind == "i" else np.nan)
+                got[key] = np.full(n, fill, a.dtype)
+            got[key][i] = v
+    checked = check_served("M.a", series, pos, is_left, got, oracle, cols)
+    lat = ex.latency_stats()
+    log(f"M.a config 11 (16 series, bid/ask, 10 s window of <= 32 rows, EMA "
+        f"0.2, maxLookback 64, MicroBatchExecutor(batch_rows=16), "
+        f"warmup(16) {warm_s:.3f} s, {n_warm} warm + {n_meas} measured "
+        f"Poisson ticks, 25% left, 5% NaN, seed 11): "
+        f"{n_meas / wall:.1f} ticks/s; p50/p99 ms right "
+        f"{lat['right']['p50_ms']}/{lat['right']['p99_ms']}, left "
+        f"{lat['left']['p50_ms']}/{lat['left']['p99_ms']}, all "
+        f"{lat['all']['p50_ms']}/{lat['all']['p99_ms']}; {ex.batches} "
+        f"batches {dict(sorted(ex.bucket_hist.items()))}; measured part "
+        f"{moved}; clipped 0; {checked} emissions bitwise the batch "
+        f"operators on the card (lookback join, window_stats_batch, "
+        f"ema_scan) ({card_line()})")
+    del stream, ex, warm, measured, tickets
+
+    # -- b. HHAR scale, pushed straight to a stream ----------------------
+    n_right = 1 << 20
+    t0 = time.perf_counter()
+    k, ts, is_left, vals = m_hhar_events(pd, left, right, n_right)
+    step = serve_steps(k, is_left, 64)
+    prep_s = time.perf_counter() - t0
+    cfg_b = dict(window_secs=10.0, window_rows_bound=64, ema_alpha=0.2,
+                 max_lookback=LOOKBACK)
+    names = np.arange(n_series)
+    stream = StreamingTSDF(names.tolist(), ["wx"], device=dev, **cfg_b)
+    take_counts(dev)
+    t0 = time.perf_counter()
+    stream.warmup(64)
+    warm_s = time.perf_counter() - t0
+    s0 = stats()
+    sync(dev)
+    t0 = time.perf_counter()
+    got, pushes, admit_s = drive_stream(stream, k, ts, is_left, vals, step,
+                                        ["wx"], names)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    served.append(take_counts(dev))
+    s1 = stats()
+    moved = {key: s1[key] - s0[key]
+             for key in ("builds", "graph_captures", "graph_replays")}
+    if moved["builds"] or moved["graph_captures"]:
+        raise AssertionError(f"M.b steady state built or captured: {moved}")
+    hist, pos = serve_history(k, ts, is_left, vals, n_series)
+    oracle = serve_oracle(hist, dev, skip_nulls=True, ml=LOOKBACK,
+                          w_ns=sst.window_ns(10.0), rows_bound=64, alpha=0.2)
+    oracles.append(take_counts(dev))
+    if stream.clipped != oracle["clipped"]:
+        raise AssertionError(f"M.b clipped {stream.clipped}, batch "
+                             f"{oracle['clipped']}")
+    checked = check_served("M.b", k, pos, is_left, got, oracle, ["wx"])
+    pool = stream.graph_pool_bytes()
+    log(f"M.b HHAR stream ({n_series} series, wx right, phone left, 10 s "
+        f"window of <= 64 rows, EMA 0.2, maxLookback {LOOKBACK}): "
+        f"{len(k)} events ({int((~is_left).sum())} right, "
+        f"{int(is_left.sum())} left) in {pushes} pushes of <= 64 rows a "
+        f"series, {len(k) / wall:.0f} events/s ({wall:.3f} s; admission "
+        f"{admit_s:.3f} s, {admit_s / wall:.4f} of it; feed prepared in "
+        f"{prep_s:.3f} s, warmup(64) {warm_s:.3f} s); steady state "
+        f"{moved}; graph pools {pool} bytes; clipped {stream.clipped}; "
+        f"{checked} emissions bitwise the batch operators on the card "
+        f"({card_line()})")
+    del oracle, got
+
+    # the steady state traced: a replay launches ema_scan through no
+    # wrapper, so the trace shows it ran, once a right push (a right
+    # push takes an even step: serve_steps gives a run its side's parity)
+    again = StreamingTSDF(names.tolist(), ["wx"], device=dev, **cfg_b)
+    again.warmup(64)
+    right_pushes = int((np.unique(step)[:200] % 2 == 0).sum())
+    c0 = stats()["graph_captures"]
+    _, summary = traced(
+        "M.b steady state (200 pushes)",
+        lambda: drive_stream(again, k, ts, is_left, vals, step, ["wx"],
+                             names, limit=200)[1],
+        kernels=("ema_scan_kernel",))
+    if stats()["graph_captures"] != c0:
+        raise AssertionError("M.b traced run captured a graph")
+    ran = summary["kernel_counts"]["ema_scan_kernel"]
+    if not summary["device_events"]:
+        ran = "not measured (the profiler traced no device activity)"
+    elif ran < right_pushes:
+        raise AssertionError(f"M.b traced pushes ran ema_scan_kernel {ran} "
+                             f"times for {right_pushes} right pushes")
+    log(f"M.b traced steady state: {right_pushes} right pushes of 200, "
+        f"ema_scan_kernel runs on the card in their graph replays: {ran}")
+    del stream, again
+
+    # -- c. no lookback, skip_nulls both ways ---------------------------
+    r_idx = np.flatnonzero(~is_left)
+    first_r = r_idx[np.argsort(ts[r_idx], kind="stable")[:min(
+        1 << 18, len(r_idx))]]
+    sel = is_left & (ts <= ts[first_r].max())
+    sel[first_r] = True
+    kc, tc, lc, vc = k[sel], ts[sel], is_left[sel], vals[sel]
+    stepc = serve_steps(kc, lc, 64)
+    histc, posc = serve_history(kc, tc, lc, vc, n_series)
+    for skip in (True, False):
+        s = StreamingTSDF(names.tolist(), ["wx"], device=dev,
+                          skip_nulls=skip)
+        take_counts(dev)
+        s.warmup(64)
+        t0 = time.perf_counter()
+        got, pushes, _ = drive_stream(s, kc, tc, lc, vc, stepc, ["wx"], names)
+        wall = time.perf_counter() - t0
+        served.append(take_counts(dev))
+        oracle = serve_oracle(histc, dev, skip_nulls=skip, ml=0)
+        oracles.append(take_counts(dev))
+        checked = check_served(f"M.c skip_nulls={skip}", kc, posc, lc, got,
+                               oracle, ["wx"])
+        log(f"M.c maxLookback 0, skip_nulls={skip}: {len(kc)} events "
+            f"({int((~lc).sum())} right) in {pushes} pushes, "
+            f"{len(kc) / wall:.0f} events/s; {checked} answers bitwise "
+            f"sortmerge.asof_merge_values on the card (the merge kernel)")
+    launches, by_oracle = add_counts(*served), add_counts(*oracles)
+    missing = [name for name in SLICE16_KERNELS if launches[name] == 0]
+    if missing:
+        raise AssertionError(f"phase M's streams never launched {missing}")
+    missing = [name for name in ORACLE_KERNELS if by_oracle[name] == 0]
+    if missing:
+        raise AssertionError(f"phase M's batch operators never launched "
+                             f"{missing}")
+    log(f"M took {time.perf_counter() - t_phase:.1f} s; the streams' "
+        f"launches {launches}; the batch operators' (counted apart) "
+        f"{by_oracle}")
+    plan_cache.CACHE.clear()
+    return launches
+
+
 def add_counts(*counts):
     """Launch counters of several runs, summed by kernel."""
     out = {}
@@ -3786,6 +4495,7 @@ def main(argv=None) -> int:
     rows3 = phase_b_slice3(pd, left3, right3, dev, d_args)
     rows4 = phase_b_slice4(left, dev, d_args)
     rows5 = phase_b_bucket(pd, TSDF, left, right, left3, dev)
+    rows6 = phase_b_ema_scan(dev)
     torch.cuda.empty_cache()
     past = phase_b_past_limits(dev)
     keep = {}
@@ -3814,16 +4524,19 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     phase_l(pd, TSDF, left, right, n, keep)
     log(f"L took {time.perf_counter() - t0:.1f} s")
-    del left, right, keep
+    del keep
+    torch.cuda.empty_cache()
+    launches8 = phase_m(pd, left, right, args.series, dev)
+    del left, right
     torch.cuda.empty_cache()
 
     # launches: summed over the main-path runs (phases C, E, F, G's legacy
-    # step, H, I and K), each counted between a reset and a read
+    # step, H, I, K and M), each counted between a reset and a read
     found = add_counts(launches, launches2, launches3, long_launches,
-                       launches4, launches5, launches6, launches7)
+                       launches4, launches5, launches6, launches7, launches8)
     rows["ema_ladder"].update(rows3.pop("_ema_phase_f"))
     kernels = []
-    for table in (rows, rows2, rows3, rows4, rows5):
+    for table in (rows, rows2, rows3, rows4, rows5, rows6):
         for name, row in table.items():
             row = dict(row)
             row.update(past.get(name, {}))

@@ -86,6 +86,23 @@ KNOBS = {
     "TEMPO_TPU_RESHARD_PLACEMENT":
         "auto | declarative | explicit: plan-placed reshard nodes on "
         "time-sharded mesh chains (default auto)",
+    "TEMPO_TPU_SERVE_BATCH_ROWS":
+        "per-series row cap of one serving micro-batch: the executor cuts "
+        "a coalesced run when any series reaches it, bounding the padded "
+        "buckets (and so the cached steps) the steady state cycles "
+        "through (default 64)",
+    "TEMPO_TPU_SERVE_QUEUE_DEPTH":
+        "bound of the serving executor's tick queue; a full queue blocks "
+        "submit(), the backpressure signal (default 1024)",
+    "TEMPO_TPU_SERVE_CKPT_EVERY":
+        "snapshot a StreamingTSDF every N acked events (CRC'd keep-last-K "
+        "through checkpoint.save_state; 0, the default, disables automatic "
+        "snapshots, snapshot() stays available)",
+    "TEMPO_TPU_SERVE_DEADLINE_S":
+        "default end-to-end deadline (seconds) of serving tickets: a tick "
+        "still queued when its budget dies fails with a stage-named "
+        "DeadlineExceeded; unset or 0: none (per-submit deadlines stay "
+        "available)",
     "TEMPO_TPU_INGEST_DEADLINE_S":
         "default end-to-end deadline of from_parquet in seconds (unset: "
         "none)",

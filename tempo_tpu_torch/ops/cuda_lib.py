@@ -46,7 +46,7 @@ from tempo_tpu_torch import config
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("asof_merge.cu", "range_stats.cu", "ema_ladder.cu",
            "index_scan.cu", "resample_ema.cu", "merge_rank.cu", "cumsum3.cu",
-           "legacy_stats.cu", "bucket_stats.cu")
+           "legacy_stats.cu", "bucket_stats.cu", "ema_scan.cu")
 HEADERS = ("common.cuh", "ring.cuh", "window.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-fmad=false", "-Xcompiler", "-fPIC",
@@ -60,7 +60,7 @@ launches: Dict[str, int] = {"asof_merge": 0, "range_stats": 0,
                             "merge_rank": 0, "cumsum3": 0,
                             "legacy_stats": 0, "bucket_stats": 0,
                             "bucket_stats_ring": 0, "range_stats_ring": 0,
-                            "resample_ema_ring": 0}
+                            "resample_ema_ring": 0, "ema_scan": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -83,6 +83,7 @@ _SIGNATURES = {
     "tempo_bucket_stats_ring": [_P] * 7 + [_I] * 5 + [_P],
     "tempo_range_stats_ring": [_P] * 7 + [_I] * 9 + [_P],
     "tempo_ema_ladder": [_P, _P, ctypes.c_float, _P, _P, _I, _I, _P],
+    "tempo_ema_scan": [_P, _P, ctypes.c_double] + [_P] * 3 + [_I] * 3 + [_P],
     "tempo_last_valid_index": [_P, _P, _I, _I, _P],
     "tempo_first_valid_index": [_P, _P, _I, _I, _P],
     "tempo_last_valid_scan": [_P] * 4 + [_I, _I, _P],

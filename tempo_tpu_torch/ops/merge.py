@@ -22,7 +22,9 @@ Counterpart of ``tempo_tpu/ops/pallas_merge.py``:
 * ``merge_rank``: ``_make_rank_kernel`` (through ``_rank_call``) behind
   ``merge_rank_pallas``; the TPU's merge network becomes merge-path tiles
   of ``RANK_TILE`` merged positions, ``RANK_PER`` a thread
-  (``merge_rank_tiled_plain`` runs that design on the CPU).
+  (``merge_rank_tiled_plain`` runs that design on the CPU);
+* ``asof_carry_init``: the chunked kernel's carry as named arrays, the
+  serving steps' join state.
 
 For every left row, the last right row at or before it in the total
 order (sid?, ts, seq?, side): right rows win full ties (the reference's
@@ -342,6 +344,38 @@ def asof_merge_indices(l_ts, r_ts, r_valids, l_sid=None, r_sid=None,
     last, col_idx, _ = asof_merge(l_ts, r_ts, r_valids, None, l_sid, r_sid,
                                   l_seq, r_seq, True)
     return last, col_idx
+
+
+def asof_carry_init(n_cols: int, n_series: int):
+    """The AS-OF join's carry as named numpy arrays, for callers that
+    thread the fill state through steps of their own (the serving steps,
+    ``serve/state.py``); the reference's ``pallas_merge.asof_carry_init``,
+    names, shapes, dtypes and initial values included.  Per series ``k``:
+
+    * ``last_val [C, K] f32``: last valid right value per column (NaN:
+      none yet), the per-column ``skipNulls=True`` fill;
+    * ``last_src [C, K] i64``: its merged-stream position (far negative,
+      so any horizon has expired);
+    * ``lock_val [C, K] f32`` / ``lock_valid [C, K] bool`` / ``lock_src
+      [K] i64``: the single last right row's values, validity and merged
+      position, the lockstep ``skipNulls=False`` fill;
+    * ``last_ridx [K] i64``: that row's index within the right side (-1:
+      none);
+    * ``n_merged [K] i64``: merged positions consumed, both sides.
+
+    Fills select values and compute none, so a carry threaded across any
+    split of the stream gives the batch join's bits."""
+    C, K = int(n_cols), int(n_series)
+    far = np.int64(-(1 << 62))
+    return {
+        "last_val": np.full((C, K), np.nan, np.float32),
+        "last_src": np.full((C, K), far, np.int64),
+        "lock_val": np.full((C, K), np.nan, np.float32),
+        "lock_valid": np.zeros((C, K), bool),
+        "lock_src": np.full((K,), far, np.int64),
+        "last_ridx": np.full((K,), -1, np.int64),
+        "n_merged": np.zeros((K,), np.int64),
+    }
 
 
 def _check_lookback(max_lookback) -> int:

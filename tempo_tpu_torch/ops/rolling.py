@@ -2,8 +2,9 @@
 
 Counterpart of ``tempo_tpu/ops/rolling.py``: ``pick_range_engine``,
 ``shifted_row_budget``, ``windowed_stats``, ``bucket_stats``,
-``bucket_stats_multi``, ``segment_stats``, ``ema_exact`` and
-``ema_compat``.
+``bucket_stats_multi``, ``segment_stats``, ``ema_exact``, ``ema_compat``
+and ``ema_scan`` (re-exported from ``ops/scan.py``, where the reference's
+callers look for it).
 
 The reference has three range engines; two of them, ``shifted`` and
 ``stream``, are the unrolled and runtime-width forms of one Pallas
@@ -33,6 +34,7 @@ import torch.nn.functional as F
 
 from tempo_tpu_torch import config
 from tempo_tpu_torch.ops import bucket, scan, stats
+from tempo_tpu_torch.ops.scan import ema_scan  # noqa: F401 (re-export)
 from tempo_tpu_torch.ops.window_utils import merge_rank, shift_right
 
 # The reference's ceiling on the shifted form's row extent (compile-time

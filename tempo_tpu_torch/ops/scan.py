@@ -25,9 +25,15 @@ Counterpart of ``tempo_tpu/ops/pallas_kernels.py``:
   ladder (a tile-local stage, then ladders along residue classes);
   ``cumsum3_tiled_plain`` runs the same stages as tensor code.
 
+* ``ema_scan`` (``tempo_tpu/ops/rolling.py:ema_scan``, a ``lax.scan``
+  and no Pallas kernel): the same recurrence strictly left to right
+  with an explicit carry, ``(ys, y_end)``, one multiply and one add a
+  lane, so resuming from ``y_end`` at any split is bitwise one run.
+  The serving steps run it on every push.
+
 A CUDA tensor goes to the kernel (``csrc/ema_ladder.cu``,
-``csrc/index_scan.cu``, ``csrc/cumsum3.cu``), a CPU tensor to the plain
-version, which is dtype-generic (float64 on the CPU).
+``csrc/index_scan.cu``, ``csrc/cumsum3.cu``, ``csrc/ema_scan.cu``), a CPU
+tensor to the plain version, which is dtype-generic (float64 on the CPU).
 """
 
 from __future__ import annotations
@@ -201,6 +207,87 @@ def ema(x: torch.Tensor, valid: torch.Tensor, alpha: float) -> torch.Tensor:
     if x.is_cuda:
         return ema_cuda(x, valid, alpha)
     return ema_plain(x, valid, alpha)
+
+
+def _scan_planes(x, valid, alpha):
+    """The sequential EMA's (decay, input) planes, as the reference's
+    ``ema_scan`` forms them: ``1 - a`` / ``a * x`` at valid lanes, ``1``
+    / ``0`` elsewhere, in ``x``'s dtype."""
+    a = torch.tensor(alpha, dtype=x.dtype, device=x.device)
+    one = torch.ones((), dtype=x.dtype, device=x.device)
+    return (torch.where(valid, one - a, one),
+            torch.where(valid, a * x, torch.zeros_like(one)))
+
+
+def _check_scan_carry(x, y0):
+    if y0 is not None and (y0.shape != x.shape[:-1] or y0.dtype != x.dtype):
+        raise TypeError(f"y0 must be {x.dtype} {tuple(x.shape[:-1])}, got "
+                        f"{y0.dtype} {tuple(y0.shape)}")
+
+
+def ema_scan_plain(x: torch.Tensor, valid: torch.Tensor, alpha,
+                   y0: torch.Tensor = None):
+    """``(ys, y_end)`` of ``y = decay * y + inp`` along the last axis of
+    ``[..., L]``, from ``y0`` (None: the zero carry): a multiply, then an
+    add, two torch ops a lane (never ``addcmul``), so each rounds as the
+    kernel's ``__fmul_rn`` and ``__fadd_rn`` do.  In ``x``'s dtype."""
+    _check_scan_carry(x, y0)
+    decay, inp = _scan_planes(x, valid, alpha)
+    y = (torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+         if y0 is None else y0)
+    ys = []
+    for d, i in zip(decay.unbind(-1), inp.unbind(-1)):
+        y = d * y
+        y = y + i
+        ys.append(y)
+    if not ys:
+        return torch.empty_like(x), y.clone()
+    return torch.stack(ys, -1), y
+
+
+def ema_scan_cuda(x: torch.Tensor, valid: torch.Tensor, alpha,
+                  y0: torch.Tensor = None):
+    """Launch the sequential-EMA kernel on a float32 or float64 [..., L]
+    CUDA tensor (one launch: ``y0`` read and ``y_end`` written in it, on
+    the current stream, so a CUDA graph captures it)."""
+    if x.dtype not in (torch.float32, torch.float64) or x.dim() < 1:
+        raise TypeError(f"ema_scan kernel takes float32 or float64 [..., L], "
+                        f"got {x.dtype} {tuple(x.shape)}")
+    if valid.dtype != torch.bool or valid.shape != x.shape:
+        raise TypeError("valid must be a bool tensor shaped like x")
+    _check_scan_carry(x, y0)
+    if not (x.is_cuda and valid.device == x.device
+            and (y0 is None or y0.device == x.device)):
+        raise ValueError("x, valid and y0 must lie on the same CUDA device")
+    L = x.shape[-1]
+    R = x.numel() // L if L else 0
+    if R >= 2**31 or L >= 2**31:
+        raise ValueError(f"ema_scan kernel takes int32 row counts and "
+                         f"lengths, got {tuple(x.shape)}")
+    ys = torch.empty_like(x, memory_format=torch.contiguous_format)
+    y_end = torch.empty(x.shape[:-1], dtype=x.dtype, device=x.device)
+    if R == 0 or L == 0:
+        if y0 is None:
+            y_end.zero_()
+        else:
+            y_end.copy_(y0)
+        return ys, y_end
+    x, valid = x.contiguous(), valid.contiguous()
+    y0 = None if y0 is None else y0.contiguous()
+    cuda_lib.launch("ema_scan", x.device, "tempo_ema_scan", x.data_ptr(),
+                    valid.data_ptr(), float(alpha), cuda_lib.ptr(y0),
+                    ys.data_ptr(), y_end.data_ptr(), R, L,
+                    int(x.dtype == torch.float64))
+    return ys, y_end
+
+
+def ema_scan(x: torch.Tensor, valid: torch.Tensor, alpha,
+             y0: torch.Tensor = None):
+    """Sequential EMA with an explicit carry, ``(ys, y_end)``: the kernel
+    for CUDA tensors, the plain version for CPU tensors."""
+    if x.is_cuda:
+        return ema_scan_cuda(x, valid, alpha, y0)
+    return ema_scan_plain(x, valid, alpha, y0)
 
 
 def _lanes(valid: torch.Tensor) -> torch.Tensor:

@@ -55,6 +55,28 @@ def max_size() -> int:
     return config.get_int("TEMPO_TPU_PLAN_CACHE_SIZE", _DEFAULT_SIZE)
 
 
+def device_key(mesh=None, device=None) -> tuple:
+    """Hashable device component of an executable cache key: a CUDA graph
+    is pinned to the card it was captured on, so the same step on another
+    device is another executable.  The single-device form is ``(device
+    type, index)`` of ``device`` (default: the current CUDA device when a
+    card is present, else the CPU).  A mesh is the cohort engine's form,
+    not ported yet."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "device_key(mesh=...) keys the cohort engine's sharded steps, "
+            "which are not ported yet (ROADMAP A12b)")
+    import torch
+
+    if device is None:
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if torch.cuda.is_available() else torch.device("cpu"))
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return (dev.type, dev.index)
+
+
 @contextlib.contextmanager
 def tenant_scope(tenant: Optional[str]):
     """Attribute cache traffic inside the block to ``tenant`` (the

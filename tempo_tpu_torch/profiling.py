@@ -1,19 +1,25 @@
-"""AS-OF join strategy and engine picks, the planner's counters and the
-cost probe of a device segment.
+"""Whole-chain traces, AS-OF join strategy and engine picks, the
+planner's counters and the cost probe of a device segment.
 
-Counterpart of ``tempo_tpu/profiling.py`` (``pick_asof_strategy``,
-``join_engine_override``, ``pick_join_engine``, ``compiled_cost``,
-``plan_cache_stats``) and of ``tempo_tpu.resilience.max_merged_lanes``.
+Counterpart of ``tempo_tpu/profiling.py`` (``trace``, ``annotate``,
+``pick_asof_strategy``, ``join_engine_override``, ``pick_join_engine``,
+``compiled_cost``, ``plan_cache_stats``) and of
+``tempo_tpu.resilience.max_merged_lanes``.  ``trace`` records the host
+and, with a card present, the card's kernels and copies through
+``torch.profiler`` into a Chrome trace; ``annotate`` names a span in it
+(the library places none of its own, as the reference places none).
 ``pick_join_engine`` honours the planner's hoisted hint
 (``plan/hints.py``) and, with the cost model on, takes the cost
 argmin (``plan/cost.py``), which reproduces the rule under the default
-priors.  ``trace`` / ``annotate`` (a whole-chain device trace) and
-``window_roofline`` are not ported yet (ROADMAP A1, A14).
+priors.  ``window_roofline`` is not ported yet (ROADMAP A14).
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
+import os
+import time
 from typing import Dict, Optional
 
 import pandas as pd
@@ -29,6 +35,48 @@ BROADCAST_BYTES_THRESHOLD = 30 * 1024 * 1024
 # merged-lane limit of a single AS-OF program (the reference's measured
 # compiler ceiling); past it the chunked engine takes the join
 DEFAULT_MAX_MERGED_LANES = 196_608
+
+
+@contextlib.contextmanager
+def trace(log_dir: str, create_perfetto_link: bool = False):
+    """Profile everything inside the block into a Chrome trace JSON under
+    ``log_dir`` (``trace_<pid>_<ns>.json``; Perfetto and
+    ``chrome://tracing`` load it).  CPU activity is always recorded,
+    CUDA kernels and copies too when a card is present.  The block
+    yields the ``torch.profiler.profile`` object, whose
+    ``key_averages()`` and ``events()`` the caller may read after the
+    block.  ``create_perfetto_link`` (an upload to a hosted viewer in
+    the reference) raises ``ValueError``: the trace stays local.
+
+    Usage::
+
+        with profiling.trace("/tmp/tempo-trace"):
+            tsdf.asofJoin(other).df
+    """
+    if create_perfetto_link:
+        raise ValueError("create_perfetto_link is not supported: the port "
+                         "writes the trace file only and uploads nothing")
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.__enter__()
+    try:
+        yield prof
+    finally:
+        prof.__exit__(None, None, None)
+        prof.export_chrome_trace(os.path.join(
+            log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+def annotate(name: str):
+    """Named span inside a :func:`trace` block (on the host timeline,
+    with the kernels it launches beneath it):
+    ``with profiling.annotate("asof-join"): ...``"""
+    return torch.profiler.record_function(name)
 
 
 def max_merged_lanes() -> int:

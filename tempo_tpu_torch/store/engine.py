@@ -810,6 +810,24 @@ def read_dataset_df(path: str, columns: Optional[List[str]] = None,
     ctx.raise_if_corrupt()
     schema = ds.schema if cols is None else pa.schema(
         [ds.schema.field(c) for c in cols])
-    if not batches:
-        return pa.Table.from_batches([], schema).to_pandas()
-    return pa.Table.from_batches(batches, schema).to_pandas()
+    df = pa.Table.from_batches(batches, schema).to_pandas()
+    return _restore_time_units(df, path)
+
+
+def _restore_time_units(df: pd.DataFrame, path: str) -> pd.DataFrame:
+    """Give each timestamp column of a store generation the dtype its
+    commit record states.  Parquet has no seconds unit, so pyarrow
+    writes a ``datetime64[s]`` column as milliseconds and reads it back
+    so; the commit record's schema (``str(dtype)`` of every column, as
+    written) keeps the unit, and the cast back is exact.  A directory
+    without a commit record (a plain or Delta dataset) is returned as
+    read: the Delta writer coerces timestamps to microseconds for Spark
+    on purpose."""
+    cpath = os.path.join(path, COMMIT_NAME)
+    if not os.path.exists(cpath):
+        return df
+    for name, dtype in _read_json(cpath, "commit record").get("schema", []):
+        if (name in df.columns and str(dtype).startswith("datetime64")
+                and str(df[name].dtype) != str(dtype)):
+            df[name] = df[name].astype(pd.api.types.pandas_dtype(dtype))
+    return df
