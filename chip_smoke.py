@@ -280,6 +280,29 @@ M. Serving one stream (``tempo_tpu_torch.serve``), the launch counters
    rows of b. and their left rows at ``maxLookback`` 0, ``skip_nulls``
    both ways, bitwise ``sortmerge.asof_merge_values`` (row 1's merge
    kernel).
+N. Serving cohorts (``tempo_tpu_torch.serve.StreamCohort``).  a. The
+   reference benchmark's config 14 verbatim: 10,240 single-series
+   streams, a 10 s window of <= 8 rows, EMA 0.2, ``maxLookback`` 32,
+   ``CohortExecutor(batch_rows=32, queue_depth=64, coalesce_s=0.004)``
+   after ``warmup(32)``, 4,000 warm and 40,000 measured Poisson ticks in
+   ``submit_many`` chunks of 2,048; zero builds and captures measured,
+   ``clipped`` 0, every stream driven, 64 sampled streams' emissions
+   bitwise the batch operators on the card; aggregate ticks/s, per-ticket
+   p50/p99, the graphs' pool bytes; then the same mix through 10,240
+   ``StreamingTSDF``s (the median of three windows of 500 pushes) and
+   the ratio.  b. The same mix through ``submit_block`` after
+   ``warmup(32, max_block=2048)``: bitwise a.'s results, zero builds and
+   captures, the block programs' route counted.  c. 2,048 streams over a
+   ``["cuda:0"] * 2`` stream mesh bitwise a meshless cohort, capacity
+   rounded to the axis, ``parallel.mesh.transfer`` never called, and a
+   traced window whose only device-to-device copies are the shards' own
+   graph replays'.  d. The spill tier at a resident budget of 1/8 of
+   1,024 streams, bitwise an unspilled cohort.  e. Differential
+   snapshots, a kill inside a dispatch of the executor's worker
+   (``testing.faults``), ``CohortExecutor.resume`` and the tails
+   replayed byte for byte; a full and a differential snapshot's bytes.
+   200 of a.'s dispatches run traced: ``ema_scan_kernel`` once a right
+   dispatch.
 
 Traces: phases C and H wrap pack, join, stats, EMA and collect in
 ``profiling.annotate`` spans; one extra run each of C's chain, H's
@@ -289,15 +312,17 @@ untraced), and for each the script prints the top 10 device kernels and
 copies, the top 10 host spans, the host<->device copy bytes and time,
 and the card's busy share of the traced window (``trace_summary``).
 Phase B also holds ``ema_scan`` (``csrc/ema_scan.cu``) against its plain
-version bitwise at [2, 1024, 4096], [1, 16, 64] and [1, 2^20] (plain on
-the CPU there), with split runs bitwise one run.
+version bitwise at [2, 1024, 4096], [1, 16, 64], [10240, 8] (phase N's
+cohort step) and [1, 2^20] (plain on the CPU there), with split runs
+bitwise one run.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line
 (each kernel's launches summed over the main-path runs of phases C, E,
-F, G's legacy step, H, I, K and M; the staged forms' rows, one a depth,
-name their counter; phase L's planned runs are not counted: a replayed
-graph launches through no wrapper, and phase M's ``ema_scan`` counts
-its streams' warm-up and capture runs, not the batch operators'),
+F, G's legacy step, H, I, K, M and N; the staged forms' rows, one a
+depth, name their counter; phase L's planned runs are not counted: a
+replayed graph launches through no wrapper, and phases M and N's
+``ema_scan`` counts their streams' and cohorts' warm-up and capture
+runs, not the batch operators'),
 and last ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the repository's ``tempo_tpu_torch`` package
 beside it, it prints no result and exits with 2.
@@ -3890,11 +3915,14 @@ def traced(label: str, fn, kernels=()):
 # ----------------------------------------------------------------------
 
 EMA_SCAN_LONG = 1 << 20
+#: the cohort step's EMA at config 14: S * C * K rows of block_lanes()
+COHORT_SCAN = (10240, 8)
 
 
 def phase_b_ema_scan(dev):
     """``ema_scan`` bitwise against its plain version at [2, 1024, 4096],
-    [1, 16, 64] and one row of 2^20 lanes (whose plain run is on the CPU:
+    [1, 16, 64], [10240, 8] (phase N's cohort step) and one row of 2^20
+    lanes (whose plain run is on the CPU:
     two torch ops a lane take seconds either way), alpha 0.2 and 1, with
     and without a carry, -0.0 in x and NaN in null lanes (and, but for
     the long row, whose plain run writes the CPU's NaN bits, +-inf and
@@ -3928,7 +3956,8 @@ def phase_b_ema_scan(dev):
         return x, v, y0
 
     inputs = {}
-    for shape in ((2, 1024, 4096), (1, 16, 64), (1, EMA_SCAN_LONG)):
+    for shape in ((2, 1024, 4096), (1, 16, 64), COHORT_SCAN,
+                  (1, EMA_SCAN_LONG)):
         x, v, y0 = inputs[shape] = case(shape)
         L = shape[-1]
         checks = ([(0.2, y0)] if L == EMA_SCAN_LONG
@@ -3960,6 +3989,7 @@ def phase_b_ema_scan(dev):
     b, by = bound_ms(nbytes(main), 2 * x.numel())
     xs, vs, ys0 = inputs[(1, 16, 64)]
     xl, vl, yl0 = inputs[(1, EMA_SCAN_LONG)]
+    xc, vc, yc0 = inputs[COHORT_SCAN]
     row = dict(
         name="ema_scan", route="cuda",
         source="tempo_tpu_torch/csrc/ema_scan.cu",
@@ -3972,18 +4002,24 @@ def phase_b_ema_scan(dev):
         shape=f"{list(main)}",
         ms_serving_shape=time_ms(lambda: scan.ema_scan_cuda(xs, vs, 0.2, ys0)),
         bound_ms_serving_shape=bound_ms(nbytes((1, 16, 64)), 2 * 16 * 64)[0],
+        ms_cohort_shape=time_ms(lambda: scan.ema_scan_cuda(xc, vc, 0.2, yc0)),
+        bound_ms_cohort_shape=bound_ms(nbytes(COHORT_SCAN),
+                                       2 * int(np.prod(COHORT_SCAN)))[0],
         ms_long_row=time_ms(lambda: scan.ema_scan_cuda(xl, vl, 0.2, yl0),
                             reps=3),
         bound_ms_long_row=bound_ms(nbytes((1, EMA_SCAN_LONG)),
                                    2 * EMA_SCAN_LONG)[0])
     log(f"B ema_scan: bitwise (bit views) equal to the plain version at "
-        f"[2, 1024, 4096], [1, 16, 64] (alpha 0.2 and 1, with and without a "
+        f"[2, 1024, 4096], [1, 16, 64], {list(COHORT_SCAN)} (alpha 0.2 and 1, with and without a "
         f"carry; -0.0, NaN in null lanes, +-inf and NaN in valid lanes) and "
         f"[1, {EMA_SCAN_LONG}] (plain on the CPU; -0.0 and NaN in null "
         f"lanes); split runs bitwise one run at every shape; kernel "
         f"{row['ms']:.4f} ms at [2, 1024, 4096] (bound {b:.4f}, plain "
         f"{row['plain_ms']:.2f} ms), {row['ms_serving_shape']:.4f} ms at "
-        f"[1, 16, 64], {row['ms_long_row']:.3f} ms at [1, {EMA_SCAN_LONG}] "
+        f"[1, 16, 64], {row['ms_cohort_shape']:.4f} ms at {list(COHORT_SCAN)} "
+        f"(phase N's cohort step: S * C * K rows of block_lanes(); bound "
+        f"{row['bound_ms_cohort_shape']:.5f}), "
+        f"{row['ms_long_row']:.3f} ms at [1, {EMA_SCAN_LONG}] "
         f"(bound {row['bound_ms_long_row']:.4f}: a thread a row runs the "
         f"row's lanes one after another) ({card_line()})")
     return {"ema_scan": row}
@@ -4418,6 +4454,576 @@ def phase_m(pd, left, right, n_series: int, dev):
     return launches
 
 
+# ----------------------------------------------------------------------
+# Phase N: serving cohorts
+# ----------------------------------------------------------------------
+
+#: config 14 (bench.py bench_fleet_serving)
+FLEET = dict(window_secs=10.0, window_rows_bound=8, ema_alpha=0.2,
+             max_lookback=32)
+FLEET_COLS = ("px",)
+
+
+def fleet_feed(S: int, n: int, seed: int = 14):
+    """Config 14's tick mix: Poisson gaps of 4e7 ns on one clock (so
+    every stream's ticks are in merged order), the first S ticks dealt
+    one a stream (data pushes), the rest on random streams, 25% left
+    ticks, 5% NaN values.  Returns (stream of each tick, ts, is_left,
+    values [n])."""
+    rng = np.random.default_rng(seed)
+    gaps = rng.exponential(scale=4e7, size=n).astype(np.int64) + 1
+    ts = np.cumsum(gaps) + np.int64(10**9)
+    stream_of = np.concatenate([rng.permutation(S),
+                                rng.integers(0, S, max(0, n - S))])[:n]
+    is_left = rng.random(n) < 0.25
+    is_left[:S] = False
+    vals = rng.standard_normal(n).astype(np.float32)
+    vals[rng.random(n) < 0.05] = np.nan
+    return stream_of, ts, is_left, vals
+
+
+def fleet_cohort(S: int, dev, **kw):
+    from tempo_tpu_torch.serve import StreamCohort
+
+    kw.setdefault("slots", S)
+    cohort = StreamCohort(FLEET_COLS, device=dev, **FLEET, **kw)
+    return cohort, [cohort.add_stream(f"u{i}", ["ticks"]) for i in range(S)]
+
+
+def tick_runs(stream_of, is_left, i0: int, i1: int, chunk: int):
+    """Ticks ``i0 .. i1`` cut into chunks, each chunk into side-homogeneous
+    runs where a tick joins the earliest run of its side at or after its
+    stream's last run (only each stream's own order is a contract; the
+    executor's rule): ``[(is_left, [tick index])]``."""
+    out = []
+    for c0 in range(i0, i1, chunk):
+        runs, last = [], {}
+        for i in range(c0, min(i1, c0 + chunk)):
+            s, want = int(stream_of[i]), bool(is_left[i])
+            placed = next((b for b in range(last.get(s, 0), len(runs))
+                           if runs[b][0] == want), -1)
+            if placed < 0:
+                runs.append((want, []))
+                placed = len(runs) - 1
+            runs[placed][1].append(i)
+            last[s] = placed
+        out.extend(runs)
+    return out
+
+
+def drive_runs(cohort, members, runs, stream_of, ts, vals, results):
+    """One ``dispatch`` a run; each tick's result into ``results``."""
+    for left, idx in runs:
+        items = [(members[stream_of[i]], "ticks", int(ts[i]), None,
+                  None if left else {"px": vals[i]}) for i in idx]
+        res = cohort.dispatch("left" if left else "right", items)
+        for i, r in zip(idx, res):
+            if isinstance(r, Exception):
+                raise AssertionError(f"tick {i} refused: {r}")
+            results[i] = r
+
+
+def same_results(what, got, want, idx):
+    """Raise unless the per-tick results ``got[i]`` and ``want[i]`` hold
+    the same keys and bits for every ``i`` of ``idx`` (one array a key)."""
+    keys = {}
+    for i in idx:
+        keys.setdefault(tuple(want[i]), []).append(i)
+    n = 0
+    for names, ids in keys.items():
+        for key in names:
+            a = np.array([got[i][key] for i in ids])
+            b = np.array([want[i][key] for i in ids])
+            if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+                raise AssertionError(f"{what}: {key} differs")
+        n += len(ids)
+    return n
+
+
+def block_results(bts, n0: int, n: int):
+    """Per-tick dicts of the ``submit_block`` results of ticks ``n0 ..``
+    (the blocks in order)."""
+    out = [None] * n
+    pos = n0
+    for bt in bts:
+        cols = bt.result(timeout=600)
+        if bt.errors:
+            raise AssertionError(f"N.b block refused ticks: "
+                                 f"{list(bt.errors.items())[:3]}")
+        ln = len(bt.members)
+        for j in range(ln):
+            out[pos + j] = {key: col[j] for key, col in cols.items()}
+        pos += ln
+    return out
+
+
+def moved_since(s0) -> dict:
+    from tempo_tpu_torch import profiling
+
+    s1 = profiling.plan_cache_stats()
+    return {key: s1[key] - s0[key]
+            for key in ("builds", "graph_captures", "graph_replays")}
+
+
+def n_fleet(dev, S, n_warm, n_meas, served, oracles):
+    """N.a (config 14 through ``CohortExecutor``), its per-instance
+    baseline, and N.b (the same mix as blocks).  Returns the feed and the
+    per-tick results for the trace."""
+    from tempo_tpu_torch import profiling
+    from tempo_tpu_torch.serve import CohortExecutor, StreamingTSDF
+    from tempo_tpu_torch.serve import state as sst
+
+    stats = profiling.plan_cache_stats
+    n = n_warm + n_meas
+    stream_of, ts, is_left, vals = fleet_feed(S, n)
+    chunk = 2048
+    cohort, members = fleet_cohort(S, dev)
+    ex = CohortExecutor(cohort, batch_rows=32, queue_depth=64,
+                        coalesce_s=0.004)
+    take_counts(dev)
+    t0 = time.perf_counter()
+    cohort.warmup(32)
+    warm_s = time.perf_counter() - t0
+
+    def feed(i0, i1):
+        tickets = []
+        for c0 in range(i0, i1, chunk):
+            tickets.extend(ex.submit_many([
+                ("left", members[stream_of[q]], "ticks", int(ts[q]), None,
+                 None) if is_left[q] else
+                ("right", members[stream_of[q]], "ticks", int(ts[q]),
+                 {"px": vals[q]}, None)
+                for q in range(c0, min(i1, c0 + chunk))], timeout=600))
+        return tickets
+
+    warm = [t.result(timeout=600) for t in feed(0, n_warm)]
+    s0 = stats()
+    t0 = time.perf_counter()
+    tickets = feed(n_warm, n)
+    measured = [t.result(timeout=600) for t in tickets]
+    wall = time.perf_counter() - t0
+    ex.close(timeout=120)
+    served.append(take_counts(dev))
+    moved = moved_since(s0)
+    if moved["builds"] or moved["graph_captures"]:
+        raise AssertionError(f"N.a steady state built or captured: {moved}")
+    if cohort.clipped:
+        raise AssertionError(f"N.a clipped {cohort.clipped} rows")
+    driven = len(set(stream_of.tolist()))
+    if driven < S:
+        raise AssertionError(f"N.a drove {driven} of {S} streams")
+    results = warm + measured
+    rate = n_meas / wall
+    lat = ex.latency_stats()
+    pool = cohort.graph_pool_bytes()
+    held = sum(b for g in cohort._groups.values() for e in g._exes.values()
+               for b in e.graph_bytes().values())
+
+    # >= 64 sampled streams against the batch operators on the card
+    rng = np.random.default_rng(140)
+    sample = np.sort(rng.choice(S, size=min(64, S), replace=False))
+    row_of = np.full(S, -1, np.int64)
+    row_of[sample] = np.arange(len(sample))
+    sel = np.flatnonzero(row_of[stream_of] >= 0)
+    k = row_of[stream_of[sel]]
+    hist, pos = serve_history(k, ts[sel], is_left[sel], vals[sel][:, None],
+                              len(sample))
+    oracle = serve_oracle(hist, dev, skip_nulls=True,
+                          ml=FLEET["max_lookback"],
+                          w_ns=sst.window_ns(FLEET["window_secs"]),
+                          rows_bound=FLEET["window_rows_bound"],
+                          alpha=FLEET["ema_alpha"])
+    oracles.append(take_counts(dev))
+    got = {}
+    for j, i in enumerate(sel):
+        for key, v in results[i].items():
+            if key not in got:
+                a = np.asarray(v)
+                fill = (False if a.dtype == bool else -1
+                        if a.dtype.kind == "i" else np.nan)
+                got[key] = np.full(len(sel), fill, a.dtype)
+            got[key][j] = v
+    checked = check_served("N.a", k, pos, is_left[sel], got, oracle,
+                           list(FLEET_COLS))
+    log(f"N.a config 14 ({S} single-series streams, px, 10 s window of <= 8 "
+        f"rows, EMA 0.2, maxLookback 32, slots {S}, CohortExecutor("
+        f"batch_rows=32, queue_depth=64, coalesce_s=0.004), warmup(32) "
+        f"{warm_s:.3f} s, {n_warm} warm + {n_meas} measured Poisson ticks in "
+        f"submit_many chunks of {chunk}, 25% left, 5% NaN, seed 14): "
+        f"{rate:.1f} ticks/s ({wall:.3f} s); per-ticket p50/p99 ms right "
+        f"{lat['right']['p50_ms']}/{lat['right']['p99_ms']}, left "
+        f"{lat['left']['p50_ms']}/{lat['left']['p99_ms']}, all "
+        f"{lat['all']['p50_ms']}/{lat['all']['p99_ms']} (the last "
+        f"{lat['all']['count']} tickets); {ex.batches} dispatches "
+        f"{dict(sorted(ex.bucket_hist.items()))}; measured part {moved}; "
+        f"clipped 0; {driven} streams driven; graph pools {pool} bytes, "
+        f"graphs hold {held} bytes with static inputs ({len(cohort._groups)} "
+        f"group, {sum(len(g._exes) for g in cohort._groups.values())} "
+        f"graphs); {checked} emissions of {len(sample)} sampled streams "
+        f"bitwise the batch operators on the card ({card_line()})")
+
+    # the per-instance baseline: the same fleet as StreamingTSDFs
+    base = [StreamingTSDF(["ticks"], FLEET_COLS, device=dev, **FLEET)
+            for _ in range(S)]
+    base[0].warmup(1)
+    rates, bi = [], 0
+    for _ in range(3):
+        tb0 = time.perf_counter()
+        for _ in range(500):
+            s = base[stream_of[bi % n]]
+            t_i = np.int64(10**9) * (bi + 1)
+            if bi % 4 == 3:
+                s.push_left(["ticks"], [t_i + 1])
+            else:
+                s.push(["ticks"], [t_i], {"px": np.float32([vals[bi % n]])})
+            bi += 1
+        sync(dev)
+        rates.append(500 / (time.perf_counter() - tb0))
+    base_rate = sorted(rates)[1]
+    log(f"N.a baseline: the same mix through {S} StreamingTSDFs, one push "
+        f"or push_left a tick: {base_rate:.1f} ticks/s (median of three "
+        f"windows of 500 pushes: {[round(r, 1) for r in rates]}); the "
+        f"cohort's aggregate is {rate / base_rate:.2f}x it (the reference's "
+        f"target, >= 20x, is a prediction here, not a gate) ({card_line()})")
+    del base
+    served.append(take_counts(dev))
+
+    # -- b. the same mix as blocks ---------------------------------------
+    cohort_b, members_b = fleet_cohort(S, dev)
+    ex_b = CohortExecutor(cohort_b, batch_rows=32, queue_depth=64,
+                          coalesce_s=0.004)
+    t0 = time.perf_counter()
+    cohort_b.warmup(32, max_block=chunk)
+    warm_b = time.perf_counter() - t0
+
+    def feed_blocks(i0, i1):
+        return [ex_b.submit_block(
+            is_left[c0:min(i1, c0 + chunk)],
+            [members_b[s] for s in stream_of[c0:min(i1, c0 + chunk)]],
+            "ticks", ts[c0:min(i1, c0 + chunk)],
+            values={"px": vals[c0:min(i1, c0 + chunk)]}, timeout=600)
+            for c0 in range(i0, i1, chunk)]
+
+    block_results(feed_blocks(0, n_warm), 0, n_warm)
+    s0 = stats()
+    r0 = dict(cohort_b.routes)
+    t0 = time.perf_counter()
+    bts = feed_blocks(n_warm, n)
+    for bt in bts:
+        bt.result(timeout=600)
+    block_wall = time.perf_counter() - t0
+    ex_b.close(timeout=120)
+    served.append(take_counts(dev))
+    moved_b = moved_since(s0)
+    if moved_b["builds"] or moved_b["graph_captures"]:
+        raise AssertionError(f"N.b steady state built or captured: {moved_b}")
+    routes = {key: cohort_b.routes[key] - r0[key] for key in r0}
+    if routes["block"] <= 0:
+        raise AssertionError(f"N.b never ran a block program: {routes}")
+    got_b = block_results(bts, n_warm, n)
+    same = same_results("N.b", got_b, results, range(n_warm, n))
+    if cohort_b.clipped:
+        raise AssertionError(f"N.b clipped {cohort_b.clipped} rows")
+    log(f"N.b the same mix through submit_block (chunks of {chunk}, "
+        f"warmup(32, max_block={chunk}) {warm_b:.3f} s): "
+        f"{n_meas / block_wall:.1f} ticks/s ({block_wall:.3f} s, "
+        f"{n_meas / block_wall / rate:.2f}x N.a); routes in the measured "
+        f"part {routes} (block programs, per-tick steps, ticks of "
+        f"duplicate members sent per tick); measured part {moved_b}; "
+        f"graph pools {cohort_b.graph_pool_bytes()} bytes ("
+        f"{sum(len(g._exes) for g in cohort_b._groups.values())} graphs); "
+        f"{same} ticks bitwise N.a's results ({card_line()})")
+    return cohort, members
+
+
+def n_trace(dev, cohort, members, S):
+    """200 dispatches of N.a's cohort traced: the busy share, the top
+    spans, and ``ema_scan_kernel`` once a right dispatch (a replay goes
+    through no wrapper, so only the trace shows the kernel ran)."""
+    from tempo_tpu_torch import profiling
+
+    stream_of, ts, is_left, vals = fleet_feed(S, 200 * 256, seed=141)
+    ts = ts + np.int64(10**15)               # after every tick so far
+    runs = tick_runs(stream_of, is_left, 0, len(ts), 256)[:200]
+    right = sum(not left for left, _ in runs)
+    c0 = profiling.plan_cache_stats()["graph_captures"]
+    results = [None] * len(ts)
+    _, summary = traced(
+        f"N.a cohort ({len(runs)} dispatches)",
+        lambda: drive_runs(cohort, members, runs, stream_of, ts, vals,
+                           results), kernels=("ema_scan_kernel",))
+    if profiling.plan_cache_stats()["graph_captures"] != c0:
+        raise AssertionError("N traced run captured a graph")
+    ran = summary["kernel_counts"]["ema_scan_kernel"]
+    if not summary["device_events"]:
+        ran = "not measured (the profiler traced no device activity)"
+    elif ran != right:
+        raise AssertionError(f"N traced dispatches ran ema_scan_kernel {ran} "
+                             f"times for {right} right dispatches")
+    log(f"N traced: {right} right dispatches of {len(runs)}, ema_scan_kernel "
+        f"runs on the card in their graph replays: {ran}; busy share "
+        f"{summary['busy_share']}")
+
+
+def n_mesh(dev, S_mesh, served):
+    """N.c: a cohort whose stream axis lies over a ``["cuda:0"] * 2``
+    stream mesh against a meshless one, fed the same ticks."""
+    from tempo_tpu_torch import dist
+    from tempo_tpu_torch.parallel import mesh as mesh_mod
+
+    n = S_mesh + 3 * S_mesh
+    stream_of, ts, is_left, vals = fleet_feed(S_mesh, n, seed=142)
+    mesh = dist.stream_mesh(devices=[str(dev)] * 2)
+    plain, p_members = fleet_cohort(S_mesh, dev)
+    take_counts(dev)
+    meshed, m_members = fleet_cohort(S_mesh, dev, mesh=mesh,
+                                     slots=S_mesh - 1)
+    cap = meshed._groups[1].capacity
+    if cap % 2 or cap < S_mesh:
+        raise AssertionError(f"N.c capacity {cap} not rounded to the axis")
+    plain.warmup(32)
+    meshed.warmup(32)
+    runs = tick_runs(stream_of, is_left, 0, n, 512)
+    want, got = [None] * n, [None] * n
+    calls = []
+    real = mesh_mod.transfer
+
+    def no_transfer(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    mesh_mod.transfer = no_transfer
+    try:
+        drive_runs(plain, p_members, runs, stream_of, ts, vals, want)
+        cut = len(runs) - min(24, len(runs) // 2)
+        drive_runs(meshed, m_members, runs[:cut], stream_of, ts, vals, got)
+        # the last dispatches traced: no copy between entries
+        _, summary = traced(
+            f"N.c meshed cohort ({len(runs) - cut} dispatches)",
+            lambda: drive_runs(meshed, m_members, runs[cut:], stream_of, ts,
+                               vals, got))
+    finally:
+        mesh_mod.transfer = real
+    served.append(take_counts(dev))
+    if calls:
+        raise AssertionError(f"N.c pushes called parallel.mesh.transfer "
+                             f"{len(calls)} times")
+    same = same_results("N.c", got, want, range(n))
+    n_state = len(meshed._groups[1].cfg.state_names())
+    # each shard's replay copies its inputs in and clones its outputs out
+    # on its own device, the only device-to-device copies a dispatch
+    # makes: a push's state, batch (4) and emissions (1), a query's eight
+    # carries and counts in and four answers out.  The trace may miss a
+    # few of them (the profiler drops events), never add one, so a copy
+    # between entries shows as more DtoD copies than the replays make,
+    # or as a peer copy
+    per = {False: (n_state + 4) + (n_state + 1), True: (8 + 1) + 4}
+    expect = 2 * sum(per[left] for left, _ in runs[cut:])
+    copies = summary["copies"]
+    dtod = copies.get("DtoD", {}).get("count", 0)
+    other = copies.get("other", {}).get("count", 0)
+    if summary["device_events"]:
+        if other or dtod > expect:
+            raise AssertionError(
+                f"N.c traced pushes copied between devices: {copies} "
+                f"(the replays' own copies: {expect} DtoD)")
+        copy_note = (f"{dtod} DtoD copies recorded of the {expect} the "
+                     f"shards' own replays make (inputs in, outputs out), "
+                     f"none more, no peer copy")
+    else:
+        copy_note = "copies not measured (no device activity traced)"
+    log(f"N.c stream mesh ['{dev}'] * 2, {S_mesh} streams (slots "
+        f"{S_mesh - 1} rounded to {cap}, {cap // 2} a shard): {same} ticks "
+        f"in {len(runs)} dispatches bitwise the meshless cohort; "
+        f"parallel.mesh.transfer never called; traced {len(runs) - cut} "
+        f"dispatches: "
+        f"{copy_note} ({card_line()})")
+
+
+def n_spill(dev, S_spill, served):
+    """N.d: a resident budget of 1/8 of the streams against an unspilled
+    cohort, fed ticks that touch every member."""
+    import shutil
+    import tempfile
+
+    n = 2 * S_spill
+    stream_of, ts, is_left, vals = fleet_feed(S_spill, n, seed=143)
+    runs = tick_runs(stream_of, is_left, 0, n, S_spill // 8)
+    tmp = tempfile.mkdtemp(prefix="tempo-spill-")
+    try:
+        plain, p_members = fleet_cohort(S_spill, dev)
+        take_counts(dev)
+        tiered, t_members = fleet_cohort(S_spill, dev, spill_dir=tmp,
+                                         resident_budget=S_spill // 8)
+        want, got = [None] * n, [None] * n
+        drive_runs(plain, p_members, runs, stream_of, ts, vals, want)
+        t0 = time.perf_counter()
+        drive_runs(tiered, t_members, runs, stream_of, ts, vals, got)
+        wall = time.perf_counter() - t0
+        served.append(take_counts(dev))
+        same = same_results("N.d", got, want, range(n))
+        st = tiered.spill_stats
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not (st["spills"] and st["restores"]):
+        raise AssertionError(f"N.d spilled nothing: {st}")
+    log(f"N.d spill tier: {S_spill} streams, resident_budget "
+        f"{S_spill // 8}, {n} ticks in {len(runs)} dispatches ({wall:.3f} "
+        f"s): {same} ticks bitwise an unspilled cohort; {st['spills']} "
+        f"spills in {st['spill_s']:.3f} s, {st['restores']} restores in "
+        f"{st['restore_s']:.3f} s ({card_line()})")
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def n_durability(dev, S_dur, served):
+    """N.e: differential snapshots every few thousand acked ticks, a kill
+    inside a dispatch of the executor's worker, ``CohortExecutor.resume``
+    and the unacknowledged tails replayed: byte for byte the run that
+    never died.  Streams of two buckets, so a differential link can leave
+    one out."""
+    import shutil
+    import tempfile
+
+    from tempo_tpu_torch import checkpoint, resilience
+    from tempo_tpu_torch.serve import CohortExecutor, StreamCohort
+    from tempo_tpu_torch.testing import faults
+
+    n_pair = 64
+    n = 3 * S_dur
+    rng = np.random.default_rng(144)
+    stream_of, ts, is_left, vals = fleet_feed(S_dur + n_pair, n, seed=144)
+    series = np.where(stream_of >= S_dur,
+                      np.where(rng.random(n) < 0.5, "a", "b"), "ticks")
+
+    def make(**kw):
+        # 64 initial slots a bucket: bucket 1 doubles up to its streams at
+        # admission, bucket 2 (the pair streams) stays small
+        cohort = StreamCohort(FLEET_COLS, device=dev, slots=64, **FLEET,
+                              **kw)
+        members = ([cohort.add_stream(f"u{i}", ["ticks"])
+                    for i in range(S_dur)]
+                   + [cohort.add_stream(f"p{i}", ["a", "b"])
+                      for i in range(n_pair)])
+        return cohort, members
+
+    def ticks(members, idx):
+        return [("left" if is_left[q] else "right", members[stream_of[q]],
+                 series[q], int(ts[q]), None if is_left[q]
+                 else {"px": vals[q]}, None) for q in idx]
+
+    golden = [None] * n
+    g_cohort, g_members = make()
+    with CohortExecutor(g_cohort, coalesce_s=0.0) as gex:
+        for c0 in range(0, n, 1024):
+            idx = range(c0, min(n, c0 + 1024))
+            for q, t in zip(idx, gex.submit_many(ticks(g_members, idx))):
+                golden[q] = t.result(timeout=600)
+    tmp = tempfile.mkdtemp(prefix="tempo-ckpt-")
+    try:
+        parent = os.path.join(tmp, "ck")
+        cohort, members = make(checkpoint_dir=parent, ckpt_every=S_dur // 4,
+                               diff_snapshots=True)
+        ex = CohortExecutor(cohort, coalesce_s=0.0)
+        killed = False
+        kill_at = max(2, n // 256)    # about half way: two sides a chunk
+        with faults.FaultInjector() as fi:
+            fi.kill_on_call(StreamCohort, "dispatch", call_no=kill_at)
+            for c0 in range(0, n, 256):
+                try:
+                    for t in ex.submit_many(ticks(members, range(
+                            c0, min(n, c0 + 256)))):
+                        t.result(timeout=600)
+                except resilience.ShutdownError:
+                    killed = True
+                    break
+        ex.close(timeout=60)
+        if not (killed and isinstance(ex.fatal, faults.SimulatedKill)):
+            raise AssertionError("N.e the executor's plane was not killed")
+        modes = [StreamCohort._snapshot_mode(p)["mode"]
+                 for _, p in checkpoint.list_steps(parent)]
+        rex = CohortExecutor.resume(parent, coalesce_s=0.0, device=dev)
+        acked = rex.cohort.acked
+        names = [m.name for m in members]
+        r_members = [rex.cohort.stream(nm) for nm in names]
+        seen = {}
+        tail = []
+        for q in range(n):
+            s = names[stream_of[q]]
+            j = seen.get(s, 0)
+            seen[s] = j + 1
+            if j >= acked[s]:
+                tail.append(q)
+        live = [None] * n
+        with rex:
+            for c0 in range(0, len(tail), 1024):
+                idx = tail[c0:c0 + 1024]
+                for q, t in zip(idx, rex.submit_many(ticks(r_members, idx))):
+                    live[q] = t.result(timeout=600)
+        served.append(take_counts(dev))
+        same = same_results("N.e", live, golden, tail)
+        if any(m.acked != seen.get(m.name, 0) for m in r_members):
+            raise AssertionError("N.e cursors did not reach the feed's end")
+        full = rex.cohort.snapshot()
+        # one pair stream ticks: the differential link holds its bucket only
+        m = r_members[S_dur]
+        m.push(["a"], [int(ts[-1]) + 10**9], {"px": np.float32([1.0])})
+        diff = rex.cohort.snapshot(differential=True)
+        b_full, b_diff = dir_bytes(full), dir_bytes(diff)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"N.e durability: {S_dur} + {n_pair} streams (buckets 1 and 2), "
+        f"{n} ticks, differential snapshots every {S_dur // 4} acked "
+        f"(modes written {sorted(set(modes))}), a kill inside dispatch "
+        f"{kill_at} "
+        f"of the executor's worker, CohortExecutor.resume at "
+        f"{sum(acked.values())} acked, {len(tail)} unacknowledged ticks "
+        f"replayed: {same} ticks byte for byte the run that never died; a "
+        f"full snapshot {b_full} bytes, a differential one (one pair stream "
+        f"ticked) {b_diff} bytes ({card_line()})")
+
+
+def phase_n(dev, S: int = 10240, n_warm: int = 4000, n_meas: int = 40000,
+            S_mesh: int = 2048, S_spill: int = 1024, S_dur: int = 2048):
+    """Serving cohorts (``tempo_tpu_torch.serve.StreamCohort``) on the card.
+    a. Config 14 verbatim through ``CohortExecutor``, and its
+    per-instance baseline; b. the same mix as blocks; c. the stream axis
+    over a two-entry mesh of one card; d. the spill tier; e. differential
+    snapshots, a kill and a resume; then 200 of a.'s dispatches traced.
+    Returns the streams' launch counts (from before each cohort's warm-up
+    to after its last dispatch; the batch operators' are counted apart
+    and must launch ``ORACLE_KERNELS``)."""
+    from tempo_tpu_torch.plan import cache as plan_cache
+
+    plan_cache.CACHE.clear()
+    t_phase = time.perf_counter()
+    served, oracles = [], []
+    cohort, members = n_fleet(dev, S, n_warm, n_meas, served, oracles)
+    n_trace(dev, cohort, members, S)
+    del cohort, members
+    plan_cache.CACHE.clear()
+    n_mesh(dev, S_mesh, served)
+    n_spill(dev, S_spill, served)
+    n_durability(dev, S_dur, served)
+    launches, by_oracle = add_counts(*served), add_counts(*oracles)
+    missing = [name for name in SLICE16_KERNELS if launches[name] == 0]
+    if missing:
+        raise AssertionError(f"phase N's cohorts never launched {missing}")
+    missing = [name for name in ("ema_scan", "asof_merge_lookback")
+               if by_oracle.get(name, 0) == 0]
+    if missing:
+        raise AssertionError(f"phase N's batch operators never launched "
+                             f"{missing}")
+    log(f"N took {time.perf_counter() - t_phase:.1f} s; the cohorts' "
+        f"launches {launches}; the batch operators' (counted apart) "
+        f"{by_oracle}")
+    plan_cache.CACHE.clear()
+    return launches
+
+
 def add_counts(*counts):
     """Launch counters of several runs, summed by kernel."""
     out = {}
@@ -4529,11 +5135,14 @@ def main(argv=None) -> int:
     launches8 = phase_m(pd, left, right, args.series, dev)
     del left, right
     torch.cuda.empty_cache()
+    launches9 = phase_n(torch.device("cuda", torch.cuda.current_device()))
+    torch.cuda.empty_cache()
 
     # launches: summed over the main-path runs (phases C, E, F, G's legacy
-    # step, H, I, K and M), each counted between a reset and a read
+    # step, H, I, K, M and N), each counted between a reset and a read
     found = add_counts(launches, launches2, launches3, long_launches,
-                       launches4, launches5, launches6, launches7, launches8)
+                       launches4, launches5, launches6, launches7, launches8,
+                       launches9)
     rows["ema_ladder"].update(rows3.pop("_ema_phase_f"))
     kernels = []
     for table in (rows, rows2, rows3, rows4, rows5, rows6):

@@ -103,6 +103,31 @@ KNOBS = {
         "still queued when its budget dies fails with a stage-named "
         "DeadlineExceeded; unset or 0: none (per-submit deadlines stay "
         "available)",
+    "TEMPO_TPU_SERVE_COHORT_SLOTS":
+        "initial stream-slot capacity of each cohort shape-bucket group "
+        "(grown by doubling when full; rounded up to the mesh's "
+        "stream-axis size on sharded cohorts; a capacity change captures "
+        "new step graphs, so size it to the expected fleet) (default 1024)",
+    "TEMPO_TPU_SERVE_COHORT_CKPT_EVERY":
+        "snapshot the whole cohort (one kind=\"cohort_state\" artifact, "
+        "per-stream acked cursors in the manifest) every N total acked "
+        "events; 0, the default, disables automatic snapshots "
+        "(StreamCohort.snapshot() stays available)",
+    "TEMPO_TPU_SERVE_COHORT_DIFF":
+        "1 makes automatic cohort snapshots differential: only bucket "
+        "groups dirty since the previous snapshot are written, chained to "
+        "the last full artifact by CRC'd manifests (resume walks the "
+        "chain; bytes a snapshot scale with dirty state, not fleet size) "
+        "(default 0)",
+    "TEMPO_TPU_SERVE_COALESCE_S":
+        "dispatch coalescing window (seconds) of the cohort executor: "
+        "ticks arriving within it batch into one cohort dispatch; a "
+        "per-constructor coalesce_s wins (default 0.002)",
+    "TEMPO_TPU_SERVE_COHORT_RESIDENT":
+        "LRU resident-member budget of a StreamCohort with a spill_dir: "
+        "members beyond it spill their slot state to CRC'd "
+        "kind=\"cohort_member\" artifacts and fault back in on their next "
+        "tick; 0, the default, is unlimited (no spill)",
     "TEMPO_TPU_INGEST_DEADLINE_S":
         "default end-to-end deadline of from_parquet in seconds (unset: "
         "none)",

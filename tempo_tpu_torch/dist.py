@@ -306,6 +306,35 @@ def stream_mesh(n_devices: Optional[int] = None,
     return make_mesh({stream_axis: n}, devices=list(devices))
 
 
+def stream_shardings(mesh: Mesh, stream_axis: str,
+                     n_slots: int) -> List[Tuple[torch.device, int, int]]:
+    """The placement of a cohort's ``[S]`` stream axis over ``mesh``'s
+    ``stream_axis``: ``(device, first slot, end slot)`` a mesh entry along
+    the axis, contiguous slot ranges of ``n_slots / n`` slots each, in
+    axis order.  Every state tensor of a cohort shard, and each of its
+    steps, lives on its entry's device; no op of a step mixes streams, so
+    a push moves nothing between entries (the reference's "zero per-push
+    collectives").  ``n_slots`` must divide by the axis size (cohorts
+    round their capacity up to it)."""
+    if mesh.n_processes > 1:
+        raise ValueError(
+            "a cohort's stream mesh lies in one process: its shards are "
+            "stepped by the process that admits their ticks")
+    devs = mesh.axis_devices(stream_axis)
+    n = len(devs)
+    if n_slots % n:
+        raise ValueError(f"{n_slots} cohort slots do not divide over the "
+                         f"{n} entries of the mesh's {stream_axis!r} axis")
+    per = n_slots // n
+    out = []
+    for i, d in enumerate(devs):
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
+        out.append((d, i * per, (i + 1) * per))
+    return out
+
+
 class DistributedTSDF:
     """A TSDF whose packed arrays are cut over a device mesh (its series
     axis, and its time axis when it has one) and whose ops run on each

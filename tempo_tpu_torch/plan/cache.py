@@ -60,14 +60,20 @@ def device_key(mesh=None, device=None) -> tuple:
     is pinned to the card it was captured on, so the same step on another
     device is another executable.  The single-device form is ``(device
     type, index)`` of ``device`` (default: the current CUDA device when a
-    card is present, else the CPU).  A mesh is the cohort engine's form,
-    not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "device_key(mesh=...) keys the cohort engine's sharded steps, "
-            "which are not ported yet (ROADMAP A12b)")
+    card is present, else the CPU).  A mesh (the cohort engine's sharded
+    steps, one graph a mesh entry) keys its axes and sizes and its
+    entries' devices, in mesh order: the same step over another mesh, or
+    a stream axis of another size, is another executable."""
     import torch
 
+    if mesh is not None:
+        devs = []
+        for d in mesh.devices.flat:
+            d = torch.device(d)
+            if d.type == "cuda" and d.index is None:
+                d = torch.device("cuda", torch.cuda.current_device())
+            devs.append((d.type, d.index))
+        return ("mesh", tuple(mesh.shape.items()), tuple(devs))
     if device is None:
         device = (torch.device("cuda", torch.cuda.current_device())
                   if torch.cuda.is_available() else torch.device("cpu"))

@@ -32,8 +32,15 @@ eagerly and the cache counts its build.  The reference donates the
 retired state buffers to its compiled steps (its ``state.py:58-85``);
 that has no counterpart here: a replay copies its inputs into the
 graph's static inputs and clones its outputs out of the graph's pool, so
-the next push's state never aliases the pool.  The cohort half
-(``StreamCohort``'s stacked steps) is not ported yet (ROADMAP A12b).
+the next push's state never aliases the pool.
+
+The cohort half (``serve/cohort.py``) runs the same step functions over
+state with a leading ``[S]`` stream axis: the steps are rank-generic
+(the reference vmaps them; ``torch.func.vmap`` cannot trace through the
+ctypes launch of ``ema_scan``), so a cohort step is one CUDA graph over
+``S`` streams whose every slice is a single stream's bits.  The block
+programs put the scatter of compact ticks into the padded batch, the
+step and the gather of their emissions into one graph.
 """
 
 from __future__ import annotations
@@ -154,20 +161,25 @@ def _window_passes(ext_ts, ext_xs, ext_valids, w_ns: int, D: int,
     and the min/max fold pass by pass in the reference's order, one op
     each, so a step is about ``4 (D+1)`` ops.
 
-    Returns ``(stats dict of [C, K, n_out] planes, clipped [K, n_out]
-    bool)``: ``clipped`` marks rows whose true window reaches past the
-    declared ``D``-row bound (the pass-``D+1`` audit, the reason the
+    Rank-generic: ``ext_ts`` is ``[..., K, n]`` and the value planes
+    ``[..., C, K, n]`` over the same leading axes (none for one stream,
+    ``[S]`` for a cohort); no op mixes entries of the leading axes, so a
+    stream's slice of a cohort's result is its own step's bits.
+
+    Returns ``(stats dict of [..., C, K, n_out] planes, clipped [..., K,
+    n_out] bool)``: ``clipped`` marks rows whose true window reaches past
+    the declared ``D``-row bound (the pass-``D+1`` audit, the reason the
     prefix holds ``D+1`` rows)."""
     f32 = torch.float32
-    ts = ext_ts[:, -n_out:]
+    ts = ext_ts[..., -n_out:]
     lo = ts - int(w_ns)
     x_self = ext_xs[..., -n_out:]
     v_self = ext_valids[..., -n_out:]
     sj = torch.stack([_lag(ext_ts, d, n_out) for d in range(D + 2)])
-    in_time = (sj >= lo) & (sj <= ts)                   # [D+2, K, n_out]
+    in_time = (sj >= lo) & (sj <= ts)              # [D+2, ..., K, n_out]
     vj = torch.stack([_lag(ext_valids, d, n_out) for d in range(D + 1)])
     xj = torch.stack([_lag(ext_xs, d, n_out) for d in range(D + 1)])
-    inw = in_time[:D + 1, None] & vj                    # [D+1, C, K, n]
+    inw = in_time[:D + 1].unsqueeze(-3) & vj       # [D+1, ..., C, K, n]
     cnt = inw.sum(0).to(f32)
     s1_terms = torch.where(inw, xj, 0.0)
     s2_terms = torch.where(inw, xj * xj, 0.0)
@@ -201,8 +213,8 @@ def _window_passes(ext_ts, ext_xs, ext_valids, w_ns: int, D: int,
         "zscore": torch.where(v_self, (x_self - mean) / std, nan),
     }
     vD = _lag(ext_valids, D + 1, n_out)
-    clip = in_time[D + 1][None] & (v_self | vD)
-    return stats, clip.any(0)
+    clip = in_time[D + 1].unsqueeze(-3) & (v_self | vD)
+    return stats, clip.any(-3)
 
 
 def window_stats_batch(ts, xs, valids, w_ns: int, rows_bound: int,
@@ -266,28 +278,35 @@ def _push_fn(cfg: StreamConfig, Lb: int):
     ``state_names`` order, then ``ts, xs, mask, counts``; returns the new
     state tensors, then the emission planes stacked ``[E, C, K, Lb]``
     (``cfg.emit_keys()`` order).  Nothing in it syncs with the host, so a
-    CUDA graph captures it whole."""
-    C = cfg.n_cols
+    CUDA graph captures it whole.
+
+    Rank-generic: every operand may carry the same leading axes (a
+    cohort's ``[S]`` stream axis: state ``[S, C, K]``, batches ``[S, K,
+    Lb]`` and ``[S, C, K, Lb]``, emissions ``[E, S, C, K, Lb]``).  The
+    reference vmaps its step over that axis; here the ops index from the
+    right and none of them mixes streams, so each stream's slice is the
+    single stream's bits, and the EMA is one ``ema_scan`` launch over
+    ``S * C * K`` rows."""
     names = cfg.state_names()
 
     def step(*args):
         st = dict(zip(names, args[:len(names)]))
         ts, xs, mask, counts = args[len(names):]
         lanes = torch.arange(Lb, dtype=torch.int64, device=xs.device)
-        valids = mask[None] & ~torch.isnan(xs)          # packing invariant
+        valids = mask.unsqueeze(-3) & ~torch.isnan(xs)  # packing invariant
         new = {}
 
         # ---- AS-OF carry (selection only, bit-exact) -----------------
-        lidx, lhas = _last_lane(valids, lanes)                 # [C, K]
+        lidx, lhas = _last_lane(valids, lanes)            # [..., C, K]
         new["last_val"] = torch.where(lhas, _at_lane(xs, lidx),
                                       st["last_val"])
-        new["last_src"] = torch.where(lhas, st["n_merged"][None] + lidx,
-                                      st["last_src"])
+        new["last_src"] = torch.where(
+            lhas, st["n_merged"].unsqueeze(-2) + lidx, st["last_src"])
         rows_has = counts > 0
-        last = (counts - 1).clamp(min=0)[None].expand(C, -1)
-        new["lock_val"] = torch.where(rows_has[None], _at_lane(xs, last),
-                                      st["lock_val"])
-        new["lock_valid"] = torch.where(rows_has[None],
+        last = (counts - 1).clamp(min=0).unsqueeze(-2).expand(lidx.shape)
+        new["lock_val"] = torch.where(rows_has.unsqueeze(-2),
+                                      _at_lane(xs, last), st["lock_val"])
+        new["lock_valid"] = torch.where(rows_has.unsqueeze(-2),
                                         _at_lane(valids, last),
                                         st["lock_valid"])
         new["lock_src"] = torch.where(rows_has, st["n_merged"] + counts - 1,
@@ -319,9 +338,9 @@ def _push_fn(cfg: StreamConfig, Lb: int):
             # retire the oldest ``counts`` rows: the new ring is the last
             # R real rows of [ring | batch] (batches are left-aligned, so
             # real rows end at lane R + counts - 1)
-            ridx = (torch.arange(R, dtype=torch.int64, device=xs.device)[None]
-                    + counts[:, None])                     # [K, R]
-            cidx = ridx[None].expand(C, -1, -1)
+            ridx = (torch.arange(R, dtype=torch.int64, device=xs.device)
+                    + counts.unsqueeze(-1))                # [..., K, R]
+            cidx = ridx.unsqueeze(-3).expand(ext_xs.shape[:-1] + (R,))
             new["ring_ts"] = torch.take_along_dim(ext_ts, ridx, -1)
             new["ring_x"] = torch.take_along_dim(ext_xs, cidx, -1)
             new["ring_valid"] = torch.take_along_dim(ext_valids, cidx, -1)
@@ -341,26 +360,29 @@ def _query_fn(cfg: StreamConfig, Lb: int):
     with per-row ``maxLookback`` expiry on the carried source positions.
     Left rows take merged positions, so ``n_merged`` advances: a query
     changes the state.  Returns ``(n_merged', vals [C, K, Lb], found,
-    idx [K, Lb] int32)``."""
+    idx [K, Lb] int32)``; rank-generic as :func:`_push_fn` (a cohort's
+    are ``[S, C, K, Lb]`` and ``[S, K, Lb]``)."""
     ml = int(cfg.max_lookback)
-    C, K = cfg.n_cols, cfg.n_series
 
     def step(last_val, last_src, lock_val, lock_valid, lock_src,
              last_ridx, r_count, n_merged, counts):
         lanes = torch.arange(Lb, dtype=torch.int64, device=counts.device)
-        pos = n_merged[:, None] + lanes[None]               # [K, Lb]
-        ok_row = (r_count > 0)[:, None].expand(K, Lb)
+        pos = n_merged.unsqueeze(-1) + lanes                # [..., K, Lb]
+        ok_row = (r_count > 0).unsqueeze(-1).expand(pos.shape)
         if ml:
-            ok_row = ok_row & (pos - lock_src[:, None] <= ml)
+            ok_row = ok_row & (pos - lock_src.unsqueeze(-1) <= ml)
         if cfg.skip_nulls:
-            found = (~torch.isnan(last_val))[:, :, None].expand(C, K, Lb)
+            found = (~torch.isnan(last_val)).unsqueeze(-1).expand(
+                last_val.shape + (Lb,))
             if ml:
-                found = found & (pos[None] - last_src[:, :, None] <= ml)
-            vals = torch.where(found, last_val[:, :, None], math.nan)
+                found = found & (pos.unsqueeze(-3)
+                                 - last_src.unsqueeze(-1) <= ml)
+            vals = torch.where(found, last_val.unsqueeze(-1), math.nan)
         else:
-            found = ok_row[None] & lock_valid[:, :, None]
-            vals = torch.where(found, lock_val[:, :, None], math.nan)
-        idx = torch.where(ok_row, last_ridx[:, None], -1).to(torch.int32)
+            found = ok_row.unsqueeze(-3) & lock_valid.unsqueeze(-1)
+            vals = torch.where(found, lock_val.unsqueeze(-1), math.nan)
+        idx = torch.where(ok_row, last_ridx.unsqueeze(-1),
+                          -1).to(torch.int32)
         return [n_merged + counts, vals, found.contiguous(), idx]
 
     return step
@@ -370,22 +392,41 @@ def _query_fn(cfg: StreamConfig, Lb: int):
 # Executables through the planner's cache
 # ----------------------------------------------------------------------
 
-def push_inputs(cfg: StreamConfig, Lb: int, device) -> List[torch.Tensor]:
-    """An inert push (fresh state, an empty batch) on ``device``: the
-    example a step is captured over."""
+def cohort_state_init(cfg: StreamConfig, S: int) -> Dict[str, np.ndarray]:
+    """Fresh ``[S, ...]`` cohort carry: ``S`` stacked :func:`init_state`s."""
+    return {k: np.broadcast_to(v, (S,) + v.shape).copy()
+            for k, v in init_state(cfg).items()}
+
+
+def _fresh_state(cfg: StreamConfig, S: Optional[int], device):
+    return to_device(init_state(cfg) if S is None
+                     else cohort_state_init(cfg, S), device)
+
+
+def push_inputs(cfg: StreamConfig, Lb: int, device,
+                S: Optional[int] = None) -> List[torch.Tensor]:
+    """An inert push (fresh state, an empty batch) on ``device``, with a
+    leading ``[S]`` stream axis when ``S`` is given: the example a step
+    is captured over."""
     C, K = cfg.n_cols, cfg.n_series
-    st = to_device(init_state(cfg), device)
+    lead = () if S is None else (S,)
+    st = _fresh_state(cfg, S, device)
     return [st[n] for n in cfg.state_names()] + [
-        torch.full((K, Lb), int(TS_PAD), dtype=torch.int64, device=device),
-        torch.full((C, K, Lb), math.nan, dtype=torch.float32, device=device),
-        torch.zeros((K, Lb), dtype=torch.bool, device=device),
-        torch.zeros((K,), dtype=torch.int64, device=device)]
+        torch.full(lead + (K, Lb), int(TS_PAD), dtype=torch.int64,
+                   device=device),
+        torch.full(lead + (C, K, Lb), math.nan, dtype=torch.float32,
+                   device=device),
+        torch.zeros(lead + (K, Lb), dtype=torch.bool, device=device),
+        torch.zeros(lead + (K,), dtype=torch.int64, device=device)]
 
 
-def query_inputs(cfg: StreamConfig, device) -> List[torch.Tensor]:
-    st = to_device(init_state(cfg), device)
+def query_inputs(cfg: StreamConfig, device,
+                 S: Optional[int] = None) -> List[torch.Tensor]:
+    lead = () if S is None else (S,)
+    st = _fresh_state(cfg, S, device)
     return [st[n] for n in _QUERY_STATE] + [
-        torch.zeros((cfg.n_series,), dtype=torch.int64, device=device)]
+        torch.zeros(lead + (cfg.n_series,), dtype=torch.int64,
+                    device=device)]
 
 
 class StepExecutable:
@@ -449,3 +490,231 @@ def query_executable(cfg: StreamConfig, Lb: int, device) -> StepExecutable:
     key = _cache_key("query", cfg, Lb, device)
     return CACHE.get_or_build(key, lambda: StepExecutable(
         key, _query_fn(cfg, Lb), device, query_inputs(cfg, device)))
+
+
+# ----------------------------------------------------------------------
+# Cohort steps: the same step functions over a leading [S] stream axis
+# ----------------------------------------------------------------------
+
+class ShardedStep:
+    """One cohort step over a stream mesh: a :class:`StepExecutable` a
+    mesh entry along the stream axis, each over its contiguous slot range
+    (``dist.stream_shardings``) on its own device, captured apart.  A call
+    takes each shard's inputs and returns each shard's outputs; no tensor
+    crosses between entries (no op of the step mixes streams)."""
+
+    def __init__(self, steps: List[StepExecutable]):
+        self.steps = steps
+
+    def __call__(self, per_shard: List[List[torch.Tensor]]):
+        return [step(*inputs) for step, inputs in zip(self.steps, per_shard)]
+
+    @property
+    def pool_bytes(self) -> Optional[int]:
+        held = [s.pool_bytes for s in self.steps if s.pool_bytes is not None]
+        return sum(held) if held else None
+
+    def graph_bytes(self) -> Dict[str, int]:
+        out: Dict[str, int] = {}
+        for s in self.steps:
+            for d, b in s.graph_bytes().items():
+                out[d] = out.get(d, 0) + b
+        return out
+
+
+def _cohort_cache_key(kind: str, cfg: StreamConfig, S: int, Lb: int,
+                      device, mesh):
+    from tempo_tpu_torch.plan.cache import device_key
+
+    dk = device_key(mesh=mesh) if mesh is not None else \
+        device_key(device=device)
+    return ("serve", kind, cfg.key(), S, Lb, dk)
+
+
+def _cohort_executable(kind: str, cfg: StreamConfig, S: int, Lb: int,
+                       device, mesh, stream_axis: str, fn_of, example_of):
+    """The cached cohort step ``kind``: one :class:`StepExecutable` over
+    ``[S, ...]`` on ``device``, or with a ``mesh`` a :class:`ShardedStep`
+    of one a shard of its stream axis.  ``fn_of(S)`` and ``example_of(S,
+    device)`` give the step function and its capture example at a shard's
+    slot count."""
+    from tempo_tpu_torch import dist
+    from tempo_tpu_torch.plan.cache import CACHE
+
+    key = _cohort_cache_key(kind, cfg, S, Lb, device, mesh)
+
+    def build():
+        if mesh is None:
+            return StepExecutable(key, fn_of(S), device,
+                                  example_of(S, device))
+        return ShardedStep([
+            StepExecutable(key + (i,), fn_of(s1 - s0), dev,
+                           example_of(s1 - s0, dev))
+            for i, (dev, s0, s1) in enumerate(
+                dist.stream_shardings(mesh, stream_axis, S))])
+
+    return CACHE.get_or_build(key, build)
+
+
+def cohort_push_executable(cfg: StreamConfig, S: int, Lb: int, device=None,
+                           mesh=None, stream_axis: str = "streams"):
+    """The cohort push step of one (shape bucket, ``S`` slots, padded
+    batch ``Lb``) through the planner's cache, keyed ``("serve",
+    "cohort_push", cfg.key(), S, Lb, device_key(...))``: :func:`_push_fn`
+    over ``[S, ...]``, one CUDA graph (a shard) on a card."""
+    return _cohort_executable(
+        "cohort_push", cfg, S, Lb, device, mesh, stream_axis,
+        lambda n: _push_fn(cfg, Lb),
+        lambda n, dev: push_inputs(cfg, Lb, dev, S=n))
+
+
+def cohort_query_executable(cfg: StreamConfig, S: int, Lb: int, device=None,
+                            mesh=None, stream_axis: str = "streams"):
+    return _cohort_executable(
+        "cohort_query", cfg, S, Lb, device, mesh, stream_axis,
+        lambda n: _query_fn(cfg, Lb),
+        lambda n, dev: query_inputs(cfg, dev, S=n))
+
+
+def pack_answers(vals, found, idx) -> torch.Tensor:
+    """Gathered query answers (``vals [N, C]`` float32, ``found [N, C]``,
+    ``idx [N]`` int32) as one ``[N, 2C + 1]`` int32 tensor, the float
+    bits by view, so one copy brings them to the host
+    (:func:`unpack_answers`)."""
+    return torch.cat([vals.contiguous().view(torch.int32),
+                      found.to(torch.int32), idx[:, None]], 1)
+
+
+def unpack_answers(packed: np.ndarray, C: int):
+    """``(vals [N, C] float32, found [N, C] bool, idx [N] int32)`` of a
+    host copy of :func:`pack_answers`."""
+    return (np.ascontiguousarray(packed[:, :C]).view(np.float32),
+            packed[:, C:2 * C].astype(bool), packed[:, 2 * C])
+
+
+# ----------------------------------------------------------------------
+# Block programs: scatter, step and gather as one graph
+# ----------------------------------------------------------------------
+#
+# The per-tick cohort route scatters admitted ticks into the padded
+# [S, K, Lb] batch and gathers their emissions with eager ops around the
+# step's graph.  A block program takes the ticks in compact form (index
+# and value arrays of one power-of-two length Nb), scatters them into the
+# padded batch, runs the same step and gathers the emissions back to
+# [Nb, ...] inside one graph: host-to-device and device-to-host traffic
+# are O(ticks).  The reference pads with an out-of-range slot that
+# ``.at[...].set(mode="drop")`` discards; an out-of-range index_put_ is a
+# device-side assert on a card, so the padded planes here have a sink
+# slot S ([S + 1, ...]): pad ticks land there and the step runs on the
+# contiguous leading slice [:S].  One tick a (slot, series) is the
+# caller's precondition, on lane 0 like the per-tick route's singles,
+# so each slot's batch holds what the per-tick route would build and the
+# step is the same function: the bits are the per-tick route's.
+
+def block_lanes() -> int:
+    """The block programs' padded per-series lanes: the per-tick route's
+    bucket for one row (``stream._bucket(1)``, 8), so both routes run the
+    step at one shape."""
+    from tempo_tpu_torch.serve import stream as stream_mod
+
+    return stream_mod._bucket(1)
+
+
+def _sink_counts(sl, rw, S: int, K: int) -> torch.Tensor:
+    """``[S + 1, K]`` int64 tick counts of (slot, series) pairs, pad ticks
+    in the sink slot ``S`` (an integer scatter-add, exact)."""
+    counts = torch.zeros((S + 1) * K, dtype=torch.int64, device=sl.device)
+    counts.scatter_add_(0, sl * K + rw, torch.ones_like(sl))
+    return counts.view(S + 1, K)
+
+
+def _block_push_fn(cfg: StreamConfig, S: int, Nb: int):
+    C, K = cfg.n_cols, cfg.n_series
+    Lb = block_lanes()
+    step = _push_fn(cfg, Lb)
+    n_state = len(cfg.state_names())
+
+    def prog(*args):
+        st = args[:n_state]
+        sl, rw, tsv, colv = args[n_state:]
+        dev = tsv.device
+        where = (sl, rw)
+        ts_p = torch.full((S + 1, K, Lb), int(TS_PAD), dtype=torch.int64,
+                          device=dev)
+        ts_p.select(-1, 0).index_put_(where, tsv)
+        mask = torch.zeros((S + 1, K, Lb), dtype=torch.bool, device=dev)
+        mask.select(-1, 0).index_put_(where, torch.ones_like(sl,
+                                                             dtype=torch.bool))
+        xs = torch.full((S + 1, C, K, Lb), math.nan, dtype=torch.float32,
+                        device=dev)
+        xs.select(-1, 0).transpose(1, 2).index_put_(where, colv.t())
+        counts = _sink_counts(sl, rw, S, K)
+        out = step(*st, ts_p[:S], xs[:S], mask[:S], counts[:S])
+        slg = sl.clamp(max=S - 1)          # pad ticks: any slot; dropped
+        if len(out) == n_state:
+            return out
+        return out[:n_state] + [out[n_state].select(-1, 0)[:, slg, :, rw]]
+
+    return prog
+
+
+def _block_query_fn(cfg: StreamConfig, S: int, Nb: int):
+    K = cfg.n_series
+    qstep = _query_fn(cfg, block_lanes())
+
+    def prog(*args):
+        st = args[:len(_QUERY_STATE)]
+        sl, rw = args[len(_QUERY_STATE):]
+        counts = _sink_counts(sl, rw, S, K)
+        n_merged, vals, found, idx = qstep(*st, counts[:S])
+        slg = sl.clamp(max=S - 1)
+        return [n_merged, pack_answers(vals.select(-1, 0)[slg, :, rw],
+                                       found.select(-1, 0)[slg, :, rw],
+                                       idx.select(-1, 0)[slg, rw])]
+
+    return prog
+
+
+def block_ticks(Nb: int, S: int, C: int, device):
+    """An inert block of ``Nb`` pad ticks (all in the sink slot): ``sl,
+    rw, tsv, colv``."""
+    return [torch.full((Nb,), S, dtype=torch.int64, device=device),
+            torch.zeros((Nb,), dtype=torch.int64, device=device),
+            torch.full((Nb,), int(TS_PAD), dtype=torch.int64, device=device),
+            torch.full((C, Nb), math.nan, dtype=torch.float32, device=device)]
+
+
+def _require_meshless(mesh, kind: str) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            f"the {kind} block program is the meshless cohort's; a "
+            f"mesh-sharded cohort takes the per-tick dispatch route (its "
+            f"batch build is already on each shard's device)")
+
+
+def cohort_block_push_executable(cfg: StreamConfig, S: int, Nb: int,
+                                 device=None, mesh=None,
+                                 stream_axis: str = "streams"):
+    """The block push program of one (shape bucket, ``S``, power-of-two
+    tick count ``Nb``): the sink-slot scatter, the step and the compact
+    emission gather ``[Nb, E, C]``, one CUDA graph on a card."""
+    _require_meshless(mesh, "push")
+    n_state = len(cfg.state_names())
+    return _cohort_executable(
+        "cohort_block_push", cfg, S, Nb, device, None, stream_axis,
+        lambda n: _block_push_fn(cfg, n, Nb),
+        lambda n, dev: push_inputs(cfg, block_lanes(), dev, S=n)[:n_state]
+        + block_ticks(Nb, n, cfg.n_cols, dev))
+
+
+def cohort_block_query_executable(cfg: StreamConfig, S: int, Nb: int,
+                                  device=None, mesh=None,
+                                  stream_axis: str = "streams"):
+    """The block query program: sink-slot counts, the query step and the
+    compact answers packed ``[Nb, 2C + 1]`` (:func:`pack_answers`)."""
+    _require_meshless(mesh, "query")
+    return _cohort_executable(
+        "cohort_block_query", cfg, S, Nb, device, None, stream_axis,
+        lambda n: _block_query_fn(cfg, n, Nb),
+        lambda n, dev: query_inputs(cfg, dev, S=n)[:len(_QUERY_STATE)]
+        + block_ticks(Nb, n, cfg.n_cols, dev)[:2])

@@ -359,8 +359,13 @@ def test_window_stats_batch_against_the_reference():
 
 def test_device_key_and_default_device():
     assert plan_cache.device_key(device="cpu") == ("cpu", None)
-    with pytest.raises(NotImplementedError, match="A12b"):
-        plan_cache.device_key(mesh=object())
+    from tempo_tpu_torch import dist
+
+    mesh = dist.stream_mesh(devices=["cpu"] * 2)
+    assert plan_cache.device_key(mesh=mesh) == (
+        "mesh", (("streams", 2),), (("cpu", None), ("cpu", None)))
+    assert plan_cache.device_key(mesh=dist.stream_mesh(
+        devices=["cpu"] * 4)) != plan_cache.device_key(mesh=mesh)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             StreamingTSDF(["a"], COLS)
