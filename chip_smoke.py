@@ -304,6 +304,50 @@ N. Serving cohorts (``tempo_tpu_torch.serve.StreamCohort``).  a. The
    200 of a.'s dispatches run traced: ``ema_scan_kernel`` once a right
    dispatch.
 
+O. The query service (``tempo_tpu_torch.service``).  a. A cold race
+   first: two tenants submit two new mesh signatures at once (a fused
+   join -> stats -> EMA node and a stitched resample -> interpolate ->
+   EMA -> stats node, each captured as a CUDA graph) on two workers of
+   ``QueryService(workers=4)`` while two more tenants keep host queries
+   running; both succeed, two captures, bitwise their eager twins.  Then
+   the reference benchmark's config 13 (``bench.py``
+   ``bench_query_service``): 8 tenant threads x 24 queries (join,
+   join_stats, stats_ema over shared [8, 512] frames, exponential gaps
+   at a 2 ms mean) after one warm-up a shape; qps, per-tenant p50/p99,
+   the cache hit rate, the starvation ratio (<= 1.5), zero builds and
+   captures measured, every answer bitwise its warm-up twin and every
+   warm-up bitwise the eager chain on the card; the measured phase once
+   more traced.  b. Phase L.a's chain at HHAR scale through ``submit``
+   under an ``hbm_budget`` of the card's free memory: every plane
+   bitwise phase L.a's (phase H's), the projected ``Footprint`` beside
+   the measured peak, and the projection under the default 2 GiB.  c.
+   Config 19 (``bench_sql``): three SQL statements x 40 rounds through
+   ``submit_sql`` at [8, 2048], bitwise their planned twins and the
+   eager frames, zero builds, ``explain`` showing ``sql_filter`` /
+   ``sql_project`` with ``eval[sql]=``.  d. The fault domain, each case
+   counted in ``stats()``: a query over the shared-memory budget
+   rejected by name, one over the free device memory queued then run, a
+   poisoned signature quarantined after ``TEMPO_TPU_BREAKER_THRESHOLD``
+   failures, a deadline named by its stage, ``close(timeout)`` draining.
+   Before a., admission's shared memory a block is held to the kernels'
+   own figures (``cuda_lib.range_row_smem`` and the like).
+P. Standing queries (``tempo_tpu_torch.query``): the reference
+   benchmark's config 20 (``bench_standing``) at its published counts,
+   1,536 delta subscriptions (EMA at alpha 0.2 and 0.35), 384 stateless
+   and 128 remainder over one ``StreamTable`` on the card, 6 warm-up and
+   24 measured pushes of 128 rows on a Poisson timeline: pushes/s,
+   rows/s, notifications/s, p50/p99 a push, registrations/s, the
+   planes' graph pool bytes, zero builds and captures measured,
+   ``dropped``, sampled results (delta at both alphas, stateless,
+   remainder) bitwise the batch re-run of the canonical plan, whose
+   ``ema_stream`` launches ``ema_scan``; one more push traced.  Then a
+   join-delta subscription over two tables bitwise its batch twin, a
+   ``snapshot_subscription`` / ``resume_subscription`` round trip with a
+   byte-identical tail, and a ``sync_to_store`` round trip equal to its
+   pandas twin.  The batch twins' launches are counted apart from the
+   standing engine's and must include ``ema_scan`` and
+   ``asof_merge_lookback``.
+
 Traces: phases C and H wrap pack, join, stats, EMA and collect in
 ``profiling.annotate`` spans; one extra run each of C's chain, H's
 chain, L.a's cache hit, L.c's op-by-op run and 200 pushes of M.b's
@@ -318,11 +362,13 @@ bitwise one run.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line
 (each kernel's launches summed over the main-path runs of phases C, E,
-F, G's legacy step, H, I, K, M and N; the staged forms' rows, one a
+F, G's legacy step, H, I, K, M, N, O and P, ``ema_scan``'s phase P
+share also as ``launches_phase_p``; the staged forms' rows, one a
 depth, name their counter; phase L's planned runs are not counted: a
-replayed graph launches through no wrapper, and phases M and N's
-``ema_scan`` counts their streams' and cohorts' warm-up and capture
-runs, not the batch operators'),
+replayed graph launches through no wrapper, and phases M, N and P's
+``ema_scan`` counts their streams', cohorts' and standing planes'
+warm-up and capture runs, not the batch operators' nor the batch twins',
+which are counted apart and printed apart),
 and last ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the repository's ``tempo_tpu_torch`` package
 beside it, it prints no result and exits with 2.
@@ -5024,6 +5070,923 @@ def phase_n(dev, S: int = 10240, n_warm: int = 4000, n_meas: int = 40000,
     return launches
 
 
+# ----------------------------------------------------------------------
+# The query service (tempo_tpu_torch.service) and the standing-query
+# plane (tempo_tpu_torch.query)
+# ----------------------------------------------------------------------
+
+#: the service's config-13 and config-19 frames ([K, L] per side)
+SERVICE_SHAPE = (8, 512)
+SQL_SHAPE = (8, 2048)
+SQL_STATEMENTS = {
+    "filter": "SELECT * FROM trades WHERE price > 0.5 AND size < 1.5",
+    "project": "SELECT price * 2 AS p2, price + size AS ps "
+               "FROM trades WHERE size > -0.5",
+    "join": "SELECT * FROM trades ASOF JOIN quotes PREFIX 'q' "
+            "WHERE q_bid > 0",
+}
+
+
+def service_frame(pd, TSDF, rng, cols, K, L, dev):
+    """The reference benchmark's service frames (``bench.py``'s ``mk``):
+    K series of L rows at 1-2 s steps, standard-normal columns."""
+    secs = np.cumsum(rng.integers(1, 3, size=(K, L)), axis=-1)
+    data = {"sym": np.repeat(np.arange(K), L),
+            "event_ts": secs.ravel().astype(np.int64)}
+    for c in cols:
+        data[c] = rng.standard_normal(K * L)
+    return TSDF(pd.DataFrame(data), "event_ts", ["sym"], device=dev)
+
+
+def service_shapes(left, right, lazy_frame):
+    """Config 13's three query shapes over shared frames."""
+    return {
+        "join": lambda: lazy_frame(left).asofJoin(right),
+        "join_stats": lambda: (
+            lazy_frame(left).asofJoin(right)
+            .withRangeStats(colsToSummarize=["x"], rangeBackWindowSecs=10)),
+        "stats_ema": lambda: (
+            lazy_frame(left)
+            .withRangeStats(colsToSummarize=["x"], rangeBackWindowSecs=10)
+            .EMA("x", exact=True)),
+    }
+
+
+def eager_shape(name, left, right):
+    if name == "join":
+        return left.asofJoin(right).df
+    if name == "join_stats":
+        return left.asofJoin(right).withRangeStats(
+            colsToSummarize=["x"], rangeBackWindowSecs=10).df
+    return left.withRangeStats(colsToSummarize=["x"],
+                               rangeBackWindowSecs=10).EMA(
+        "x", exact=True).df
+
+
+def same_frame(pd, got, want, what: str) -> None:
+    try:
+        pd.testing.assert_frame_equal(got, want, check_exact=True)
+    except AssertionError as e:
+        raise AssertionError(f"{what}: not bitwise ({e})") from None
+
+
+def cold_race(pd, TSDF, left, right, mesh, dev):
+    """Decision (b)'s gate: two tenants submit two new mesh signatures
+    at once (a fused join -> stats -> EMA node and a stitched resample ->
+    interpolate -> EMA -> stats node, each captured as a CUDA graph on
+    its first run) on two service workers, while two more tenants keep
+    host queries launching; both must succeed, bitwise their eager
+    twins."""
+    from tempo_tpu_torch import profiling
+    from tempo_tpu_torch.service import QueryService, lazy_frame
+
+    def fused_q():
+        return (lazy_frame(left).on_mesh(mesh)
+                .asofJoin(lazy_frame(right).on_mesh(mesh))
+                .withRangeStats(colsToSummarize=["x"],
+                                rangeBackWindowSecs=10)
+                .EMA("x", exact=True))
+
+    def stitched_q():
+        return (lazy_frame(left).on_mesh(mesh)
+                .resample("10 seconds", "floor")
+                .interpolate(method="linear").EMA("x", exact=True)
+                .withRangeStats(colsToSummarize=["x"],
+                                rangeBackWindowSecs=60))
+
+    want = {
+        "fused": left.on_mesh(mesh).asofJoin(right.on_mesh(mesh))
+        .withRangeStats(colsToSummarize=["x"], rangeBackWindowSecs=10)
+        .EMA("x", exact=True).collect().df,
+        "stitched": left.on_mesh(mesh).resample("10 seconds", "floor")
+        .interpolate(method="linear").EMA("x", exact=True)
+        .withRangeStats(colsToSummarize=["x"],
+                        rangeBackWindowSecs=60).collect().df,
+    }
+    shapes = service_shapes(left, right, lazy_frame)
+    before = profiling.plan_cache_stats()
+    tickets, errs = {}, []
+    gate = threading.Barrier(4)
+    stop = threading.Event()
+
+    with QueryService(workers=4) as svc:
+        def racer(name, q):
+            try:
+                gate.wait(60)
+                tickets[name] = svc.submit(f"race_{name}", q())
+            except Exception as e:  # noqa: BLE001 - surfaced below
+                errs.append((name, repr(e)))
+
+        def background(i):
+            try:
+                gate.wait(60)
+                while not stop.is_set():
+                    svc.submit(f"bg{i}", shapes["join_stats"]()).result(
+                        timeout=300)
+            except Exception as e:  # noqa: BLE001 - surfaced below
+                errs.append((f"bg{i}", repr(e)))
+
+        threads = [threading.Thread(target=racer, args=("fused", fused_q)),
+                   threading.Thread(target=racer,
+                                    args=("stitched", stitched_q)),
+                   threading.Thread(target=background, args=(0,)),
+                   threading.Thread(target=background, args=(1,))]
+        t0 = time.perf_counter()
+        for t in threads[:2] + threads[2:]:
+            t.start()
+        for t in threads[:2]:
+            t.join(120)
+        got = {}
+        for name in ("fused", "stitched"):
+            if name not in tickets:
+                break
+            got[name] = tickets[name].result(timeout=600)
+        race_s = time.perf_counter() - t0
+        stop.set()
+        for t in threads[2:]:
+            t.join(300)
+        if errs or len(got) != 2:
+            raise AssertionError(f"O.a cold race: {errs}, {sorted(got)}")
+        st = svc.stats()
+    after = profiling.plan_cache_stats()
+    caps = after["graph_captures"] - before["graph_captures"]
+    for name in ("fused", "stitched"):
+        same_frame(pd, got[name].df, want[name], f"O.a cold race {name}")
+    if dev.type == "cuda" and caps != 2:
+        raise AssertionError(f"O.a cold race: {caps} captures, not 2")
+    bg = sum(c["completed"] for t, c in st["tenants"].items()
+             if t.startswith("bg"))
+    log(f"O.a cold race ({card_line()}): two new mesh signatures (fused "
+        f"join -> stats -> EMA, stitched resample -> interpolate -> EMA -> "
+        f"stats) submitted at once on two workers, each captured as a CUDA "
+        f"graph ({caps} captures, thread_local capture mode under the "
+        f"capture lock) while {bg} host queries of two more tenants ran; "
+        f"both succeeded in {race_s:.3f} s, bitwise their eager twins")
+
+
+def o_config13(pd, TSDF, dev, mesh):
+    """O.a: config 13 (``bench.py`` ``bench_query_service``) on the card."""
+    from tempo_tpu_torch import profiling
+    from tempo_tpu_torch.plan import cache as plan_cache
+    from tempo_tpu_torch.service import QueryService, lazy_frame
+
+    rng = np.random.default_rng(13)
+    n_tenants, n_queries = 8, 24
+    Ks, Ls = SERVICE_SHAPE
+    left = service_frame(pd, TSDF, rng, ["x"], Ks, Ls, dev)
+    right = service_frame(pd, TSDF, rng, ["bid", "ask"], Ks, Ls, dev)
+    shapes = service_shapes(left, right, lazy_frame)
+    names = list(shapes)
+    eager = {name: eager_shape(name, left, right) for name in names}
+
+    plan_cache.CACHE.clear()
+    cold_race(pd, TSDF, left, right, mesh, dev)
+    plan_cache.CACHE.clear()
+
+    svc = QueryService(workers=4)
+    warm = {name: svc.submit("warmup", shapes[name]()).result(timeout=600)
+            for name in names}
+    for name in names:
+        same_frame(pd, warm[name].df, eager[name],
+                   f"O.a warm-up {name} vs the eager chain")
+
+    def measured(seed0):
+        errs, done = [], []
+
+        def run_tenant(t_name, t_seed):
+            trng = np.random.default_rng(t_seed)
+            gaps = trng.exponential(scale=2e-3, size=n_queries)
+            tickets = []
+            try:
+                for i in range(n_queries):
+                    time.sleep(float(gaps[i]))
+                    name = names[int(trng.integers(len(names)))]
+                    tickets.append((name, svc.submit(t_name,
+                                                     shapes[name]())))
+                for name, tk in tickets:
+                    done.append((name, tk.result(timeout=600)))
+            except Exception as e:  # noqa: BLE001 - surfaced below
+                errs.append((t_name, repr(e)))
+
+        threads = [threading.Thread(target=run_tenant,
+                                    args=(f"tenant{i}", seed0 + i))
+                   for i in range(n_tenants)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+        wall = time.perf_counter() - t0
+        if errs or len(done) != n_tenants * n_queries:
+            raise AssertionError(f"O.a tenants failed: {errs}")
+        return wall, done
+
+    s0 = profiling.plan_cache_stats()
+    take_counts(dev)
+    wall, done = measured(14)
+    launches = take_counts(dev)
+    s1 = profiling.plan_cache_stats()
+    st = svc.stats()
+    for name, res in done:
+        same_frame(pd, res.df, warm[name].df,
+                   f"O.a steady-state {name} vs its warm-up twin")
+    builds = s1["builds"] - s0["builds"]
+    caps = s1["graph_captures"] - s0["graph_captures"]
+    if builds or caps:
+        raise AssertionError(f"O.a measured phase: {builds} builds, "
+                             f"{caps} captures")
+    tenants = {t: c for t, c in st["tenants"].items()
+               if t.startswith("tenant")}
+    completed = [c["completed"] for c in tenants.values()]
+    if len(tenants) != n_tenants or any(c != n_queries for c in completed):
+        raise AssertionError(f"O.a: tenants completed {completed}")
+    ratio = max(completed) / min(completed)
+    if ratio > 1.5:
+        raise AssertionError(f"O.a starvation ratio {ratio}")
+    pc = st["plan_cache"]
+    hits = s1["hits"] - s0["hits"]
+    misses = s1["misses"] - s0["misses"]
+    log(f"O.a config 13 ({card_line()}): {n_tenants} tenants x "
+        f"{n_queries} queries (join, join_stats, stats_ema over shared "
+        f"[{Ks}, {Ls}] frames, exponential gaps at a 2 ms mean) through "
+        f"QueryService(workers=4): {n_tenants * n_queries / wall:.1f} qps "
+        f"({wall:.3f} s); measured cache hits {hits}, misses {misses} "
+        f"(hit rate {hits / max(1, hits + misses):.4f}; all-time "
+        f"{pc['hits']}/{pc['hits'] + pc['misses']}), builds {builds}, "
+        f"captures {caps}; starvation ratio {ratio:.3f}; per tenant "
+        + json.dumps({t: [c["p50_ms"], c["p99_ms"]]
+                      for t, c in sorted(tenants.items())})
+        + f" (p50/p99 ms); every answer bitwise its warm-up twin, every "
+        f"warm-up bitwise the eager chain on the card; launches {launches}")
+    before = profiling.plan_cache_stats()
+    traced("O.a measured", lambda: measured(100)[0])
+    after = profiling.plan_cache_stats()
+    if after["builds"] != before["builds"]:
+        raise AssertionError("O.a traced run built an executable")
+    svc.close(timeout=60)
+    plan_cache.CACHE.clear()
+    return launches, (left, right)
+
+
+def o_hhar(pd, TSDF, left, right, keep, mesh):
+    """O.b: phase L.a's planned chain at HHAR scale through ``submit``."""
+    from tempo_tpu_torch.ops import cuda_lib
+    from tempo_tpu_torch.plan import cache as plan_cache
+    from tempo_tpu_torch.service import (AdmissionController,
+                                         AdmissionError, QueryService,
+                                         lazy_frame, project_footprint)
+
+    want = keep["H"]["planes"]
+    plan_cache.CACHE.clear()
+    torch.cuda.empty_cache()
+    query = (lazy_frame(TSDF(left, "event_ts", ["user"])).on_mesh(mesh)
+             .asofJoin(lazy_frame(TSDF(right, "event_ts", ["user"]))
+                       .on_mesh(mesh))
+             .withRangeStats(colsToSummarize=["x"], rangeBackWindowSecs=10)
+             .EMA("x", exact=True))
+    root = query.plan
+    t0 = time.perf_counter()
+    fp = project_footprint(root)
+    proj_s = time.perf_counter() - t0
+    try:
+        AdmissionController().check(fp)
+        default = "admitted"
+    except AdmissionError as e:
+        default = f"rejected ({str(e)[:120]}...)"
+    free, total = torch.cuda.mem_get_info()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    take_counts(torch.device("cuda"))
+    with QueryService(workers=1, hbm_budget=int(free)) as svc:
+        t0 = time.perf_counter()
+        out = svc.submit("hhar", root).result(timeout=900)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    launches = take_counts(torch.device("cuda"))
+    peak = torch.cuda.max_memory_allocated() - base
+    got = global_planes(out)
+    for c, (wv, wok) in want.items():
+        gv, gok = got[c]
+        if not (torch.equal(gok, wok) and torch.equal(
+                gv.view(torch.int32), wv.view(torch.int32))):
+            raise AssertionError(f"O.b: {c} is not bitwise phase L.a's")
+    log(f"O.b ({card_line()}): phase L.a's chain (on_mesh -> asofJoin -> "
+        f"withRangeStats(10 s) -> EMA) over {len(left)} rows a side "
+        f"through QueryService.submit with hbm_budget = the card's free "
+        f"{free} of {total} bytes: {secs:.3f} s, every plane bitwise phase "
+        f"L.a's (phase H's); projected Footprint(hbm_bytes="
+        f"{fp.hbm_bytes}, vmem_bytes={fp.vmem_bytes}) in {proj_s:.3f} s, "
+        f"measured peak {peak} bytes above the {base} already allocated "
+        f"(torch.cuda.max_memory_allocated); under the default 2 GiB "
+        f"budget the projection is {default}; launches {launches} (the "
+        f"fused node's warm-up and capture; a replay counts none); "
+        f"kernel builds {cuda_lib.builds}")
+    del out, got
+    plan_cache.CACHE.clear()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def o_sql(pd, TSDF, dev):
+    """O.c: config 19 (``bench.py`` ``bench_sql``) on the card."""
+    from tempo_tpu_torch import profiling
+    from tempo_tpu_torch.plan import cache as plan_cache
+    from tempo_tpu_torch.plan import render, sql_compile
+    from tempo_tpu_torch.service import QueryService, lazy_frame
+
+    rng = np.random.default_rng(19)
+    Ks, Ls = SQL_SHAPE
+    n_rounds = 40
+    trades = service_frame(pd, TSDF, rng, ["price", "size"], Ks, Ls, dev)
+    quotes = service_frame(pd, TSDF, rng, ["bid"], Ks, Ls // 2, dev)
+    tables = {"trades": trades, "quotes": quotes}
+    twins = {
+        "filter": lambda: lazy_frame(trades).filter(
+            "price > 0.5 AND size < 1.5"),
+        "project": lambda: lazy_frame(trades).filter("size > -0.5")
+        .selectExpr("event_ts", "sym", "price * 2 as p2",
+                    "price + size as ps"),
+        "join": lambda: lazy_frame(trades).asofJoin(quotes, right_prefix="q")
+        .filter("q_bid > 0"),
+    }
+    eager = {
+        "filter": trades.filter("price > 0.5 AND size < 1.5").df,
+        "project": trades.filter("size > -0.5").selectExpr(
+            "event_ts", "sym", "price * 2 as p2", "price + size as ps").df,
+        "join": trades.asofJoin(quotes, right_prefix="q")
+        .filter("q_bid > 0").df,
+    }
+    plan_cache.CACHE.clear()
+    svc = QueryService(workers=2)
+    warm = {name: svc.submit_sql("warmup", text, tables).result(timeout=600)
+            for name, text in SQL_STATEMENTS.items()}
+    for name in SQL_STATEMENTS:
+        twin = svc.submit("audit", twins[name]()).result(timeout=600)
+        sql_df = warm[name].df
+        same_frame(pd, sql_df[twin.df.columns].reset_index(drop=True),
+                   twin.df.reset_index(drop=True),
+                   f"O.c {name} vs its planned twin")
+        same_frame(pd, sql_df[eager[name].columns].reset_index(drop=True),
+                   eager[name].reset_index(drop=True),
+                   f"O.c {name} vs the eager frame")
+    s0 = profiling.plan_cache_stats()
+    take_counts(dev)
+    t0 = time.perf_counter()
+    tickets = [(n, svc.submit_sql(f"tenant{i % 4}", SQL_STATEMENTS[n],
+                                  tables))
+               for i in range(n_rounds) for n in SQL_STATEMENTS]
+    results = [(n, tk.result(timeout=600)) for n, tk in tickets]
+    wall = time.perf_counter() - t0
+    launches = take_counts(dev)
+    s1 = profiling.plan_cache_stats()
+    for n, res in results:
+        same_frame(pd, res.df, warm[n].df, f"O.c steady-state {n}")
+    if s1["builds"] != s0["builds"]:
+        raise AssertionError(f"O.c: {s1['builds'] - s0['builds']} builds "
+                             f"in the measured phase")
+    svc.close(timeout=60)
+    seam = render.explain_text(
+        sql_compile.compile_statement(SQL_STATEMENTS["project"], tables))
+    if "sql_project" not in seam or "sql_filter" not in seam \
+            or "eval[sql]=" not in seam:
+        raise AssertionError(f"O.c explain: {seam}")
+    backend = seam.split("eval[sql]=")[1].split()[0]
+    e0 = time.perf_counter()
+    for _ in range(n_rounds // 4):
+        trades.filter("price > 0.5 AND size < 1.5")
+        trades.filter("size > -0.5").selectExpr(
+            "event_ts", "sym", "price * 2 as p2", "price + size as ps")
+        trades.asofJoin(quotes, right_prefix="q").filter("q_bid > 0")
+    eager_qps = 3 * (n_rounds // 4) / (time.perf_counter() - e0)
+    log(f"O.c config 19 ({card_line()}): {len(SQL_STATEMENTS)} statements "
+        f"x {n_rounds} rounds through submit_sql over [{Ks}, {Ls}] trades "
+        f"and [{Ks}, {Ls // 2}] quotes: {3 * n_rounds / wall:.1f} qps "
+        f"({wall:.3f} s), eager {eager_qps:.1f} qps; 0 builds measured; "
+        f"every answer bitwise its planned twin and the eager frame; "
+        f"explain shows sql_filter -> sql_project, eval[sql]={backend}; "
+        f"launches {launches}")
+    plan_cache.CACHE.clear()
+    return launches
+
+
+def o_faults(pd, TSDF, left, right, dev):
+    """O.d: the service's fault domain on the card, each case counted in
+    ``stats()``."""
+    from tempo_tpu_torch import config
+    from tempo_tpu_torch.plan import executor as plan_executor
+    from tempo_tpu_torch.resilience import (DeadlineExceeded,
+                                            QuarantinedError)
+    from tempo_tpu_torch.service import (AdmissionError, QueryService,
+                                         lazy_frame, project_footprint)
+    from tempo_tpu_torch.testing import faults
+
+    def q():
+        return (lazy_frame(left).asofJoin(right)
+                .withRangeStats(colsToSummarize=["x"],
+                                rangeBackWindowSecs=10))
+
+    fp = project_footprint(q().plan)
+    out = {}
+    # a. over the shared-memory budget: rejected by name, at once
+    with QueryService(workers=1, vmem_budget=fp.vmem_bytes - 1) as svc:
+        try:
+            svc.submit("smem", q())
+        except AdmissionError as e:
+            if "VMEM" not in str(e):
+                raise
+        else:
+            raise AssertionError("O.d: an over-budget query was admitted")
+        out["rejected"] = svc.stats()["tenants"]["smem"]["rejected"]
+
+    # b. over the free device memory: queued, then run once released
+    gate = threading.Event()
+    real = plan_executor.execute
+
+    def gated(root):
+        gate.wait(120)
+        return real(root)
+
+    plan_executor.execute = gated
+    try:
+        with QueryService(workers=2,
+                          hbm_budget=int(fp.hbm_bytes * 1.5)) as svc:
+            t1 = svc.submit("hbm", q())
+            t2 = svc.submit("hbm", q())
+            deadline = time.perf_counter() + 30
+            while t1.t_start is None:
+                if time.perf_counter() > deadline:
+                    raise AssertionError("O.d: the first query never ran")
+                time.sleep(0.005)
+            time.sleep(0.3)
+            queued = t2.t_start is None and \
+                svc.stats()["hbm_in_use"] == fp.hbm_bytes
+            gate.set()
+            r1, r2 = t1.result(timeout=300), t2.result(timeout=300)
+            same_frame(pd, r1.df, r2.df, "O.d queued query")
+            if not queued or t2.t_start < t1.t_done:
+                raise AssertionError("O.d: the second query did not queue "
+                                     "behind the budget")
+            out["queued_then_completed"] = \
+                svc.stats()["tenants"]["hbm"]["completed"]
+    finally:
+        gate.set()
+        plan_executor.execute = real
+
+    # c. a poisoned signature is quarantined after the threshold
+    threshold = config.get_int("TEMPO_TPU_BREAKER_THRESHOLD", 3)
+    with QueryService(workers=1) as svc:
+        with faults.FaultInjector() as fi:
+            fi.flaky(plan_executor, "execute", failures=threshold)
+            for _ in range(threshold):
+                try:
+                    svc.submit("poison", q()).result(timeout=300)
+                except faults.InjectedFault:
+                    pass
+                else:
+                    raise AssertionError("O.d: the fault did not fire")
+            try:
+                svc.submit("poison", q())
+            except QuarantinedError:
+                pass
+            else:
+                raise AssertionError("O.d: the signature was not "
+                                     "quarantined")
+        c = svc.stats()["tenants"]["poison"]
+        out["poison_failed"], out["quarantined"] = c["failed"], \
+            c["quarantined"]
+
+    # d. a deadline named by its stage: the budget admits one query at a
+    # time, so the second waits in the admission queue past its 50 ms
+    gate = threading.Event()
+    plan_executor.execute = gated
+    try:
+        with QueryService(workers=2,
+                          hbm_budget=int(fp.hbm_bytes * 1.5)) as svc:
+            hold = svc.submit("dl", q())
+            late = svc.submit("dl", q(), deadline_s=0.05)
+            try:
+                late.result(timeout=60)
+            except DeadlineExceeded as e:
+                stage = e.stage
+            else:
+                raise AssertionError("O.d: the deadline did not fire")
+            gate.set()
+            hold.result(timeout=300)
+            out["deadline_stage"] = stage
+            out["deadline_failed"] = svc.stats()["tenants"]["dl"]["failed"]
+    finally:
+        gate.set()
+        plan_executor.execute = real
+
+    # e. close(timeout) drains what is queued
+    svc = QueryService(workers=2)
+    tickets = [svc.submit(f"drain{i % 2}", q()) for i in range(8)]
+    t0 = time.perf_counter()
+    svc.close(timeout=120)
+    drain_s = time.perf_counter() - t0
+    if not all(t.done() for t in tickets):
+        raise AssertionError("O.d: close(timeout) left tickets pending")
+    for t in tickets:
+        t.result(timeout=1)
+    st = svc.stats()["tenants"]
+    out["drained"] = st["drain0"]["completed"] + st["drain1"]["completed"]
+    want = {"rejected": 1, "queued_then_completed": 2,
+            "poison_failed": threshold, "quarantined": 1,
+            "deadline_stage": "admission queue", "deadline_failed": 1,
+            "drained": 8}
+    if out != want:
+        raise AssertionError(f"O.d counts {out}, want {want}")
+    log(f"O.d fault domain ({card_line()}): over the shared-memory budget "
+        f"({fp.vmem_bytes - 1} B < {fp.vmem_bytes} B) rejected by name; "
+        f"a query over the free device memory queued, then ran once the "
+        f"first released its {fp.hbm_bytes} bytes; a poisoned signature "
+        f"quarantined after {threshold} failures; a 50 ms deadline named "
+        f"by its stage; close(timeout) drained 8 queued queries in "
+        f"{drain_s:.3f} s; counts {json.dumps(out)}")
+
+
+def o_smem_layouts() -> None:
+    """Admission's shared-memory figures against the compiler's: each
+    kernel's static shared memory (``cudaFuncGetAttributes``) and its
+    dynamic bytes, as the launchers export them."""
+    from tempo_tpu_torch.ops import cuda_lib
+    from tempo_tpu_torch.service import admission
+
+    pairs = {"range_stats row form": (admission.RANGE_ROW_SMEM,
+                                      cuda_lib.range_row_smem()),
+             "asof_merge walk": (admission.ASOF_WALK_SMEM,
+                                 cuda_lib.asof_walk_smem()),
+             "asof_merge_lookback tile join": (admission.ASOF_TILE_SMEM,
+                                               cuda_lib.asof_tile_smem())}
+    wrong = {k: v for k, v in pairs.items() if v[0] != v[1]}
+    if wrong:
+        raise AssertionError(f"O admission's shared memory a block "
+                             f"(figure, kernel's) differs: {wrong}")
+    log(f"O admission's shared memory a block equals the kernels' "
+        f"(static + dynamic): {dict((k, v[0]) for k, v in pairs.items())}")
+
+
+def phase_o(pd, TSDF, left, right, keep, dev):
+    """The query service (``tempo_tpu_torch.service``) on the card.
+    a. config 13 (a cold race of two new mesh signatures first), b. phase
+    L.a's chain at HHAR scale through ``submit``, c. config 19's SQL, d.
+    the fault domain.  Returns the launch counts of a., b. and c.'s
+    measured runs."""
+    from tempo_tpu_torch import make_mesh
+
+    t_phase = time.perf_counter()
+    if dev.type == "cuda":
+        o_smem_layouts()
+    mesh = make_mesh() if dev.type == "cuda" else make_mesh(
+        {"series": 2}, devices=["cpu"] * 2)
+    la, (sl, sr) = o_config13(pd, TSDF, dev, mesh)
+    lb = o_hhar(pd, TSDF, left, right, keep, mesh) if keep else {}
+    lc = o_sql(pd, TSDF, dev)
+    o_faults(pd, TSDF, sl, sr, dev)
+    log(f"O took {time.perf_counter() - t_phase:.1f} s")
+    return add_counts(la, lb, lc)
+
+
+def same_standing(pd, res, twin, what: str) -> None:
+    """A standing ``result()`` frame against its batch twin: the same
+    columns and rows, float columns byte for byte."""
+    if list(res.columns) != list(twin.columns) or len(res) != len(twin):
+        raise AssertionError(f"{what}: columns or rows differ from the "
+                             f"batch twin")
+    for c in res.columns:
+        a, b = res[c], twin[c]
+        if a.dtype.kind == "f":
+            if a.to_numpy().tobytes() != b.to_numpy().tobytes():
+                raise AssertionError(f"{what}: {c} is not bitwise the "
+                                     f"batch twin's")
+        elif not a.equals(b):
+            raise AssertionError(f"{what}: {c} differs from the batch "
+                                 f"twin's")
+
+
+def p_join(pd, dev, StandingQueryEngine, StreamTable, _run_batch, served,
+           oracles):
+    """One join-delta subscription over two ``StreamTable``s, fed in
+    merged order, bitwise its batch twin.  Appends the subscription's
+    launch counts to ``served`` and its twin's to ``oracles``."""
+    rng = np.random.default_rng(201)
+    n = 4096
+    ts = np.sort(rng.integers(0, 10**7, n))
+    df = pd.DataFrame({
+        "event_ts": pd.to_datetime(ts, unit="s"),
+        "sym": rng.choice(["AAA", "BBB", "CCC", "DDD"], n),
+        "bid": rng.normal(99, 2, n), "ask": rng.normal(101, 2, n),
+        # runs of 1 to 64 rows a side: a push a run
+        "side": np.repeat(np.arange(n) % 2 == 1,
+                          rng.integers(1, 65, n))[:n]})
+    df.loc[rng.random(n) < 0.05, "bid"] = np.nan
+    df = df.sort_values(["event_ts", "side"], kind="stable").reset_index(
+        drop=True)
+    hist, live = df.iloc[:512], df.iloc[512:]
+    L = StreamTable("orders", "event_ts", ["sym"], [], device=dev)
+    R = StreamTable("quotes", "event_ts", ["sym"], ["bid", "ask"],
+                    device=dev)
+    L.append(hist[hist["side"]][["event_ts", "sym"]])
+    R.append(hist[~hist["side"]][["event_ts", "sym", "bid", "ask"]])
+    side = live["side"].to_numpy()
+    cuts = [0] + [i for i in range(1, len(live)) if side[i] != side[i - 1]]
+    cuts.append(len(live))
+    with StandingQueryEngine() as eng:
+        frame = L.frame().asofJoin(R.frame(), right_prefix="right",
+                                   maxLookback=4)
+        sub = eng.register(frame)
+        if sub.mode != "delta":
+            raise AssertionError(f"P join: {sub.mode} ({sub.reason})")
+        t0 = time.perf_counter()
+        for a, b in zip(cuts[:-1], cuts[1:]):
+            run = live.iloc[a:b]
+            if side[a]:
+                eng.push(L, run[["event_ts", "sym"]])
+            else:
+                eng.push(R, run[["event_ts", "sym", "bid", "ask"]])
+        res = sub.result(timeout=600).df
+        secs = time.perf_counter() - t0
+        served.append(take_counts(dev))
+        twin = _run_batch(sub.plan.root, {L.name: L.snapshot_df(),
+                                          R.name: R.snapshot_df()}).df
+        oracles.append(take_counts(dev))
+    same_standing(pd, res, twin, "P join delta")
+    return (f"one join-delta subscription (maxLookback 4) over two "
+            f"StreamTables, {len(cuts) - 1} pushes in merged order "
+            f"({secs:.3f} s), bitwise its batch twin ({len(res)} rows)")
+
+
+def p_resume(pd, dev, StandingQueryEngine, StreamTable,
+             snapshot_subscription, resume_subscription):
+    """A standing EMA snapshotted at boundary 3, resumed on a fresh
+    engine: the tail byte-identical to the uninterrupted run's."""
+    import shutil
+    import tempfile
+
+    batches = []
+    for k in range(8):
+        rng = np.random.default_rng(300 + k)
+        n = 128
+        b = pd.DataFrame({
+            "event_ts": pd.to_datetime(
+                3000 * k + np.sort(rng.integers(0, 1000, n)), unit="s"),
+            "sym": rng.choice(["AAA", "BBB"], n),
+            "px": rng.normal(100.0, 5.0, n)})
+        b.loc[rng.random(n) < 0.05, "px"] = np.nan
+        batches.append(b.sort_values("event_ts", kind="stable")
+                       .reset_index(drop=True))
+
+    def query(t):
+        return t.frame().EMA("px", exp_factor=0.3, exact=True)
+
+    t = StreamTable("s", "event_ts", ["sym"], ["px"], device=dev)
+    t.append(batches[0])
+    with StandingQueryEngine() as eng:
+        sub = eng.register(query(t))
+        for b in batches[1:]:
+            eng.push(t, b)
+        full = sub.result(timeout=600).df
+    d = tempfile.mkdtemp(prefix="tempo-standing-")
+    try:
+        path = os.path.join(d, "ck")
+        t2 = StreamTable("s", "event_ts", ["sym"], ["px"], device=dev)
+        t2.append(batches[0])
+        with StandingQueryEngine() as eng2:
+            sub2 = eng2.register(query(t2))
+            for b in batches[1:4]:
+                eng2.push(t2, b)
+            if not eng2.flush(timeout=600):
+                raise AssertionError("P resume: flush timed out")
+            snapshot_subscription(sub2, path)
+        t3 = StreamTable("s", "event_ts", ["sym"], ["px"], device=dev)
+        for b in batches[:4]:
+            t3.append(b)
+        with StandingQueryEngine() as eng3:
+            sub3 = resume_subscription(eng3, query(t3), path)
+            for b in batches[4:]:
+                eng3.push(t3, b)
+            resumed = sub3.result(timeout=600).df
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    same_standing(pd, resumed, full, "P resume")
+    return (f"snapshot_subscription at boundary 3 of 7, "
+            f"resume_subscription on a fresh engine: the {len(full)}-row "
+            f"result byte-identical to the uninterrupted run's")
+
+
+def p_store(pd, dev, StreamTable):
+    """``sync_to_store`` round trip against its pandas twin (C5)."""
+    import shutil
+    import tempfile
+
+    from tempo_tpu_torch.store.engine import Store
+
+    rng = np.random.default_rng(401)
+    batches = []
+    for k in range(4):
+        n = 256
+        batches.append(pd.DataFrame({
+            "event_ts": pd.to_datetime(
+                3000 * k + np.sort(rng.integers(0, 1000, n)), unit="s"),
+            "sym": rng.choice(["AAA", "BBB"], n),
+            "px": rng.normal(100.0, 5.0, n)}))
+    d = tempfile.mkdtemp(prefix="tempo-store-")
+    try:
+        t = StreamTable("ticks", "event_ts", ["sym"], ["px"],
+                        store=Store(d), device=dev)
+        for b in batches[:2]:
+            t.append(b)
+        t.sync_to_store()
+        for b in batches[2:]:
+            t.append(b)
+        snap = t.snapshot_df()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    twin = pd.concat(batches, ignore_index=True)
+    pd.testing.assert_frame_equal(snap, twin, check_exact=True)
+    return (f"sync_to_store of 512 rows, then 512 more in the tail: the "
+            f"unified snapshot equals pd.concat of the pushed frames "
+            f"(arrival order, source dtypes)")
+
+
+def phase_p(pd, dev, n_delta=1536, n_stateless=384, n_remainder=128,
+            warm_pushes=6, meas_pushes=24, traced_pushes=1,
+            rows_per_push=128):
+    """Standing queries (``tempo_tpu_torch.query``) on the card: config 20
+    (``bench.py`` ``bench_standing``) at its published counts, then a
+    join-delta subscription, a snapshot / resume round trip and a store
+    round trip.  Returns the standing engine's own launch counts: the
+    planes' warm-ups, captures and pushes, and the join, resume and store
+    runs'.  The batch twins' (``_run_batch``, the checks' oracle) are
+    counted apart and must launch ``ema_scan`` and
+    ``asof_merge_lookback``."""
+    from tempo_tpu_torch import profiling
+    from tempo_tpu_torch.plan import cache as plan_cache
+    from tempo_tpu_torch.query import (StandingQueryEngine, StreamTable,
+                                       resume_subscription,
+                                       snapshot_subscription)
+    from tempo_tpu_torch.query.standing import _run_batch
+
+    t_phase = time.perf_counter()
+    stats = profiling.plan_cache_stats
+    syms = np.asarray(["AAA", "BBB"], object)
+
+    def rows(rng, n, t0):
+        # config 20's "strictly increasing ns timeline": exponential gaps
+        # at a 2 ms mean from 1 s after the epoch, as nanoseconds (the
+        # benchmark passes the raw integers, which a frame reads as
+        # seconds: 2e6 s a row, past the 2^62 ns pad key by row ~880)
+        ns = t0 + np.cumsum(rng.exponential(scale=2e6, size=n)
+                            .astype(np.int64) + 1)
+        return pd.DataFrame({
+            "event_ts": pd.to_datetime(ns, unit="ns"),
+            "sym": syms[rng.integers(0, len(syms), n)],
+            "px": np.where(rng.random(n) < 0.05, np.nan,
+                           rng.normal(100.0, 5.0, n)),
+        })
+
+    n_rows = (1 + warm_pushes + meas_pushes) * rows_per_push
+    timeline = rows(np.random.default_rng(20), n_rows, np.int64(10 ** 9))
+    # the traced pushes continue the timeline from their own seed
+    last = int(timeline["event_ts"].iloc[-1].value)
+    timeline = pd.concat([timeline, rows(
+        np.random.default_rng(21), traced_pushes * rows_per_push, last)],
+        ignore_index=True)
+
+    def batch(i):
+        lo = i * rows_per_push
+        return timeline.iloc[lo:lo + rows_per_push]
+
+    plan_cache.CACHE.clear()
+    take_counts(dev)
+    t = StreamTable("ticks", "event_ts", ["sym"], ["px"], device=dev)
+    t.append(batch(0))
+    eng = StandingQueryEngine(remainder_every=10 ** 6)
+    alphas = (0.2, 0.35)
+    queries = []
+    for i in range(n_delta):
+        queries.append(("delta", t.frame().EMA(
+            "px", exp_factor=alphas[i % 2], exact=True)))
+    for _ in range(n_stateless):
+        queries.append(("stateless",
+                        t.frame().select("event_ts", "sym", "px")))
+    for _ in range(n_remainder):
+        queries.append(("remainder", t.frame().withRangeStats(
+            colsToSummarize=["px"], rangeBackWindowSecs=600)))
+    audit, subs = {}, []
+    r0 = time.perf_counter()
+    for want, q in queries:
+        sub = eng.register(q)
+        if sub.mode != want:
+            raise AssertionError(f"P: registered {sub.mode}, not {want} "
+                                 f"({sub.reason})")
+        subs.append(sub)
+        audit.setdefault(want if want != "delta"
+                         else f"delta_a{sub.plan.emas[0].alpha}", sub)
+    register_s = time.perf_counter() - r0
+    for i in range(warm_pushes):
+        eng.push(t, batch(1 + i))
+        if not eng.flush(timeout=600):
+            raise AssertionError("P warm-up push: flush timed out")
+    s0 = stats()
+    lat = []
+    t0 = time.perf_counter()
+    for i in range(meas_pushes):
+        p0 = time.perf_counter()
+        eng.push(t, batch(1 + warm_pushes + i))
+        if not eng.flush(timeout=600):
+            raise AssertionError("P measured push: flush timed out")
+        lat.append(time.perf_counter() - p0)
+    wall = time.perf_counter() - t0
+    s1 = stats()
+    builds = s1["builds"] - s0["builds"]
+    caps = s1["graph_captures"] - s0["graph_captures"]
+    if builds or caps:
+        raise AssertionError(f"P measured pushes: {builds} builds, {caps} "
+                             f"captures")
+
+    def traced_run():
+        for i in range(traced_pushes):
+            eng.push(t, batch(1 + warm_pushes + meas_pushes + i))
+            if not eng.flush(timeout=600):
+                raise AssertionError("P traced push: flush timed out")
+
+    traced("P measured pushes", traced_run)
+    s2 = stats()
+    if s2["builds"] != s1["builds"] or \
+            s2["graph_captures"] != s1["graph_captures"]:
+        raise AssertionError("P traced pushes built or captured")
+    served, oracles = [take_counts(dev)], []
+    # the audits: sampled results against the batch re-run of the
+    # canonical plan over the unified snapshot (ema_stream evaluates
+    # through ops.scan.ema_scan, the csrc/ema_scan.cu kernel on a card)
+    snap = {t.name: t.snapshot_df()}
+    for label, sub in audit.items():
+        res = sub.result(timeout=600).df
+        twin = _run_batch(sub.plan.root, dict(snap)).df
+        same_standing(pd, res, twin, f"P {label}")
+    oracles.append(take_counts(dev))
+    standing = served[0]
+    if dev.type == "cuda" and standing.get("ema_scan", 0) == 0:
+        raise AssertionError(f"P: the planes launched no ema_scan "
+                             f"({standing})")
+    dropped = sum(s.dropped for s in subs)
+    pool = eng.graph_pool_bytes()
+    n_planes = len(eng._planes)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    reserved0 = torch.cuda.memory_reserved() if dev.type == "cuda" else 0
+    eng.close()
+    pool_closed = eng.graph_pool_bytes()
+    if pool_closed:
+        raise AssertionError(f"P: closed planes still pin {pool_closed} "
+                             f"bytes of graph pools")
+    plan_cache.CACHE.clear()
+    import gc
+
+    del subs, audit, sub, queries
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    reserved1 = torch.cuda.memory_reserved() if dev.type == "cuda" else 0
+    lat_ms = np.sort(np.asarray(lat) * 1e3)
+    n_subs = n_delta + n_stateless + n_remainder
+    log(f"P config 20 ({card_line()}): {n_subs} subscriptions ({n_delta} "
+        f"delta at alpha {alphas}, {n_stateless} stateless, {n_remainder} "
+        f"remainder) over one StreamTable, registered at "
+        f"{n_subs / register_s:.1f}/s ({register_s:.3f} s); {meas_pushes} "
+        f"measured pushes of {rows_per_push} rows after {warm_pushes} "
+        f"warm-up: {meas_pushes / wall:.3f} pushes/s, "
+        f"{meas_pushes * rows_per_push / wall:.1f} rows/s, "
+        f"{n_subs * meas_pushes / wall:.1f} notifications/s, p50 "
+        f"{np.percentile(lat_ms, 50):.3f} ms, p99 "
+        f"{np.percentile(lat_ms, 99):.3f} ms a push; 0 builds and 0 "
+        f"captures measured; dropped {dropped}; {n_planes} planes' graph "
+        f"pools {pool} bytes, 0 pinned after close; the allocator's "
+        f"reserved bytes {reserved0} before close, {reserved1} after "
+        f"close, CACHE.clear() and empty_cache(); "
+        f"sampled results (delta at both alphas, stateless, remainder) "
+        f"bitwise the batch re-run; the standing path's launches "
+        f"{standing}")
+    log("P " + p_join(pd, dev, StandingQueryEngine, StreamTable,
+                      _run_batch, served, oracles))
+    log("P " + p_resume(pd, dev, StandingQueryEngine, StreamTable,
+                        snapshot_subscription, resume_subscription))
+    log("P " + p_store(pd, dev, StreamTable))
+    served.append(take_counts(dev))
+    plan_cache.CACHE.clear()
+    launches, by_oracle = add_counts(*served), add_counts(*oracles)
+    missing = [name for name in ("ema_scan", "asof_merge_lookback")
+               if by_oracle.get(name, 0) == 0]
+    if dev.type == "cuda" and missing:
+        raise AssertionError(f"P's batch twins never launched {missing}")
+    log(f"P took {time.perf_counter() - t_phase:.1f} s; the standing "
+        f"engine's launches {launches}; the batch twins' (counted apart) "
+        f"{by_oracle}")
+    return launches
+
+
 def add_counts(*counts):
     """Launch counters of several runs, summed by kernel."""
     out = {}
@@ -5130,19 +6093,25 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     phase_l(pd, TSDF, left, right, n, keep)
     log(f"L took {time.perf_counter() - t0:.1f} s")
-    del keep
     torch.cuda.empty_cache()
     launches8 = phase_m(pd, left, right, args.series, dev)
-    del left, right
+    torch.cuda.empty_cache()
+    launches10 = phase_o(pd, TSDF, left, right, keep, dev)
+    del keep, left, right
     torch.cuda.empty_cache()
     launches9 = phase_n(torch.device("cuda", torch.cuda.current_device()))
     torch.cuda.empty_cache()
+    launches11 = phase_p(pd, torch.device("cuda",
+                                          torch.cuda.current_device()))
+    torch.cuda.empty_cache()
 
     # launches: summed over the main-path runs (phases C, E, F, G's legacy
-    # step, H, I, K, M and N), each counted between a reset and a read
+    # step, H, I, K, M, N, O and P), each counted between a reset and a
+    # read
     found = add_counts(launches, launches2, launches3, long_launches,
                        launches4, launches5, launches6, launches7, launches8,
-                       launches9)
+                       launches9, launches10, launches11)
+    rows6["ema_scan"]["launches_phase_p"] = launches11["ema_scan"]
     rows["ema_ladder"].update(rows3.pop("_ema_phase_f"))
     kernels = []
     for table in (rows, rows2, rows3, rows4, rows5, rows6):

@@ -131,6 +131,37 @@ KNOBS = {
     "TEMPO_TPU_INGEST_DEADLINE_S":
         "default end-to-end deadline of from_parquet in seconds (unset: "
         "none)",
+    "TEMPO_TPU_STANDING_QUEUE_DEPTH":
+        "bound of each standing subscription's notification queue; a full "
+        "queue drops the oldest notification (counted on "
+        "Subscription.dropped), result() stays exact (default 1024)",
+    "TEMPO_TPU_STANDING_REMAINDER_EVERY":
+        "push-boundary cadence at which remainder-mode standing queries "
+        "re-run the whole canonical plan and emit a refresh notification; "
+        "result() always re-runs (default 64)",
+    "TEMPO_TPU_STANDING_PUSH_PERIOD":
+        "delivery-worker coalescing window in seconds: pushes admitted "
+        "within one period are delivered in one worker round; 0 (default) "
+        "delivers every push as its own round",
+    "TEMPO_TPU_SERVICE_WORKERS":
+        "worker threads of the multi-tenant query service (concurrent plan "
+        "executions; at least 1) (default 4)",
+    "TEMPO_TPU_SERVICE_TENANT_QUOTA":
+        "per-tenant pending-query bound: a tenant at quota blocks in "
+        "submit() (default 64)",
+    "TEMPO_TPU_SERVICE_VMEM_BUDGET":
+        "per-query shared-memory admission budget in bytes, the dynamic "
+        "shared memory one block of a kernel may take; unset: "
+        "ops.stream.SMEM_LIMIT, explicit 0 admits nothing; a query whose "
+        "projected block exceeds it is rejected with AdmissionError",
+    "TEMPO_TPU_SERVICE_HBM_BUDGET":
+        "total device-memory admission budget of the query service in "
+        "bytes (default 2 GiB; explicit 0 admits nothing): a query over "
+        "the whole budget is rejected, one over the free share queues",
+    "TEMPO_TPU_SERVICE_DEADLINE_S":
+        "default end-to-end deadline (seconds) of submitted queries, "
+        "carried through quota wait, admission wait and dispatch; unset or "
+        "0: none",
 }
 
 #: environment variables of other systems that the port reads

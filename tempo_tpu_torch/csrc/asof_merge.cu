@@ -627,6 +627,21 @@ JoinArgs join_args(const void* l_ts, const void* r_ts, const void* l_sid, const 
 extern "C" long long tempo_asof_walk_step() { return kWalkStep; }
 extern "C" long long tempo_asof_walk_cols() { return kWalkCols; }
 
+// Shared memory of a block of the walk with the sid and sequence planes
+// (static and dynamic) and of the lookback kernels' tile join (static):
+// admission's figures are checked against them on the card.  -1 when the
+// card cannot be asked.
+extern "C" long long tempo_asof_walk_smem() {
+    cudaFuncAttributes fa;
+    if (cudaFuncGetAttributes(&fa, asof_walk_kernel<true, true>) != cudaSuccess) return -1;
+    return (long long)fa.sharedSizeBytes + (long long)walk_smem(true, true);
+}
+extern "C" long long tempo_asof_tile_smem() {
+    cudaFuncAttributes fa;
+    if (cudaFuncGetAttributes(&fa, lookback_join_kernel) != cudaSuccess) return -1;
+    return (long long)fa.sharedSizeBytes;
+}
+
 extern "C" int tempo_asof_merge(const void* l_ts, const void* r_ts, const void* l_sid,
                                 const void* r_sid, const void* l_seq, const void* r_seq,
                                 const void* r_valid, const void* r_values, void* last_idx,

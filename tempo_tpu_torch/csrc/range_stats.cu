@@ -504,6 +504,15 @@ range_ring_kernel(const int32_t* __restrict__ secs, const float* __restrict__ x,
 // Lanes a row-form window holds at most (the CPU mirror's window_cap).
 extern "C" long long tempo_range_row_window() { return kRowWindow; }
 
+// Shared memory of a row-form block at its widest window: the compiler's
+// static bytes of the kernel and the dynamic window (admission's figure
+// is checked against it on the card).  -1 when the card cannot be asked.
+extern "C" long long tempo_range_row_smem() {
+    cudaFuncAttributes fa;
+    if (cudaFuncGetAttributes(&fa, range_rows) != cudaSuccess) return -1;
+    return (long long)fa.sharedSizeBytes + 16LL * win_entries(kRowWindow);
+}
+
 // Longest row the kernel takes: a lane plus a bound (at most L) stays an
 // int32.
 extern "C" long long tempo_range_max_lanes() { return 1LL << 30; }

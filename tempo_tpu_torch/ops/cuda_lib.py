@@ -95,7 +95,8 @@ _SIGNATURES = {
     "tempo_error_string": [_I],
 }
 #: the staged forms' shared-memory totals, as the kernels compute them,
-#: the merge walk's step and column limit, the row limits of the
+#: the merge walk's step and column limit, the row form's, the walk's
+#: and the tile join's shared memory a block, the row limits of the
 #: ``cumsum3``, EMA, bucket-stats and range-stats kernels and the
 #: range-stats row form's window (64-bit results)
 _SMEM_SIGNATURES = {
@@ -103,6 +104,9 @@ _SMEM_SIGNATURES = {
     "tempo_range_max_lanes": [],
     "tempo_asof_walk_step": [],
     "tempo_asof_walk_cols": [],
+    "tempo_range_row_smem": [],
+    "tempo_asof_walk_smem": [],
+    "tempo_asof_tile_smem": [],
     "tempo_cumsum3_max_lanes": [],
     "tempo_ema_row_max": [],
     "tempo_ema_max_lanes": [],
@@ -235,6 +239,23 @@ def asof_walk_cols() -> int:
     """Most right columns the merge kernel's row walk takes (a validity
     bit each in a 32-bit word)."""
     return lib().tempo_asof_walk_cols()
+
+
+def range_row_smem() -> int:
+    """Shared memory of a range-stats row-form block at its widest
+    window, static and dynamic, as the compiler laid the kernel out."""
+    return lib().tempo_range_row_smem()
+
+
+def asof_walk_smem() -> int:
+    """Shared memory of a block of the merge walk with the sid and
+    sequence planes, static and dynamic."""
+    return lib().tempo_asof_walk_smem()
+
+
+def asof_tile_smem() -> int:
+    """Shared memory of a block of the lookback kernels' tile join."""
+    return lib().tempo_asof_tile_smem()
 
 
 def cumsum3_max_lanes() -> int:

@@ -122,6 +122,13 @@ def _halo(bound: int, L: int) -> int:
     return L if bound >= L - 1 else bound + 1
 
 
+def window_bytes(lanes: int) -> int:
+    """Shared memory of a range-stats window of ``lanes`` lanes: a 16-byte
+    entry a lane and one more every 8 (``win_entries`` in
+    ``csrc/window.cuh``)."""
+    return 16 * (lanes + (lanes >> 3) + 1)
+
+
 def range_ring_bytes(mb: int, ma: int, L: int, T: int, depth: int) -> int:
     """Shared memory of the range-stats staged form (``range_ring_layout``
     in ``csrc/range_stats.cu``): barriers, reduction scratch, the window of
@@ -130,8 +137,7 @@ def range_ring_bytes(mb: int, ma: int, L: int, T: int, depth: int) -> int:
     of the keys, x and valid of those lanes inside the row."""
     lanes = T + _halo(int(mb), L) + _halo(int(ma), L)
     span = min(lanes, L)
-    window = 16 * (lanes + (lanes >> 3) + 1)
-    return (_BARRIERS + _REDUCE + window
+    return (_BARRIERS + _REDUCE + window_bytes(lanes)
             + depth * (2 * _plane(4 * span) + _plane(span)))
 
 

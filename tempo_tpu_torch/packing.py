@@ -64,19 +64,45 @@ def rebase_seconds(ts_sec: np.ndarray, pad_mask: Optional[np.ndarray] = None):
     return out, True
 
 
+def _before_pad(latest, what) -> None:
+    """Refuse a timestamp at or past :data:`TS_PAD` (2^62 ns after the
+    epoch, 2116-02-20 23:53:38.427387904): the packed layouts pad with
+    that key, so a real row there would sort among the pads and every
+    windowed, joined or ranked answer past it would be wrong (the
+    reference computes them silently).  ``what()`` names the timestamp,
+    built only when it raises."""
+    if latest >= TS_PAD:
+        raise ValueError(
+            f"timestamp {what()} is at or past 2^62 ns after the epoch "
+            f"(2116-02-20 23:53:38.427387904), the key the packed layouts "
+            f"pad with; integer timestamps are read as seconds")
+
+
 def series_to_ns(values: "pd.Series | np.ndarray") -> np.ndarray:
     """A timestamp-like column as int64 nanoseconds (datetimes as is,
-    integers and floats as seconds)."""
+    integers and floats as seconds).  A timestamp at or past
+    :data:`TS_PAD` raises ``ValueError``."""
     if isinstance(values, pd.Series) and isinstance(
         values.dtype, pd.DatetimeTZDtype
     ):
         values = values.dt.tz_convert("UTC").dt.tz_localize(None)
     arr = values.to_numpy() if isinstance(values, pd.Series) else np.asarray(values)
     if np.issubdtype(arr.dtype, np.datetime64):
-        return arr.astype("datetime64[ns]").astype(np.int64)
+        ns = arr.astype("datetime64[ns]").astype(np.int64)
+        if ns.size:
+            top = int(ns.max())
+            _before_pad(top, lambda: str(np.int64(top).astype(
+                "datetime64[ns]")))
+        return ns
     if np.issubdtype(arr.dtype, np.integer):
+        if arr.size:
+            top = int(arr.max())
+            _before_pad(top * int(NS_PER_S), lambda: f"{top} s")
         return arr.astype(np.int64) * NS_PER_S
     if np.issubdtype(arr.dtype, np.floating):
+        if arr.size and np.isfinite(arr).any():
+            top = float(np.nanmax(np.where(np.isinf(arr), np.nan, arr)))
+            _before_pad(top * float(NS_PER_S), lambda: f"{top} s")
         return np.round(arr * NS_PER_S).astype(np.int64)
     raise TypeError(f"Unsupported timestamp dtype: {arr.dtype}")
 

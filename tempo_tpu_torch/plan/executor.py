@@ -264,6 +264,11 @@ def _load_barrier(node: ir.Node, path: str, payloads: List,
 
 
 def _bind_source(node: ir.Node, payload):
+    if node.op == "unified_scan":
+        # the unified history + live source: one TSDF over everything
+        # ever written (store history plus the live tail), snapshotted
+        # at this version under the table's watermark
+        return payload.materialize()
     keep = node.ann.get("prune_to")
     if keep is None or node.op != "source":
         return payload
@@ -325,6 +330,15 @@ def _eval_op(node: ir.Node, ins: List):
             p("colName"), window=int(p("window", 30)),
             exp_factor=p("exp_factor", 0.2), exact=bool(p("exact", False)),
             inclusive_window=bool(p("inclusive_window", False)))
+    if op == "ema_stream":
+        # the standing-query canonical form of EMA(exact=True): the
+        # sequential split-invariant EMA (ops/scan.ema_scan, the
+        # csrc/ema_scan.cu kernel on a card) the serving carries resume
+        # bitwise (query/split.py)
+        from tempo_tpu_torch import rolling
+
+        return rolling.eval_ema_stream(
+            ins[0], p("colName"), float(p("exp_factor", 0.2)))
     if op == "resample":
         cols = p("metricCols")
         cols = list(cols) if cols else None

@@ -109,13 +109,38 @@ class Captured:
         self.static_in = self.static_out = None
 
 
+#: One capture at a time in the process (see :func:`capture`).
+_CAPTURE_LOCK = threading.Lock()
+
+
 def capture(key, device, fn: Callable, inputs: Sequence[torch.Tensor],
             keep=None) -> Captured:
     """``fn(*inputs)`` captured into a CUDA graph over clones of
     ``inputs`` (its static inputs), after one warm-up run on a side
     stream: kernel builds, ``cudaFuncSetAttribute`` and first
-    allocations happen outside the capture."""
-    with torch.cuda.device(device):
+    allocations happen outside the capture.
+
+    Other threads may launch, allocate and synchronise while a capture
+    runs (the query service's workers, the cohort executors, the
+    standing engine's delivery worker).  Two things keep that safe:
+
+    * the capture runs in ``"thread_local"`` mode, so a potentially
+      unsafe CUDA call (a ``cudaMalloc``, a synchronisation, a pageable
+      copy) is refused only on the capturing thread, whose body is the
+      step function alone; in PyTorch's default ``"global"`` mode the
+      same call on any other thread would invalidate the capture.  The
+      capture stream is a non-blocking stream from PyTorch's pool, so
+      work other threads queue on the legacy default stream never joins
+      the capture either, and the caching allocator routes only the
+      capture stream's allocations to the graph's private pool;
+    * :data:`_CAPTURE_LOCK` lets one capture run at a time: the
+      ``torch.cuda.graph`` default capture stream is shared by the whole
+      process, and the device-wide synchronise before the capture must
+      not land inside another thread's capture.
+
+    A capture that fails raises to its caller (a service ticket, a
+    cohort dispatch); nothing falls back to eager execution."""
+    with _CAPTURE_LOCK, torch.cuda.device(device):
         static_in = [t.clone() for t in inputs]
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
@@ -124,7 +149,7 @@ def capture(key, device, fn: Callable, inputs: Sequence[torch.Tensor],
         torch.cuda.current_stream(device).wait_stream(side)
         torch.cuda.synchronize(device)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             static_out = list(fn(*static_in))
         pool = graph_pool_bytes(graph, device)
     return Captured(key, device, static_in, graph, static_out, pool, keep)

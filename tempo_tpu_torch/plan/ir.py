@@ -102,8 +102,8 @@ class Node:
         return default
 
     def is_source(self) -> bool:
-        # ``unified_scan`` (the query plane's history + live source) has
-        # no producer until ``query/`` is ported; the op name is kept
+        # ``unified_scan``: the query plane's history + live source
+        # (``query/unified.py``, ``StreamTable.frame()``)
         return self.op in ("source", "dist_source", "unified_scan")
 
     def walk(self) -> Iterable["Node"]:
@@ -157,6 +157,13 @@ def _frame_state(frame) -> tuple:
     graphs) when the packed shapes or the device change."""
     from tempo_tpu_torch.dist import DistributedTSDF
 
+    unified = getattr(frame, "_unified_state", None)
+    if unified is not None:
+        # a unified_scan payload (query/unified.UnifiedSource): its
+        # version counter advances on every tail append and store sync,
+        # so re-running a standing plan over grown data is a cache miss
+        # by construction, while a same-version re-read hits
+        return unified()
     if isinstance(frame, DistributedTSDF):
         return ("dist", _mesh_state(frame.mesh), frame.K_dev, frame.L,
                 tuple(frame.cols), tuple(frame.host_cols),
@@ -214,6 +221,8 @@ def output_columns(node: Node) -> Optional[List[str]]:
     everything upstream as live)."""
     if node.op == "source":
         return list(node.payload.df.columns)
+    if node.op == "unified_scan":
+        return list(node.payload.columns)
     if node.op == "dist_source":
         p = node.payload
         return (list(p.partitionCols) + [p.ts_col] + list(p.cols)
@@ -242,7 +251,7 @@ def output_columns(node: Node) -> Optional[List[str]]:
             return None  # "all numeric" needs dtypes; stay conservative
         return cols + [f"{s}_{c}" for c in picked
                        for s in _range_stats_names()]
-    if node.op == "ema":
+    if node.op in ("ema", "ema_stream"):
         return cols + [f"EMA_{node.param('colName')}"]
     if node.op == "asof_join":
         right = output_columns(node.inputs[1])

@@ -42,6 +42,17 @@ def _node_line(node: ir.Node) -> str:
         axes = dict(p.mesh.shape)
         return (f"source[mesh {axes}] packed=[{p.K_dev}, {p.L}] "
                 f"cols={list(p.cols)}")
+    if node.op == "unified_scan":
+        p = node.payload
+        return (f"unified_scan[{p.table.name!r} v{p.table.version}] "
+                f"history+live under one watermark "
+                f"ts={p.ts_col!r} keys={list(p.partitionCols)} "
+                f"cols={list(p.columns)}")
+    if node.op == "ema_stream":
+        return (f"ema_stream[{node.param('colName')!r} "
+                f"alpha={node.param('exp_factor')}]  <- CANONICALIZED: "
+                f"sequential split-invariant EMA kernel (resumable "
+                f"bitwise by the serving carry)")
     if node.op == "reshard":
         line = f"reshard[{node.param('target')}]"
         model = node.ann.get("comm_bytes_model")

@@ -6,6 +6,8 @@ Counterpart of ``tempo_tpu/rolling.py``:
 * ``withRangeStats`` - tsdf.py:673-721
 * ``withGroupedStats`` - tsdf.py:723-759
 * ``EMA`` - tsdf.py:615-635 (plus the exact scan form)
+* ``eval_ema_stream`` - the batch form of the standing queries'
+  ``ema_stream`` node (``tempo_tpu/query/split.py``)
 * ``vwap`` - scala TSDF.scala:378-401 (the Scala version is the working
   spec; the Python one cannot run)
 * ``withLookbackFeatures`` - tsdf.py:637-671 (with the exactSize=True
@@ -27,6 +29,7 @@ import torch
 from tempo_tpu_torch import packing
 from tempo_tpu_torch.freq import UNIT_SECONDS, freq_to_seconds
 from tempo_tpu_torch.ops import rolling as rk
+from tempo_tpu_torch.ops import scan
 from tempo_tpu_torch.ops import sortmerge as sm
 from tempo_tpu_torch.ops import window
 
@@ -152,6 +155,31 @@ def ema(tsdf, colName: str, window: int = 30, exp_factor: float = 0.2,
     out["EMA_" + colName] = packing.unpack_column(
         y.double().cpu().numpy(), layout)
     return tsdf._with_rows(out)
+
+
+def eval_ema_stream(tsdf, col: str, alpha: float):
+    """Batch evaluation of one ``ema_stream`` node: the sequential
+    split-invariant EMA (``ops/scan.ema_scan``; on a CUDA tensor the
+    hand-written ``csrc/ema_scan.cu`` kernel, on the CPU its plain
+    version) over the packed layout, assembled exactly like :func:`ema`
+    (layout row order, ``EMA_<col>`` widened to float64).
+
+    It computes at float32 on every device, an exception to the port's
+    float64-on-the-CPU rule: the serving plane's EMA carry is float32
+    (``serve/state.py`` pins the ``ema_y`` plane), and the
+    standing == batch bitwise contract needs both sides at one
+    precision, as the reference pins it."""
+    if not len(tsdf.df):
+        out = tsdf.df.copy()
+        out["EMA_" + col] = np.array([], np.float64)
+        return tsdf._with_df(out, sequence_col=tsdf.sequence_col or None)
+    layout = tsdf.layout
+    v, m = tsdf.packed_numeric(col)
+    ys, _ = scan.ema_scan(v.to(torch.float32), m, float(np.float32(alpha)))
+    out = tsdf.df.iloc[layout.order].reset_index(drop=True)
+    out["EMA_" + col] = packing.unpack_column(
+        ys.cpu().numpy(), layout).astype(np.float64)
+    return tsdf._with_df(out, sequence_col=tsdf.sequence_col or None)
 
 
 def _flat_metric(tsdf, col: str):

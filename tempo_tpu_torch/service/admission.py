@@ -1,0 +1,295 @@
+"""Runtime admission control: project a query's device footprint and
+reject or queue it before anything builds or launches.
+
+Counterpart of ``tempo_tpu/service/admission.py``.  Two budgets:
+
+* **Shared memory a block** (the knob keeps the reference's name,
+  ``TEMPO_TPU_SERVICE_VMEM_BUDGET``, and :class:`Footprint` keeps
+  ``vmem_bytes``).  The reference folds each op's worst per-step VMEM
+  block through ``pallas_kernels._plan`` against the TPU's scoped
+  budget.  On Hopper the matching limit is the dynamic shared memory one
+  block may take (``ops.stream.SMEM_LIMIT``, 232,448 bytes), which is
+  also the default budget.  For the reference's three ops the projection
+  is the largest block any form of the op's kernels may take at the
+  plan's packed geometry, from the host-side formulas the kernels are
+  planned with:
+
+  - ``range_stats``: the largest block ``ops.stream.range_plan``
+    stages at any row bound (the bounds depend on the data, which
+    admission does not read; :func:`range_stats_smem`), or the row
+    form's fixed window (:data:`RANGE_ROW_SMEM`);
+  - ``asof_join``: the larger of the merge walk's and the tile kernel's
+    fixed layouts (:data:`ASOF_WALK_SMEM`, :data:`ASOF_TILE_SMEM`);
+  - ``fused_asof_stats_ema``: the largest of the join, and range stats
+    and the EMA ladder (:func:`ema_ladder_smem`) over the joined rows,
+    which are the left frame's.
+
+  Every form the kernels plan fits ``SMEM_LIMIT`` by construction (the
+  planners take the row form where no staged tile fits), so under the
+  default budget nothing is rejected for shared memory; a budget set
+  below a chain's projection rejects it with :class:`AdmissionError`, by
+  name, at submit.  Where no staged plan fits, the row form's bytes are
+  reported: the smallest block the op can run with, as the reference
+  reports its minimal ``[8, L]`` block.
+* **Device memory** (``TEMPO_TPU_SERVICE_HBM_BUDGET``, default 2 GiB),
+  the reference's model unchanged: every source's packed planes plus the
+  two widest op results, ``K * L * (8 + 5 * planes)`` bytes a frame from
+  ``optimizer._device_plane_count`` and ``packing.pad_length``.  A query
+  over the whole budget is rejected; one over the currently free share
+  queues until running queries release theirs.
+
+No card is needed: admission runs on the host before anything launches.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+from tempo_tpu_torch.ops import merge as ops_merge
+from tempo_tpu_torch.ops import stream as ops_stream
+from tempo_tpu_torch.ops import window as ops_window
+from tempo_tpu_torch.plan import ir
+
+#: default total device-memory admission budget (bytes) when unset
+_DEFAULT_HBM_BUDGET = 2 << 30
+
+#: the range-stats row form's shared memory at its widest window
+#: (``ops.window.ROW_WINDOW`` lanes); ``cuda_lib.range_row_smem()`` is
+#: the compiler's figure, which ``chip_smoke.py`` holds this to
+RANGE_ROW_SMEM = ops_stream.window_bytes(ops_window.ROW_WINDOW)
+#: the merge walk's shared memory with the sid and sequence planes
+#: (``asof_walk_kernel`` in ``csrc/asof_merge.cu``, steps of
+#: ``WALK_STEP`` positions, ``WALK_COLS`` right columns, 4 warp segments):
+#: the dynamic ring of the step's rows a side (int64 keys and sequence,
+#: int32 sids) and its left rows' ranks, then the static validity words,
+#: segment and column carries and the left-row count, which the
+#: compiler pads to 16 bytes; ``cuda_lib.asof_walk_smem()`` is the
+#: compiler's figure
+WALK_STEP, WALK_COLS, _WALK_SEGS = 1024, 32, 4
+_WALK_STATIC = (WALK_COLS * _WALK_SEGS * 8 * 4
+                + 2 * WALK_COLS * _WALK_SEGS * 4 + WALK_COLS * 4 + 4)
+ASOF_WALK_SMEM = (2 * WALK_STEP * (8 + 8 + 4) + WALK_STEP * 4
+                  + -(-_WALK_STATIC // 16) * 16)
+#: the lookback kernels' tile join (``ops.merge.LOOKBACK_TILE``
+#: positions: two int64 and four int32 planes, 256 scan words and 32
+#: reduction words); ``cuda_lib.asof_tile_smem()`` is the compiler's
+#: figure
+ASOF_TILE_SMEM = (ops_merge.LOOKBACK_TILE * (8 + 8 + 4 * 4)
+                  + 256 * 4 + 32 * 4)
+ASOF_SMEM = max(ASOF_WALK_SMEM, ASOF_TILE_SMEM)
+
+_OPS = ("range_stats", "fused_asof_stats_ema", "asof_join")
+
+
+class AdmissionError(RuntimeError):
+    """A query's projected footprint exceeds the service budget: the
+    named rejection the admission controller raises instead of queueing a
+    query that could never run."""
+
+    def __init__(self, message: str, hbm_bytes: int = 0,
+                 vmem_bytes: int = 0):
+        super().__init__(message)
+        self.hbm_bytes = hbm_bytes
+        self.vmem_bytes = vmem_bytes
+
+
+@dataclasses.dataclass(frozen=True)
+class Footprint:
+    """Projected device working set of one query: ``hbm_bytes`` of
+    device memory and ``vmem_bytes``, the shared memory of the largest
+    block any of its kernels may take."""
+
+    hbm_bytes: int
+    vmem_bytes: int
+
+
+def vmem_budget_bytes() -> int:
+    """``TEMPO_TPU_SERVICE_VMEM_BUDGET``; unset = ``ops.stream.
+    SMEM_LIMIT``, so by default admission rejects exactly what no kernel
+    form could launch.  An explicit 0 means 0 (admit nothing)."""
+    from tempo_tpu_torch import config
+
+    val = config.get_int("TEMPO_TPU_SERVICE_VMEM_BUDGET")
+    return ops_stream.SMEM_LIMIT if val is None else val
+
+
+def hbm_budget_bytes() -> int:
+    """``TEMPO_TPU_SERVICE_HBM_BUDGET``; unset = 2 GiB.  An explicit 0
+    means 0 (admit nothing)."""
+    from tempo_tpu_torch import config
+
+    val = config.get_int("TEMPO_TPU_SERVICE_HBM_BUDGET")
+    return _DEFAULT_HBM_BUDGET if val is None else val
+
+
+def _geometry(node: ir.Node) -> Optional[tuple]:
+    """(K, L) packed geometry of the frame feeding ``node``, walked down
+    the primary input chain to a source; None when no source geometry is
+    derivable."""
+    import numpy as np
+
+    from tempo_tpu_torch import packing
+
+    cur = node
+    while True:
+        if cur.op == "dist_source":
+            p = cur.payload
+            return int(p.K_dev), int(p.L)
+        if cur.op == "source":
+            lay = cur.payload.layout
+            L = packing.pad_length(int(np.max(lay.lengths, initial=0)))
+            return int(lay.n_series), L
+        if not cur.inputs:
+            return None
+        cur = cur.inputs[0]
+
+
+def _node_hbm_bytes(node: ir.Node) -> int:
+    """Packed plane bytes this node's result holds (int64 keys, and a
+    float32 value and a bool validity plane a column) from the
+    optimizer's plane-count model; the fallback doubles the input."""
+    from tempo_tpu_torch.plan import optimizer
+
+    geom = _geometry(node)
+    if geom is None:
+        return 0
+    K, L = geom
+    planes = optimizer._device_plane_count(node)
+    if planes is None:
+        planes = 2 * max(1, len(node.inputs))
+    return K * L * (8 + 5 * int(planes))
+
+
+def _largest_fitting(nbytes, hi: int) -> int:
+    """Largest ``mb`` in [0, hi] with ``nbytes(mb) <= SMEM_LIMIT`` (the
+    bytes grow with ``mb``), -1 when none."""
+    if nbytes(0) > ops_stream.SMEM_LIMIT:
+        return -1
+    lo = 0
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if nbytes(mid) <= ops_stream.SMEM_LIMIT:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def range_stats_smem(L: int) -> int:
+    """Largest block of range stats over rows of ``L`` lanes, whatever
+    the data's row bounds: the row form's fixed window, or the largest
+    block ``ops.stream.range_plan`` returns at any row bound.  The
+    planner keeps one (tile, depth) over an interval of bounds and its
+    bytes grow with the bound, so the largest block is the planner's own
+    plan at the last bound each (tile, depth) still fits."""
+    hi = max(0, L - 1)
+    bounds = {hi}
+    depth = ops_stream.dma_buffers()
+    depths = [depth, ops_stream.MIN_DEPTH] if depth > ops_stream.MIN_DEPTH \
+        else [ops_stream.MIN_DEPTH]
+    for want in depths:
+        for T in ops_stream.RANGE_TILES:
+            n_tiles = -(-L // T)
+            if n_tiles < 2:
+                continue
+            d = max(ops_stream.MIN_DEPTH, min(want, n_tiles))
+            mb = _largest_fitting(
+                lambda mb, T=T, d=d: ops_stream.range_ring_bytes(
+                    mb, 0, L, T, d), hi)
+            if mb >= 0:
+                bounds.add(mb)
+    worst = RANGE_ROW_SMEM
+    for mb in bounds:
+        plan = ops_stream.range_plan(mb, 0, L, depth)
+        if plan is not None:
+            worst = max(worst, plan.smem)
+    return worst
+
+
+def ema_ladder_smem(L: int) -> int:
+    """Largest block of the EMA ladder over rows of ``L`` lanes
+    (``launch_ema_ladder`` in ``csrc/common.cuh``): 8 bytes a lane of
+    whole 32-lane segments up to ``EMA_ROW_MAX`` lanes; past it the
+    stage-1 windows of 8192 lanes and the class stage's 16 bytes a class
+    entry of 1024 lanes, at most ``SMEM_LIMIT``."""
+    if L <= ops_stream.EMA_ROW_MAX:
+        return 8 * 32 * -(-L // 32)
+    return max(8 * 8192, min(16 * -(-L // 1024), ops_stream.SMEM_LIMIT))
+
+
+def _node_vmem_bytes(node: ir.Node) -> int:
+    """Shared memory of the largest block the kernels of this op may
+    take at its packed geometry (see module docstring)."""
+    if node.op not in _OPS:
+        return 0
+    geom = _geometry(node)
+    if geom is None:
+        return 0
+    _, L = geom
+    if node.op == "asof_join":
+        return ASOF_SMEM
+    if node.op == "range_stats":
+        return range_stats_smem(L)
+    return max(ASOF_SMEM, range_stats_smem(L), ema_ladder_smem(L))
+
+
+def project_footprint(root: ir.Node) -> Footprint:
+    """Project one plan's working set: all source planes resident plus
+    the two widest op results (an op's input and output are live
+    together), and the largest kernel block any op takes."""
+    hbm = 0
+    op_bytes = []
+    vmem = 0
+    for n in root.walk():
+        if n.is_source():
+            hbm += _node_hbm_bytes(n)
+        else:
+            op_bytes.append(_node_hbm_bytes(n))
+            vmem = max(vmem, _node_vmem_bytes(n))
+    op_bytes.sort(reverse=True)
+    hbm += sum(op_bytes[:2])
+    return Footprint(hbm_bytes=int(hbm), vmem_bytes=int(vmem))
+
+
+class AdmissionController:
+    """Budget bookkeeping for the query service.  Not itself locked: the
+    service serializes calls under its scheduler condition."""
+
+    def __init__(self, hbm_budget: Optional[int] = None,
+                 vmem_budget: Optional[int] = None):
+        # None = defaults; an explicit 0 is honoured (admit nothing)
+        self.hbm_budget = int(
+            hbm_budget_bytes() if hbm_budget is None else hbm_budget)
+        self.vmem_budget = int(
+            vmem_budget_bytes() if vmem_budget is None else vmem_budget)
+        self.hbm_in_use = 0
+
+    def check(self, fp: Footprint) -> None:
+        """Raise :class:`AdmissionError` when the query could never run
+        under the declared budgets (rejected at submit, not queued
+        forever)."""
+        if fp.vmem_bytes > self.vmem_budget:
+            raise AdmissionError(
+                f"query rejected: projected worst-case VMEM block (shared "
+                f"memory a block) {fp.vmem_bytes} B exceeds the admission "
+                f"budget {self.vmem_budget} B "
+                f"(TEMPO_TPU_SERVICE_VMEM_BUDGET); no kernel form fits, "
+                f"the shape cannot run",
+                hbm_bytes=fp.hbm_bytes, vmem_bytes=fp.vmem_bytes)
+        if fp.hbm_bytes > self.hbm_budget:
+            raise AdmissionError(
+                f"query rejected: projected HBM footprint "
+                f"{fp.hbm_bytes} B exceeds the TOTAL admission budget "
+                f"{self.hbm_budget} B (TEMPO_TPU_SERVICE_HBM_BUDGET); it "
+                f"could never be scheduled",
+                hbm_bytes=fp.hbm_bytes, vmem_bytes=fp.vmem_bytes)
+
+    def fits_now(self, fp: Footprint) -> bool:
+        return self.hbm_in_use + fp.hbm_bytes <= self.hbm_budget
+
+    def acquire(self, fp: Footprint) -> None:
+        self.hbm_in_use += fp.hbm_bytes
+
+    def release(self, fp: Footprint) -> None:
+        self.hbm_in_use = max(0, self.hbm_in_use - fp.hbm_bytes)
