@@ -399,6 +399,9 @@ SLICE2_KERNELS = ("last_valid_index", "first_valid_index",
                   "last_valid_scan", "resample_ema_ring")
 # the staging ring's depths held against each other and the row forms
 RING_DEPTHS = (2, 3, 8)
+# the bucket-stats staged form's times PERF.md records (ms at depths 2, 3
+# and 8, NVIDIA H100 80GB HBM3 at 700 W), printed beside this run's
+RING_PERF_MD_MS = {"bucket_stats": {2: 0.99141, 3: 1.16508, 8: 1.81517}}
 SLICE3_KERNELS = ("asof_merge_lookback", "merge_rank", "cumsum3",
                   "ema_ladder")
 LOOKBACK = 16                 # bench.py's serve-bench maxLookback
@@ -515,10 +518,18 @@ def ring_rows(user, run, row_out, want, check, row, kernel_src, smem_args):
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=None, kernel=kernel_src, depth_asked=depth,
             depth=plan["depth"], tile=plan["tile"], smem=plan["smem"],
+            blocks=plan.get("blocks"), items=plan.get("items"),
             long_rows=plan.get("long_rows"), row_form_ms=row["ms"],
             shape=row["shape"])
+        if user in RING_PERF_MD_MS:
+            rows[name]["perf_md_ms"] = RING_PERF_MD_MS[user][depth]
         notes.append(f"depth {depth}: T={plan['tile']} x {plan['depth']} "
-                     f"slots, {plan['smem']} B, {ms:.4f} ms"
+                     f"slots, {plan['smem']} B"
+                     + (f", {plan['blocks']} blocks of at most "
+                        f"{plan['items']} items" if "blocks" in plan else "")
+                     + f", {ms:.4f} ms"
+                     + (f" (PERF.md {RING_PERF_MD_MS[user][depth]})"
+                        if user in RING_PERF_MD_MS else "")
                      + (f", {plan['long_rows']} long-bucket rows"
                         if "long_rows" in plan else ""))
     log(f"B ring {user}: staged form bitwise equal to the row form and "
@@ -830,6 +841,81 @@ def phase_b(pd, left, right, left3, dev, d_args):
              window_ahead=6, _form=form)
         err = max(err, check_range_stats(got, want,
                                          f"truncating case, {form} form"))
+    # config 13's width, [8, 512], clipping both ways: the staged form's
+    # rows split over blocks (a block an item, two items a row), bitwise
+    # the row form, its clipped the exact count
+    s8 = secs[:8, :512].contiguous()
+    x8, v8 = x[None, :8, :512].contiguous(), valid[None, :8, :512].contiguous()
+    a8 = (s8, x8, v8, 10, 4, 2)
+    row8 = window.range_stats_cuda(*a8, window_ahead=6, _form="row")
+    got8 = window.range_stats_cuda(*a8, window_ahead=6, _form="ring")
+    plan8 = dict(stream.last_plan["range_stats"])
+    check_same(got8, row8, "range stats [1, 8, 512] staged against the row form")
+    held(got8, "[1, 8, 512], staged form", *a8, window_ahead=6, _form="ring")
+    exact8 = window.range_stats_plain(s8, x8.double(), v8, 10, 4, 2,
+                                      window_ahead=6)["clipped"]
+    if not torch.equal(got8["clipped"].double().cpu(), exact8.cpu()) or \
+            int(exact8.sum()) == 0:
+        raise AssertionError(f"range stats [1, 8, 512]: clipped "
+                             f"{got8['clipped'].flatten().tolist()}, exact "
+                             f"{exact8.flatten().tolist()}")
+    n_tiles8 = -(-512 // plan8["tile"])
+    if plan8["blocks"] * plan8["items"] < 8 * n_tiles8 or \
+            plan8["items"] >= n_tiles8:
+        raise AssertionError(f"range stats [1, 8, 512]: rows not split over "
+                             f"blocks ({plan8})")
+    split8 = (f"[1, 8, 512] bounds (4, 2): staged form ({plan8}) bitwise the "
+              f"row form, rows split over blocks, clipped "
+              f"{int(exact8.sum())} lanes exact")
+    del row8, got8, exact8
+    # bounds (60, 40) over two columns of [128, 12760]: a halo past the
+    # occupancy budgets, so the staged form runs at each depth asked (the
+    # HHAR case settles on depth 2 at all three), windows of ~100 rows
+    # behind and ~60 ahead clipped both ways; bitwise the row form and
+    # across depths, clipped the exact count
+    wg = torch.Generator(device=dev).manual_seed(19)
+    Kh, Lh = 128, x.shape[1]
+    sh = torch.randint(0, 2, (Kh, Lh), generator=wg, device=dev).cumsum(1)
+    xh = torch.randn((2, Kh, Lh), generator=wg, device=dev)
+    vh = torch.rand((2, Kh, Lh), generator=wg, device=dev) > 0.1
+    ah = (sh.to(torch.int32), xh, vh, 50, 60, 40)
+    rowh = window.range_stats_cuda(*ah, window_ahead=30, _form="row")
+    exacth = window.range_stats_plain(ah[0], xh.double(), vh, 50, 60, 40,
+                                      window_ahead=30)["clipped"]
+    if int(exacth.sum()) == 0:
+        raise AssertionError("range stats bounds (60, 40): nothing clipped")
+    wide, firsth = {}, None
+    for depth in RING_DEPTHS:
+        with dma_depth(depth):
+            goth = window.range_stats_cuda(*ah, window_ahead=30, _form="ring")
+            planh = dict(stream.last_plan["range_stats"])
+            if planh["depth"] != depth:
+                raise AssertionError(f"range stats bounds (60, 40): depth "
+                                     f"{depth} asked, plan {planh}")
+            what = f"range stats bounds (60, 40), staged depth {depth}"
+            check_same(goth, rowh, f"{what} against the row form")
+            if firsth is not None:
+                check_same(goth, firsth, f"{what} against depth "
+                                         f"{RING_DEPTHS[0]}")
+            firsth = goth
+            held(goth, what, *ah, window_ahead=30, _form="ring")
+            if not torch.equal(goth["clipped"].double(), exacth):
+                raise AssertionError(f"{what}: clipped differs from the "
+                                     f"exact count")
+            planh["ms"] = time_ms(lambda: window.range_stats_cuda(
+                *ah, window_ahead=30, _form="ring"), reps=5)
+        wide[depth] = planh
+    wide_row_ms = time_ms(lambda: window.range_stats_cuda(
+        *ah, window_ahead=30, _form="row"), reps=5)
+    split_wide = (f"[2, {Kh}, {Lh}] bounds (60, 40): staged form at depths "
+                  f"{list(RING_DEPTHS)} as asked (" + "; ".join(
+                      f"T={p['tile']} x {p['depth']}, {p['smem']} B, "
+                      f"{p['blocks']} blocks of at most {p['items']} items, "
+                      f"{p['ms']:.4f} ms" for p in wide.values())
+                  + f"; row form {wide_row_ms:.4f} ms) bitwise the row form "
+                  f"and across depths, clipped {int(exacth.sum())} lanes "
+                  f"exact")
+    del rowh, goth, firsth, exacth, sh, xh, vh, ah
     # phase F's long rows at the six-hour bounds (a halo of ~14,600 lanes
     # against windows of 2048: the row form walks several windows)
     lt6 = TSDF(left3, "event_ts", ["user"], device=dev, dtype=torch.float32)
@@ -870,6 +956,10 @@ def phase_b(pd, left, right, left3, dev, d_args):
         bound_ms_six_hour=b6, bound_by_six_hour=by6,
         stages_ms_six_hour=stage_ms(
             lambda: window.range_stats_cuda(*six_args), reps=2),
+        ms_wide_halo_staged={d: p["ms"] for d, p in wide.items()},
+        plan_wide_halo_staged=wide, ms_wide_halo_row=wide_row_ms,
+        shape_wide_halo=f"[2, {Kh}, {Lh}], rangeBetween(-50, +30), rows 60 "
+                        f"behind/40 ahead",
         shape=f"[1, {Kw}, {L}], window {w}s, rows {mb} behind/{ma} ahead, "
               f"engine {engine}",
         shape_six_hour=f"[1, {K6}, {L6}], window {w6}s, rows {mb6} behind/"
@@ -878,7 +968,8 @@ def phase_b(pd, left, right, left3, dev, d_args):
     log(f"B range_stats: both forms bitwise equal to the plain version at "
         f"the kernel's centres (all seven stats and clipped) at [1, {Kw}, "
         f"{L}] bounds ({mb}, {ma}), at {list(dx.shape)} rangeBetween(-10, "
-        f"+6) bounds (4, 2) with {n_clipped} rows clipped, and (row form) on "
+        f"+6) bounds (4, 2) with {n_clipped} rows clipped, {split8}, "
+        f"{split_wide}, and (row form) on "
         f"8 of phase F's rows at bounds ({mb6}, {ma6}); count/clipped "
         f"bitwise, rest within 1e-5 of the plain version's own centre (max "
         f"abs err {err:.3g}; six-hour rows {six_err:.3g}, sum within 2e-3); "
@@ -1076,11 +1167,29 @@ def phase_b_slice2(right, left3, dev):
               joined(v, row_max + 1), 7, None,
               f"[{k2 // 2}, {row_max + 1}] (two launches), negative "
               f"seconds, step 7")]
+    # rows whose starts sit 1 to 3 words off 16 bytes, which the staged
+    # form copies in part by plain loads and whose words spill into the
+    # next row: rows of L + 1 lanes (starts at every offset), and views
+    # of 256 rows of L lanes 1, 2 and 3 words (bytes, for valid) into
+    # the buffers
+    cases.append((joined(secs, L + 1), joined(x, L + 1), joined(v, L + 1),
+                  60, None, f"[{k2 // 2}, {L + 1}] (rows at every word "
+                            f"offset)"))
+    for off in (1, 2, 3):
+        view = lambda t: t.reshape(-1)[off:off + 256 * L].view(256, L)
+        cases.append((view(neg), view(x), view(v), 7, 1.5,
+                      f"[256, {L}] from word {off}, negative seconds, "
+                      f"step 7, scale 1.5"))
+    if stream.resample_plan(L + 1) is None:
+        raise AssertionError(f"resample EMA: rows of {L + 1} lanes take no "
+                             f"staged plan")
     for s_, x_, v_, step, scale, what in cases:
         want = bucket.resample_ema_plain(s_, x_, v_, step, 0.2, scale)
         mirror = bucket.resample_ema_tiled_plain(s_, x_, v_, step, 0.2, scale)
-        # the staged form takes rows of at most the one-launch limit
-        forms = ("row", "ring") if s_.shape[1] <= row_max else ("row",)
+        # the staged form takes the rows its planner stages (at most
+        # 13,824 lanes: the ladder's planes within two blocks an SM)
+        forms = (("row", "ring") if stream.resample_plan(s_.shape[1])
+                 is not None else ("row",))
         for form in forms:
             got = bucket.resample_ema_cuda(s_, x_, v_, step, 0.2, scale,
                                            _form=form)
@@ -2407,7 +2516,7 @@ def phase_b_past_limits(dev):
     centres and ``clipped`` equal to the exact count rounded once to
     float32), each timed beside its bound.  Returns the extra keys of each
     kernel's row of the result line."""
-    from tempo_tpu_torch.ops import bucket, cuda_lib, scan, window
+    from tempo_tpu_torch.ops import bucket, cuda_lib, scan, stream, window
 
     gen = torch.Generator(device=dev).manual_seed(11)
     extra = {}
@@ -2542,6 +2651,24 @@ def phase_b_past_limits(dev):
             res[(Lr, form)] = (time_ms(lambda: window.range_stats_cuda(
                 *args, window_ahead=10 if ma else 0, _form=form), reps=2),
                 exact)
+            if form == "ring" and Lr == CLIP_OLD_MAX + 1:
+                plan_long = dict(stream.last_plan["range_stats"])
+                stages_long = stage_ms(lambda: window.range_stats_cuda(
+                    *args, window_ahead=10 if ma else 0, _form=form), 3)
+                # the centre pass alone (CUDA events; not a counted launch)
+                c1, cl1 = torch.empty((1, 1), device=dev), torch.empty(
+                    (1, 1, 1), device=dev)
+                t1 = torch.empty((1, 1), dtype=torch.int32, device=dev)
+
+                def centres_alone():
+                    code = cuda_lib.lib().tempo_range_centres(
+                        rx.data_ptr(), rv.data_ptr(), None, c1.data_ptr(),
+                        cl1.data_ptr(), t1.data_ptr(), 1, 1, Lr,
+                        cuda_lib.stream_handle(dev))
+                    if code:
+                        raise AssertionError(f"range_centres alone: CUDA "
+                                             f"error {code}")
+                centres_long = time_ms(centres_alone, reps=3)
     Lr = CLIP_OLD_MAX + 1
     b, by = bound_ms(Lr * (4 + 5 + 28), Lr * 9 * 10)
     extra["range_stats"] = dict(
@@ -2549,6 +2676,9 @@ def phase_b_past_limits(dev):
                          f"10 s both ways",
         ms_past_limit=res[(Lr, "row")][0],
         ms_past_limit_staged=res[(Lr, "ring")][0],
+        stages_ms_past_limit_staged=stages_long,
+        ms_past_limit_centres=centres_long,
+        plan_past_limit_staged=plan_long,
         clipped_exact_past_limit=[res[(Lr, "row")][1], res[(Lr + 4, "row")][1]],
         bound_ms_past_limit=b)
     log("B past the old limits: "
@@ -2560,7 +2690,10 @@ def phase_b_past_limits(dev):
         f"every output against its tiled mirror ({', '.join(times)}); range "
         f"stats both forms bitwise at the kernel's centres, clipped "
         f"{extra['range_stats']['clipped_exact_past_limit']} exact (float32 "
-        f"rounded once)")
+        f"rounded once); staged range stats [1, {Lr}]: "
+        f"{extra['range_stats']['ms_past_limit_staged']:.4f} ms, of which "
+        f"the centre pass alone {centres_long:.4f} ms (CUDA events), stages "
+        f"{stages_long} (profiler), plan {plan_long}")
     log(f"B launches while comparing (not counted): {dict(cuda_lib.launches)}")
     torch.cuda.empty_cache()
     return extra

@@ -66,11 +66,15 @@
 //   raises the row's float `clipped` to the new total rounded once (an
 //   atomicMax on its bits, whose order is the value's for floats >= 0),
 //   so `clipped` ends as the exact count rounded once, whatever the order.
-// * the staged form (range_ring_kernel): a block of T / kLanes threads
-//   per series row walks (column, lane tile) items; each tile's keys, x
-//   and valid over the tile and its halo stream through ring.cuh's
-//   staging ring, and the window is filled from the slot.  Where the
-//   window and slots do not fit, the planner takes the row form.
+// * the staged form (range_ring_kernel): the card's resident blocks
+//   (ops/stream.ring_runs: one contiguous run of the (column, row, lane
+//   tile) items a block, so a row's tiles may span blocks) of T / kLanes
+//   threads each walk their run; each item's keys, x and valid stream
+//   through ring.cuh's staging ring, only the lanes its window lacks: a
+//   tile that continues its row takes the halo it shares with the tile
+//   before from the other of two windows.  Clipped lanes go to the row
+//   form's integer tally, so any block may finish a row.  Where the
+//   windows and slots do not fit, the planner takes the row form.
 //
 // A null `scale` means 1 (x * 1 keeps x's bits).
 #include "common.cuh"
@@ -121,7 +125,8 @@ struct ThreadOutputs {
     unsigned vbits, clip;
     int i0;
 
-    __device__ __forceinline__ void own(const Win& win, const RangeParams& q) {
+    template <class Wn>
+    __device__ __forceinline__ void own(const Wn& win, const RangeParams& q) {
         const int32_t BIG = INT_MAX;
         const float INF = f32_inf();
         vbits = 0;
@@ -142,7 +147,8 @@ struct ThreadOutputs {
 
     // the clip audit's lane at offset `off` (-hb or +ha) where it lies in
     // the row and in the window's offsets [dl, dh]
-    __device__ __forceinline__ void clip_at(const Win& win, int off, int dl, int dh, int L) {
+    template <class Wn>
+    __device__ __forceinline__ void clip_at(const Wn& win, int off, int dl, int dh, int L) {
 #pragma unroll
         for (int e = 0; e < kLanes; ++e) {
             const int d = e + off;
@@ -157,7 +163,8 @@ struct ThreadOutputs {
     }
 
     // behind steps at offsets d in [dl, dh] (descending), neighbour i0 + d
-    __device__ __forceinline__ void behind(const Win& win, int dl, int dh, int mb) {
+    template <class Wn>
+    __device__ __forceinline__ void behind(const Wn& win, int dl, int dh, int mb) {
         auto nb = [&](int d, int32_t* s) {
             const float4 v = win.at(i0 + d);
             *s = v_ok(v) ? v_key(v) : INT_MIN;
@@ -214,7 +221,8 @@ struct ThreadOutputs {
     }
 
     // ahead steps at offsets d in [dl, dh] (ascending), neighbour i0 + d < L
-    __device__ __forceinline__ void ahead(const Win& win, int dl, int dh, int ma, int L) {
+    template <class Wn>
+    __device__ __forceinline__ void ahead(const Wn& win, int dl, int dh, int ma, int L) {
         auto nb = [&](int d, int32_t* s) {
             const float4 v = win.at(i0 + d);
             *s = v_ok(v) ? v_key(v) : INT_MAX;
@@ -325,7 +333,8 @@ struct ThreadOutputs {
 
 // The walk of a tile whose window holds offsets [-hb, kLanes - 1 + ha]
 // (one window: the staged form, and the row form where it fits).
-__device__ __forceinline__ int range_tile(const Win& win, int i0, const RangeParams& q,
+template <class Wn>
+__device__ __forceinline__ int range_tile(const Wn& win, int i0, const RangeParams& q,
                                           float center, float* out, size_t crow, size_t sp) {
     ThreadOutputs t;
     t.i0 = i0;
@@ -405,9 +414,10 @@ range_rows(const int32_t* __restrict__ secs, const float* __restrict__ x,
 }
 
 // Shared memory of the staged form, in bytes (ops/stream.range_ring_bytes
-// mirrors the total): the ring's barriers, a reduction scratch, the window
-// of the tile and its halo (T + hb + ha lanes), then `depth` slots of the
-// keys, x and valid of those lanes that lie in the row.
+// mirrors the total): the ring's barriers, two windows of the tile and
+// its halo (T + hb + ha lanes each), then `depth` slots of the keys, x
+// and valid of the lanes an item stages (at most the tile and its halo,
+// and the row).
 struct RangeRingLayout {
     int hb, ha, win_lanes;
     size_t span, key_plane, v_plane, slot, win, slots, total;
@@ -425,78 +435,171 @@ __host__ __device__ inline RangeRingLayout range_ring_layout(int mb, int ma, int
     y.v_plane = ring::plane_bytes(y.span);
     y.slot = 2 * y.key_plane + y.v_plane;
     y.win = 16 * (size_t)win_entries(y.win_lanes);
-    y.slots = 8 * ring::kMaxDepth + 32 * 4 + y.win;
+    y.slots = 8 * ring::kMaxDepth + 2 * y.win;
     y.total = y.slots + (size_t)depth * y.slot;
     return y;
 }
 
-// Staged form: a block of T / kLanes threads per series row.
-__global__ void __launch_bounds__(kRowThreads)
+// The staged form's window: as Win, read by its shared-memory address, so
+// that every read is a shared-memory load (a pointer that lives through
+// the ring's loop may reach the walk as a generic one).
+struct SharedWin {
+    uint32_t w;   // shared-memory address of entry 0
+    int base;
+    __device__ __forceinline__ float4 at(int p) const {
+        const int q = p - base;
+        float4 v;
+        asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+                     : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+                     : "r"(w + 16u * (uint32_t)(q + (q >> 3))));
+        return v;
+    }
+};
+
+// Staged form: the grid's blocks split the n_items (column, row, tile)
+// items, in that order, into contiguous runs (block b takes
+// [b * n / B, (b + 1) * n / B)); a block of T / kLanes threads walks its
+// run through the ring.  Item j's window (lanes [t0 - hb, t0 + T + ha))
+// is window j % 2: where the item continues its row, it takes its first
+// hb + ha lanes from the other window (the tile before's last ones) and
+// stages and forms only the T lanes after them, [t0 + ha, t0 + T + ha);
+// where it starts the run or a row it stages and forms them all.  One
+// block barrier an item, after forming: a thread that forms item j + 1
+// has passed item j's barrier, so every thread has finished item j - 1's
+// walk, the last reader of the window it writes, and item j - 1's slot.
+__global__ void __launch_bounds__(kRowThreads, 4)
 range_ring_kernel(const int32_t* __restrict__ secs, const float* __restrict__ x,
                   const uint8_t* __restrict__ valid, const float* __restrict__ scale,
                   const float* __restrict__ centre, float* __restrict__ out,
-                  float* __restrict__ clipped, RangeParams q, int C, int K, int T, int depth) {
+                  float* __restrict__ clipped, unsigned* __restrict__ tally, RangeParams q,
+                  int C, int K, int T, int depth, long long n_items) {
     extern __shared__ __align__(16) unsigned char sm[];
     const int L = q.L;
     const RangeRingLayout lay = range_ring_layout(q.mb, q.ma, L, T, depth);
     const ring::Ring r{(uint64_t*)sm, depth};
-    int* shi = (int*)(sm + 8 * ring::kMaxDepth);
-    float4* win_sm = (float4*)(sm + 8 * ring::kMaxDepth + 32 * 4);
-    const int k = blockIdx.x;
-    const int32_t* srow = secs + (size_t)k * L;
+    float4* wins = (float4*)(sm + 8 * ring::kMaxDepth);
+    const size_t win_stride = lay.win / 16;
     const size_t n_all = (size_t)C * K * L;
-    const size_t sp = n_all;
     const int nt = (L + T - 1) / T;
+    const long long s0 = (long long)blockIdx.x * n_items / gridDim.x;
+    const int n = (int)((long long)(blockIdx.x + 1) * n_items / gridDim.x - s0);
+    const bool vec = rows_vectorise(secs, x, valid, L);
     ring::init(r);
 
-    // lanes [lo, hi) of the row staged for tile t
-    auto span_of = [&](int t, int* lo, int* hi) {
-        const long long t0 = (long long)t * T;
-        *lo = (int)(t0 > q.hb ? t0 - q.hb : 0);
+    // the run's items in order: row ck = c * K + k, tile t (one cursor for
+    // the loads, one for the walks, each advanced an item a call)
+    struct Item {
+        int c, k, t;
+        __device__ __forceinline__ int ck(int K_) const { return c * K_ + k; }
+    };
+    auto next = [&](Item& it) {
+        if (++it.t == nt) {
+            it.t = 0;
+            if (++it.k == K) {
+                it.k = 0;
+                ++it.c;
+            }
+        }
+    };
+    const int ck0 = (int)(s0 / nt);
+    const Item start{ck0 / K, ck0 % K, (int)(s0 % nt)};
+    // lanes [lo, hi) of the row item `it` stages (`first`: it starts the
+    // run or its row)
+    auto span_of = [&](const Item& it, bool first, int* lo, int* hi) {
+        const long long t0 = (long long)it.t * T;
+        const long long a = first ? t0 - q.hb : t0 + q.ha;
         const long long e = t0 + T + q.ha;
-        *hi = (int)(e < L ? e : L);
+        *lo = (int)(a < 0 ? 0 : a < L ? a : L);
+        *hi = (int)(e < *lo ? *lo : e < L ? e : L);
     };
     auto slot_base = [&](int slot) { return sm + lay.slots + (size_t)slot * lay.slot; };
-    auto load = [&](int i, int slot, uint64_t* bar) {
-        const int c = i / nt;
+    Item ld = start;   // the next item to load (thread 0)
+    auto load = [&](int j, int slot, uint64_t* bar) {
+        const Item it = ld;
+        next(ld);
         int lo, hi;
-        span_of(i % nt, &lo, &hi);
-        const size_t n = (size_t)(hi - lo);
-        const size_t at = ((size_t)c * K + k) * L + lo;
+        span_of(it, j == 0 || it.t == 0, &lo, &hi);
+        if (hi == lo) return;
+        const size_t nl = (size_t)(hi - lo);
+        const size_t at = (size_t)it.ck(K) * L + lo;
         unsigned char* p = slot_base(slot);
-        ring::stage(p, srow + lo, 4 * n, secs + (size_t)K * L, bar);
-        ring::stage(p + lay.key_plane, x + at, 4 * n, x + n_all, bar);
-        ring::stage(p + 2 * lay.key_plane, valid + at, n, valid + n_all, bar);
+        ring::stage(p, secs + (size_t)it.k * L + lo, 4 * nl, secs + (size_t)K * L, bar);
+        ring::stage(p + lay.key_plane, x + at, 4 * nl, x + n_all, bar);
+        ring::stage(p + 2 * lay.key_plane, valid + at, nl, valid + n_all, bar);
     };
+    Item wk = start;   // the next item to walk, and its centre and scale
+    float cen_next = centre[start.ck(K)], sc_next = scale_of(scale, start.c);
     int nclip = 0;
-    auto consume = [&](int i, int slot) {
-        const int c = i / nt, t = i % nt;
-        const size_t crow = ((size_t)c * K + k) * L;
-        const float sc = scale_of(scale, c), center = centre[(size_t)c * K + k];
+    auto consume = [&](int j, int slot) {
+        const Item it = wk;
+        const float sc = sc_next, center = cen_next;
+        next(wk);
+        if (j + 1 < n) {   // loaded a walk ahead of their use
+            cen_next = centre[wk.ck(K)];
+            sc_next = scale_of(scale, wk.c);
+        }
+        const bool first = j == 0 || it.t == 0;
+        const int ck = it.ck(K);
+        const size_t crow = (size_t)ck * L;
         int lo, hi;
-        span_of(t, &lo, &hi);
+        span_of(it, first, &lo, &hi);
         const unsigned char* p = slot_base(slot);
-        const int32_t* ks = (const int32_t*)(p + ((uintptr_t)(srow + lo) & 15));
-        const float* xs = (const float*)(p + lay.key_plane + ((uintptr_t)(x + crow + lo) & 15));
-        const uint8_t* vs = p + 2 * lay.key_plane + ((uintptr_t)(valid + crow + lo) & 15);
-        const int t0 = t * T;
+        const int32_t* ks =
+            (const int32_t*)(p + ((uintptr_t)(secs + (size_t)it.k * L + lo) & 15)) - lo;
+        const float* xs =
+            (const float*)(p + lay.key_plane + ((uintptr_t)(x + crow + lo) & 15)) - lo;
+        const uint8_t* vs = p + 2 * lay.key_plane + ((uintptr_t)(valid + crow + lo) & 15) - lo;
+        const int t0 = it.t * T;
         const int base = t0 - q.hb;
-        for (int j = threadIdx.x; j < lay.win_lanes; j += blockDim.x) {
-            const int pl = base + j;
-            win_sm[j + (j >> 3)] = (pl >= lo && pl < hi)
-                ? lane_value(ks[pl - lo], xs[pl - lo], vs[pl - lo] != 0, sc, center)
-                : pad_value();
+        float4* w = wins + (size_t)(j & 1) * win_stride;
+        if (!first) {
+            // the tile before's last hb + ha lanes: entries T .. of the other window
+            const float4* o = wins + (size_t)((j + 1) & 1) * win_stride;
+            const int shift = T + (T >> 3);
+            const int nc = min(q.hb + q.ha, L - base);   // the row's lanes only
+            for (int e = threadIdx.x; e < nc; e += blockDim.x) {
+                const int at = e + (e >> 3);
+                w[at] = o[at + shift];
+            }
+        }
+        // the staged lanes (16-byte slot loads where the row allows them),
+        // and pads past the row in the last tile: a walk reads lanes
+        // [0, max(L, t0 + T)) only
+        const int end = hi < L ? hi : max(L, t0 + T);
+        for (int pl = (lo & ~3) + 4 * (int)threadIdx.x; pl < end; pl += 4 * (int)blockDim.x) {
+            float4 v4[4];
+            if (vec && pl >= lo && pl + 4 <= hi) {
+                const int4 k4 = *reinterpret_cast<const int4*>(ks + pl);
+                const float4 x4 = *reinterpret_cast<const float4*>(xs + pl);
+                const uchar4 u4 = *reinterpret_cast<const uchar4*>(vs + pl);
+                v4[0] = lane_value(k4.x, x4.x, u4.x != 0, sc, center);
+                v4[1] = lane_value(k4.y, x4.y, u4.y != 0, sc, center);
+                v4[2] = lane_value(k4.z, x4.z, u4.z != 0, sc, center);
+                v4[3] = lane_value(k4.w, x4.w, u4.w != 0, sc, center);
+            } else {
+#pragma unroll
+                for (int u = 0; u < 4; ++u) {
+                    const int pu = pl + u;
+                    v4[u] = pu >= lo && pu < hi
+                        ? lane_value(ks[pu], xs[pu], vs[pu] != 0, sc, center)
+                        : pad_value();
+                }
+            }
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+                const int e = pl + u - base;
+                if (pl + u >= lo && pl + u < end) w[e + (e >> 3)] = v4[u];
+            }
         }
         __syncthreads();
-        nclip += range_tile(Win{win_sm, base}, t0 + kLanes * threadIdx.x, q, center, out, crow,
-                            sp);
-        if (t == nt - 1) {
-            const int total = block_sum(nclip, shi);
-            if (threadIdx.x == 0) clipped[(size_t)c * K + k] = (float)total;
+        nclip += range_tile(SharedWin{ring::smem_addr(w), base}, t0 + kLanes * threadIdx.x, q,
+                            center, out, crow, n_all);
+        if (it.t == nt - 1 || j == n - 1) {
+            count_clipped(nclip, tally + ck, clipped + ck);
             nclip = 0;
         }
     };
-    ring::run(r, C * nt, load, consume);
+    ring::run_synced(r, n, load, consume);
 }
 
 }  // namespace
@@ -537,28 +640,54 @@ extern "C" int tempo_range_stats(const void* secs, const void* x, const void* va
     return (int)cudaGetLastError();
 }
 
+// The centre pass alone over [C, K] rows of L lanes (`tally` may be
+// null), so that a run on the card can time it apart from the stats.
+extern "C" int tempo_range_centres(const void* x, const void* valid, const void* scale,
+                                   void* centre, void* clipped, void* tally, int C, int K, int L,
+                                   void* stream) {
+    return (int)launch_centres(x, valid, scale, centre, clipped, tally, C, K, L,
+                               (cudaStream_t)stream);
+}
+
 // Shared memory of the staged form, for the planner's check on the card.
 extern "C" long long tempo_range_ring_smem(int mb, int ma, int L, int T, int depth) {
     return (long long)range_ring_layout(mb, ma, L, T, depth).total;
 }
 
+// Blocks of the staged form an SM holds at T / kLanes threads and `smem`
+// bytes of dynamic shared memory (the grid is the SM count times this);
+// -1 when the card cannot be asked.
+extern "C" long long tempo_range_ring_occupancy(int T, int smem) {
+    if (cudaFuncSetAttribute(range_ring_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem) != cudaSuccess)
+        return -1;
+    int n = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, range_ring_kernel, T / kLanes,
+                                                      (size_t)smem) != cudaSuccess)
+        return -1;
+    return n;
+}
+
+// The staged form: `tally` is a [C, K] int32 scratch (zeroed by the
+// centres), `blocks` the grid (at most the C * K * ceil(L / T) items).
 extern "C" int tempo_range_stats_ring(const void* secs, const void* x, const void* valid,
                                       const void* scale, void* out, void* clipped, void* centre,
-                                      int w, int wa, int mb, int ma, int C, int K, int L, int T,
-                                      int depth, void* stream) {
+                                      void* tally, int w, int wa, int mb, int ma, int C, int K,
+                                      int L, int T, int depth, int blocks, void* stream) {
     const size_t smem = range_ring_layout(mb, ma, L, T, depth).total;
+    const long long items = (long long)C * K * ((L + T - 1) / T);
     if (depth < 2 || depth > ring::kMaxDepth || T < 32 * kLanes || T % (32 * kLanes) != 0 ||
-        T > kRowTile || smem > (size_t)kEmaSmemLimit)
+        T > kRowTile || smem > (size_t)kEmaSmemLimit || blocks < 1 || blocks > items)
         return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;
-    cudaError_t err = launch_centres(x, valid, scale, centre, clipped, nullptr, C, K, L, st);
+    cudaError_t err = launch_centres(x, valid, scale, centre, clipped, tally, C, K, L, st);
     if (err != cudaSuccess) return (int)err;
     err = cudaFuncSetAttribute(range_ring_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
-    range_ring_kernel<<<K, T / kLanes, smem, st>>>(
+    range_ring_kernel<<<blocks, T / kLanes, smem, st>>>(
         (const int32_t*)secs, (const float*)x, (const uint8_t*)valid, (const float*)scale,
-        (const float*)centre, (float*)out, (float*)clipped, range_params(w, wa, mb, ma, L), C, K,
-        T, depth);
+        (const float*)centre, (float*)out, (float*)clipped, (unsigned*)tally,
+        range_params(w, wa, mb, ma, L), C, K, T, depth, items);
     return (int)cudaGetLastError();
 }

@@ -31,13 +31,14 @@
 //   two past it (stage 1 on windows, writing res, v and a [K, L] d plane
 //   the wrapper allocates, then class_ladder), as the EMA takes them;
 // * the staged form (resample_ema_ring_kernel), rows of at most kRowMax
-//   lanes: the same one-launch ladder, whose row phase reads secs, x and
-//   valid from ring.cuh's staging ring in tiles of T lanes (tile order),
-//   each slot holding its tile and the kBehind = 33 lanes before it, so
-//   the warp whose run starts a tile re-ladders its predecessor segment
-//   (and compares its first bucket with the lane behind) from the slot.
-//   The ladder's planes take 8 bytes a lane of shared memory (102 KB at
-//   12,760 lanes), the slots the rest.
+//   lanes, two blocks an SM as the row form: the same one-launch ladder,
+//   whose row phase reads secs, x and valid through a ring a warp
+//   (ring.cuh's warp ring), each warp streaming its own run of segments
+//   in items of T lanes, its carries in registers over the whole run and
+//   one predecessor re-laddered per run, as the row form does.  secs and
+//   x land in place, in the ladder's planes, which hold 8 bytes a lane
+//   (102 KB at 12,760 lanes); the slots hold only the valid bytes, so
+//   ring state beside the planes stays under 13.5 KB.
 //
 // Both forms run the same levels in the same order, so they give the
 // same bits.
@@ -45,8 +46,6 @@
 #include "ring.cuh"
 
 namespace {
-
-constexpr int kBehind = 33;     // staged lanes before a tile: a segment and its lane behind
 
 // floor(a / d) for int32 a and a fixed d >= 1, without a division on the
 // card: with 2^31 = Q d + R, floor(a / d) = floor((u - R) / d) - Q for
@@ -115,91 +114,128 @@ struct ResampleFill {
 };
 
 // Shared memory of the staged form, in bytes (ops/stream.resample_ring_bytes
-// mirrors the total): the ring's barriers, the ladder's two planes of
-// 32 * G floats (G = ceil(L / 32) segments), then `depth` slots of a
-// tile's secs, x and valid with the kBehind lanes before it.
+// mirrors the total): kLadderWarps * depth barriers (a ring a warp), the
+// ladder's two planes of 32 * G floats (G = ceil(L / 32) segments), each
+// followed by 16 bytes that take the staged words of the row's last lanes
+// when the row does not start on 16 bytes, then kLadderWarps * depth
+// slots of an item's T valid bytes.
 struct ResampleRingLayout {
-    size_t planes, slots, s_plane, x_plane, v_plane, slot, total;
+    size_t ds, vs, slots, v_slot, total;
 };
 
 __host__ __device__ inline ResampleRingLayout resample_ring_layout(int L, int T, int depth) {
     ResampleRingLayout y;
-    y.planes = 8 * ring::kMaxDepth;
-    y.slots = y.planes + 2 * 4 * 32 * (size_t)((L + 31) / 32);
-    y.s_plane = ring::plane_bytes(4 * ((size_t)T + kBehind));
-    y.x_plane = y.s_plane;
-    y.v_plane = ring::plane_bytes((size_t)T + kBehind);
-    y.slot = y.s_plane + y.x_plane + y.v_plane;
-    y.total = y.slots + (size_t)depth * y.slot;
+    const size_t plane = 4 * 32 * (size_t)((L + 31) / 32) + 16;
+    y.ds = ring::align16(8 * (size_t)kLadderWarps * depth);
+    y.vs = y.ds + plane;
+    y.slots = y.vs + plane;
+    y.v_slot = ring::plane_bytes((size_t)T);
+    y.total = y.slots + (size_t)kLadderWarps * depth * y.v_slot;
     return y;
 }
 
+// Staged form, rows of at most kRowMax lanes, two blocks an SM: a block a
+// row, and the row phase of ema_block's ladder with each warp's run of
+// segments (the row form's [g0, g1)) streamed through a ring of its own,
+// items of T lanes.  An item lands where it is used: its secs in the d
+// plane and its x in the v plane, lane i at word i from the row's 16-byte
+// aligned start (ring::stage_at), so segment g's inputs sit in row g of
+// the planes (and, off 16 bytes, in the first words of row g + 1) until
+// the warp writes segment g's (d, v) there; its valid bytes take a slot.
+// Each warp keeps its carries in registers over its whole run and
+// re-ladders one predecessor segment (read from global memory, with the
+// lane behind it) per run.  A warp writes its first segment's (d, v)
+// only after the block barrier that ends the row phase: the warp before
+// it may still read its own last lanes from that row.  No block barrier
+// runs before that one; the column phase follows as in ema_block.
 template <int E>
-__global__ void __launch_bounds__(kLadderThreads, 1)
+__global__ void __launch_bounds__(kLadderThreads, 2)
 resample_ema_ring_kernel(const int32_t* __restrict__ secs, const float* __restrict__ x,
                          const uint8_t* __restrict__ valid, FloorDiv bucket, float alpha,
-                         float scale,
-                         float* __restrict__ res, float* __restrict__ ema, int K, int L, int T,
-                         int depth) {
+                         float scale, float* __restrict__ res, float* __restrict__ ema, int K,
+                         int L, int T, int depth) {
     extern __shared__ __align__(16) unsigned char sm[];
     const ResampleRingLayout lay = resample_ring_layout(L, T, depth);
-    const ring::Ring r{(uint64_t*)sm, depth};
     const int G = (L + 31) / 32;
-    float* ds = (float*)(sm + lay.planes);
-    float* vs = ds + 32 * (size_t)G;
+    float* ds = (float*)(sm + lay.ds);
+    float* vs = (float*)(sm + lay.vs);
     const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
     const size_t row = (size_t)blockIdx.x * L;
     const size_t n_all = (size_t)K * L;
-    const int nt = (L + T - 1) / T;
+    const int32_t* srow = secs + row;
+    const float* xrow = x + row;
+    const uint8_t* vrow = valid + row;
+    const uintptr_t s_base = (uintptr_t)srow & ~(uintptr_t)15;
+    const uintptr_t x_base = (uintptr_t)xrow & ~(uintptr_t)15;
+    const int32_t* s_at = (const int32_t*)ds + (((uintptr_t)srow & 15) >> 2);   // lane i: s_at[i]
+    const float* x_at = vs + (((uintptr_t)xrow & 15) >> 2);
     const float one_minus_a = __fsub_rn(1.f, alpha);
-    ring::init(r);
 
-    auto slot_base = [&](int slot) { return sm + lay.slots + (size_t)slot * lay.slot; };
-    auto load = [&](int t, int slot, uint64_t* bar) {
-        const int lo = max(t * T - kBehind, 0), hi = min(L, t * T + T);
-        unsigned char* b = slot_base(slot);
-        ring::stage(b, secs + row + lo, 4 * (size_t)(hi - lo), secs + n_all, bar);
-        ring::stage(b + lay.s_plane, x + row + lo, 4 * (size_t)(hi - lo), x + n_all, bar);
-        ring::stage(b + lay.s_plane + lay.x_plane, valid + row + lo, (size_t)(hi - lo),
+    // this warp's run: segments [g0, g1), lanes [a0, a1), items of T lanes
+    const int per = (G + kLadderWarps - 1) / kLadderWarps;
+    const int g0 = min(G, w * per), g1 = min(G, g0 + per);
+    const int a0 = 32 * g0, a1 = min(L, 32 * g1);
+    const int n = a1 > a0 ? (a1 - a0 + T - 1) / T : 0;
+    const ring::WarpRing r{(uint64_t*)sm + (size_t)w * depth, depth};
+    unsigned char* vslots = sm + lay.slots + (size_t)w * depth * lay.v_slot;
+
+    auto load = [&](int j, int slot, uint64_t* bar) {
+        const int a = a0 + j * T, b = min(a1, a + T);
+        ring::stage_at(ds, s_base, srow + a, 4 * (size_t)(b - a), bar);
+        ring::stage_at(vs, x_base, xrow + a, 4 * (size_t)(b - a), bar);
+        ring::stage(vslots + (size_t)slot * lay.v_slot, vrow + a, (size_t)(b - a),
                     valid + n_all, bar);
     };
-    auto consume = [&](int t, int slot) {
-        const int lo = max(t * T - kBehind, 0), hi = min(L, t * T + T);
-        unsigned char* b = slot_base(slot);
-        const int32_t* ss = (const int32_t*)(b + ((uintptr_t)(secs + row + lo) & 15));
-        const float* xs = (const float*)(b + lay.s_plane + ((uintptr_t)(x + row + lo) & 15));
-        const uint8_t* vb =
-            b + lay.s_plane + lay.x_plane + ((uintptr_t)(valid + row + lo) & 15);
-        // (d, v) of segment g, this lane, from the slot; res where `own`
-        auto fill = [&](int g, bool own, float& d, float& v) {
+    ring::warp_begin(r, n, load);
+
+    // the predecessor segment, from global memory, for the carries; the
+    // secs of the lane before the next segment (lane 0's comparison)
+    AffineCarry c;
+    c.reset();
+    int32_t prev_s = 0;
+    if (g0 > 0 && g0 < g1) {
+        const int i = a0 - 32 + lane;
+        const int32_t si = srow[i];
+        const int32_t up = __shfl_up_sync(TEMPO_FULL_MASK, si, 1);
+        float d, v, rv;
+        const int32_t sb = lane > 0 ? up : i > 0 ? srow[i - 1] : 0;
+        resample_lane(i, si, sb, vrow[i] != 0, xrow[i], bucket, alpha, one_minus_a, scale, d, v,
+                      rv);
+        affine_row_levels(d, v, c, lane, L);
+        prev_s = __shfl_sync(TEMPO_FULL_MASK, si, 31);
+    }
+    float d0 = 1.f, v0 = 0.f;   // the run's first segment, written after the row phase
+    auto consume = [&](int j, int slot) {
+        const int a = a0 + j * T, b = min(a1, a + T);
+        const uint8_t* vb = vslots + (size_t)slot * lay.v_slot + ((uintptr_t)(vrow + a) & 15);
+        for (int g = a >> 5; 32 * g < b; ++g) {
             const int i = 32 * g + lane;
             const bool in = i < L;
-            const int o = in ? i - lo : 0;
-            float rv;
-            resample_lane(i, in ? ss[o] : 0, in && i > 0 ? ss[o - 1] : 0, in && vb[o] != 0,
-                          in ? xs[o] : 0.f, bucket, alpha, one_minus_a, scale, d, v, rv);
-            if (own && in) res[row + i] = rv;
-        };
-        // the tile's segments [ga, gb), a run a warp
-        const int ga = t * T / 32, gb = (hi + 31) / 32;
-        const int per = (gb - ga + kLadderWarps - 1) / kLadderWarps;
-        const int g0 = ga + w * per, g1 = min(gb, g0 + per);
-        if (g0 >= g1) return;
-        AffineCarry c;
-        c.reset();
-        float d, v;
-        if (g0 > 0) {
-            fill(g0 - 1, false, d, v);
+            const int32_t si = in ? s_at[i] : 0;
+            const int32_t up = __shfl_up_sync(TEMPO_FULL_MASK, si, 1);
+            float d, v, rv;
+            resample_lane(i, si, lane == 0 ? prev_s : up, in && vb[i - a] != 0,
+                          in ? x_at[i] : 0.f, bucket, alpha, one_minus_a, scale, d, v, rv);
+            if (in) res[row + i] = rv;
+            prev_s = __shfl_sync(TEMPO_FULL_MASK, si, 31);
             affine_row_levels(d, v, c, lane, L);
-        }
-        for (int g = g0; g < g1; ++g) {
-            fill(g, true, d, v);
-            affine_row_levels(d, v, c, lane, L);
-            ds[ladder_slot(g, lane)] = d;
-            vs[ladder_slot(g, lane)] = v;
+            __syncwarp();   // every lane has read segment g's words of row g
+            if (g == g0) {
+                d0 = d;
+                v0 = v;
+            } else {
+                ds[ladder_slot(g, lane)] = d;
+                vs[ladder_slot(g, lane)] = v;
+            }
         }
     };
-    ring::run(r, nt, load, consume);
+    ring::warp_run(r, n, load, consume);
+    __syncthreads();
+    if (g0 < g1) {
+        ds[ladder_slot(g0, lane)] = d0;
+        vs[ladder_slot(g0, lane)] = v0;
+    }
+    __syncthreads();
     affine_columns<E>(ds, vs, G, L, false);
     for (int e = threadIdx.x; e < L; e += kLadderThreads)
         ema[row + e] = vs[ladder_slot(e >> 5, e & 31)];
@@ -241,7 +277,7 @@ extern "C" int tempo_resample_ema_ring(const void* secs, const void* x, const vo
                                        void* stream) {
     const size_t smem = resample_ring_layout(L, T, depth).total;
     if (depth < 2 || depth > ring::kMaxDepth || T < 32 || T % 32 != 0 || L > kRowMax ||
-        smem > (size_t)kEmaSmemLimit)
+        smem > (size_t)kEmaSmemLimit || ((uintptr_t)secs & 3) != 0 || ((uintptr_t)x & 3) != 0)
         return (int)cudaErrorInvalidValue;
     const int G = (L + 31) / 32;
     cudaStream_t st = (cudaStream_t)stream;

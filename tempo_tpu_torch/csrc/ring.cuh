@@ -33,6 +33,20 @@
 //
 // Bound: the ring moves each byte of an item once; what it buys is
 // overlap of the copy of item i + depth - 1 with the compute of item i.
+//
+// Two more shapes of the same ring serve kernels that cannot afford a
+// block barrier an item:
+//
+// * run_synced() drops the slot-release barrier after each item, for a
+//   consume() that synchronises the block after its last read of the
+//   slot and whose other shared state needs no barrier: thread 0 refills
+//   a slot only after that barrier of the item that used it.
+// * a warp ring (WarpRing, warp_begin / warp_run): each warp owns its
+//   barriers and slots, its lane 0 issues the copies, and __syncwarp()
+//   releases a slot, so warps stream their own runs of items with no
+//   block barrier.  stage_at() copies into a fixed place of a plane (an
+//   address map fixed for the whole run) instead of a slot, for kernels
+//   that land each item where it is consumed.
 #pragma once
 
 #include "common.cuh"
@@ -144,12 +158,14 @@ __device__ __forceinline__ void init(Ring r) {
 }
 
 // Run consume(i, slot) for work items i = 0 .. n-1 in order, the loads of
-// items i + 1 .. i + depth - 1 in flight meanwhile.  load(i, slot, bar)
-// runs on thread 0 and starts item i's copies into `slot` with stage().
-// All threads of the block call run(), once per block (each slot's
-// barrier phase counts from the kernel's start).
+// items i + 1 .. i + depth - 1 in flight meanwhile, with no block barrier
+// of its own: consume(i, slot) must end its reads of the slot with a
+// block barrier, which releases the slot.  load(i, slot, bar) runs on
+// thread 0 and starts item i's copies into `slot` with stage().  All
+// threads of the block call it, once per block (each slot's barrier phase
+// counts from the kernel's start).
 template <class Load, class Consume>
-__device__ __forceinline__ void run(Ring r, int n, Load load, Consume consume) {
+__device__ __forceinline__ void run_synced(Ring r, int n, Load load, Consume consume) {
     auto start = [&](int i) {
         const int slot = i % r.depth;
         fence_proxy_async();
@@ -161,11 +177,87 @@ __device__ __forceinline__ void run(Ring r, int n, Load load, Consume consume) {
     }
     for (int i = 0; i < n; ++i) {
         const int slot = i % r.depth;
-        // the slot of item i - 1, released by the last iteration's sync
+        // the slot of item i - 1, released by consume(i - 1)'s barrier
         if (threadIdx.x == 0 && i + r.depth - 1 < n) start(i + r.depth - 1);
         wait(&r.bar[slot], (uint32_t)((i / r.depth) & 1));
         consume(i, slot);
+    }
+}
+
+// run_synced() with a block barrier after each consume(i, slot), for a
+// consume that ends without one.
+template <class Load, class Consume>
+__device__ __forceinline__ void run(Ring r, int n, Load load, Consume consume) {
+    run_synced(r, n, load, [&](int i, int slot) {
+        consume(i, slot);
         __syncthreads();
+    });
+}
+
+// Copy the global words [src, src + nbytes) (4-byte aligned, nbytes a
+// multiple of 4) to `plane` + (src - base), base the 16-byte aligned
+// address the plane's first byte stands for: the 16-byte aligned middle
+// by a bulk copy on `bar`, the words before and after it by plain copies
+// of the loading thread (released by its arrive).  Items that abut share
+// no bulk span, so items staged one after the other into one plane never
+// copy a byte twice.  Called by the loading thread only, before its arrive.
+__device__ __forceinline__ void stage_at(void* plane, uintptr_t base, const void* src,
+                                         size_t nbytes, uint64_t* bar) {
+    const uintptr_t a = (uintptr_t)src, e = a + nbytes;
+    const uintptr_t a1 = (a + 15) & ~(uintptr_t)15, e0 = e & ~(uintptr_t)15;
+    unsigned char* d = (unsigned char*)plane;
+    auto words = [&](uintptr_t p0, uintptr_t p1) {
+        for (uintptr_t p = p0; p < p1; p += 4) *(uint32_t*)(d + (p - base)) = *(const uint32_t*)p;
+    };
+    if (a1 < e0) {
+        expect_tx(bar, (uint32_t)(e0 - a1));
+        bulk_load(d + (a1 - base), (const void*)a1, (uint32_t)(e0 - a1), bar);
+        words(a, a1);
+        words(e0, e);
+    } else {
+        words(a, e);
+    }
+}
+
+// A warp's own ring: `depth` barriers of its own.
+struct WarpRing {
+    uint64_t* bar;
+    int depth;
+};
+
+// Initialise the warp's barriers (one arrival a phase: its lane 0's) and
+// start the loads of items 0 .. depth - 2.  All lanes of the warp call
+// it; the warp may do other work before warp_run().
+template <class Load>
+__device__ __forceinline__ void warp_begin(WarpRing r, int n, Load load) {
+    if ((threadIdx.x & 31) == 0) {
+        for (int d = 0; d < r.depth; ++d) bar_init(&r.bar[d], 1);
+        fence_bar_init();
+        for (int i = 0; i < r.depth - 1 && i < n; ++i) {
+            fence_proxy_async();
+            load(i, i % r.depth, &r.bar[i % r.depth]);
+            arrive(&r.bar[i % r.depth]);
+        }
+    }
+    __syncwarp();
+}
+
+// ring::run for one warp after warp_begin(): lane 0 starts item
+// i + depth - 1 into the slot item i - 1 left, the warp waits on item i
+// and consumes it, and __syncwarp() releases its slot.
+template <class Load, class Consume>
+__device__ __forceinline__ void warp_run(WarpRing r, int n, Load load, Consume consume) {
+    for (int i = 0; i < n; ++i) {
+        const int slot = i % r.depth;
+        if ((threadIdx.x & 31) == 0 && i + r.depth - 1 < n) {
+            const int s = (i + r.depth - 1) % r.depth;
+            fence_proxy_async();
+            load(i + r.depth - 1, s, &r.bar[s]);
+            arrive(&r.bar[s]);
+        }
+        wait(&r.bar[slot], (uint32_t)((i / r.depth) & 1));
+        consume(i, slot);
+        __syncwarp();
     }
 }
 

@@ -26,7 +26,8 @@ arithmetic in tensor code, so the CPU tests can pin its bits against the
 plain version: :func:`bucket_stats_windowed` the staged bucket form's
 windows and carries, :func:`bucket_stats_tiled_plain` the bucket row
 form's tiled forward ladder and tail gather, :func:`resample_ema_tiled_plain`
-the resample EMA's register ladder (both forms).  The card's main path
+the resample EMA's register ladder (both forms) and
+:func:`resample_ema_warp_runs_plain` its staged form's ring a warp.  The card's main path
 uses none of them.
 """
 
@@ -94,6 +95,175 @@ def resample_ema_tiled_plain(secs: torch.Tensor, x: torch.Tensor,
                                      row_log2, class_tile_log2)
 
 
+def resample_ema_warp_runs_plain(secs: torch.Tensor, x: torch.Tensor,
+                                 valid: torch.Tensor, step, alpha: float,
+                                 scale=None, *, tile: int = 128,
+                                 depth: int = 2, offsets=(0, 0),
+                                 order: str = "forward", warps: int = 16):
+    """The resample EMA's staged form (``resample_ema_ring_kernel``)
+    emulated a warp at a time, bit for bit, on rows of at most
+    ``stream.EMA_ROW_MAX`` lanes: each of ``warps`` warps streams its run
+    of ceil(G / warps) of the row's G segments in items of ``tile`` lanes
+    through a ring of ``depth`` slots (its valid bytes), secs and x landing
+    in place in the ladder's two planes, lane i at word i + ``offsets``
+    (the rows' starts off 16 bytes, in words); the predecessor segment
+    read from the inputs for the run's carries; each segment's (d, v)
+    written over its row of the planes (the run's first after every
+    warp's run), then the column levels and the outputs.  Every word of
+    the planes carries a tag, so a copy that lands on a word still in use,
+    a read of a word that holds another lane and a (d, v) written over a
+    lane not yet read all raise.  ``order`` runs the warps "forward" or
+    "reverse" (each to its end in turn: the two extremes of their
+    interleaving).  In ``x``'s dtype."""
+    step = _integral_step(step)
+    K, L = x.shape
+    dt, dev = x.dtype, x.device
+    if L > stream.EMA_ROW_MAX:
+        raise ValueError(f"the staged form takes rows of at most "
+                         f"{stream.EMA_ROW_MAX} lanes, got {L}")
+    T = int(tile)
+    G = -(-L // 32)
+    per = -(-G // warps)
+    sc = torch.tensor(1.0 if scale is None else scale, dtype=dt, device=dev)
+    a = torch.tensor(alpha, dtype=dt, device=dev)
+    one = torch.ones((), dtype=dt, device=dev)
+    one_minus_a = one - a
+    nan = torch.tensor(float("nan"), dtype=dt, device=dev)
+    lane = torch.arange(32, device=dev)
+    res = torch.empty_like(x)
+    ema = torch.empty_like(x)
+    EMPTY, USED, DV = 0, -1, -2          # tags beside a staged lane's i + 1
+
+    def fill(si, sb, ok, xi, i):
+        head = ok & ((i == 0) | (torch.div(si, step, rounding_mode="floor")
+                                 != torch.div(sb, step, rounding_mode="floor")))
+        xs = xi * sc
+        return (torch.where(head, one_minus_a, one),
+                torch.where(head, a * xs, torch.zeros((), dtype=dt,
+                                                      device=dev)),
+                torch.where(head, xs, nan))
+
+    def row_levels(d, v, carry):
+        for ls in range(5):
+            s_ = 1 << ls
+            if s_ >= L:
+                break
+            dc, vc = torch.roll(d, s_), torch.roll(v, s_)
+            low = lane < s_
+            dp = torch.where(low, carry[0][ls], dc)
+            vp = torch.where(low, carry[1][ls], vc)
+            v = v + d * vp
+            d = d * dp
+            carry[0][ls], carry[1][ls] = dc, vc
+        return d, v
+
+    for k in range(K):
+        sk, xk, vk = secs[k].to(torch.int64), x[k], valid[k]
+        nw = 32 * G + 4
+        planes = {"s": [torch.zeros(nw, dtype=torch.int64, device=dev),
+                        torch.zeros(nw, dtype=torch.int64, device=dev)],
+                  "x": [torch.zeros(nw, dtype=dt, device=dev),
+                        torch.zeros(nw, dtype=torch.int64, device=dev)]}
+        ds = torch.zeros(32 * G, dtype=dt, device=dev)
+        vs = torch.zeros(32 * G, dtype=dt, device=dev)
+        off = {"s": int(offsets[0]), "x": int(offsets[1])}
+
+        def stage(name, src, lo, hi):
+            vals, tags = planes[name]
+            words = torch.arange(lo, hi, device=dev) + off[name]
+            assert bool((tags[words] == EMPTY).all()), \
+                "a copy landed on a word in use"
+            vals[words] = src[lo:hi].to(vals.dtype)
+            tags[words] = torch.arange(lo, hi, device=dev) + 1
+
+        def take(name, i, inn):
+            vals, tags = planes[name]
+            words = i[inn] + off[name]
+            assert bool((tags[words] == i[inn] + 1).all()), \
+                "a read found another lane's word"
+            tags[words] = USED
+            out = torch.zeros(32, dtype=vals.dtype, device=dev)
+            out[inn] = vals[words]
+            return out
+
+        def write_row(g, d, v):
+            for name in ("s", "x"):
+                tags = planes[name][1]
+                words = torch.arange(32 * g, 32 * g + 32, device=dev)
+                assert bool(((tags[words] == EMPTY) | (tags[words] == USED))
+                            .all()), "a (d, v) landed on a lane not yet read"
+                tags[words] = DV
+            slot = 32 * g + (lane ^ (g & 31))
+            ds[slot], vs[slot] = d, v
+
+        deferred = []
+        ws = range(warps) if order == "forward" else range(warps - 1, -1, -1)
+        for w in ws:
+            g0, g1 = min(G, w * per), min(G, w * per + per)
+            a0, a1 = 32 * g0, min(L, 32 * g1)
+            n = -(-(a1 - a0) // T) if a1 > a0 else 0
+            slots = [None] * depth
+
+            def load(j):
+                lo, hi = a0 + j * T, min(a1, a0 + j * T + T)
+                stage("s", sk, lo, hi)
+                stage("x", xk, lo, hi)
+                assert slots[j % depth] is None, "a slot refilled in use"
+                slots[j % depth] = (lo, vk[lo:hi].clone())
+
+            for j in range(min(depth - 1, n)):
+                load(j)
+            carry = [[torch.ones(32, dtype=dt, device=dev) for _ in range(5)],
+                     [torch.zeros(32, dtype=dt, device=dev)
+                      for _ in range(5)]]
+            prev_s = torch.zeros((), dtype=torch.int64, device=dev)
+            if 0 < g0 < g1:
+                i = a0 - 32 + lane
+                si = sk[i]
+                sb = torch.where(i > 0, sk[(i - 1).clamp(min=0)], 0)
+                d, v, _ = fill(si, sb, vk[i], xk[i], i)
+                row_levels(d, v, carry)
+                prev_s = si[31]
+            for j in range(n):
+                if j + depth - 1 < n:
+                    load(j + depth - 1)
+                lo, vb = slots[j % depth]
+                hi = min(a1, lo + T)
+                for g in range(lo // 32, -(-hi // 32)):
+                    i = 32 * g + lane
+                    inn = i < L
+                    si = take("s", i, inn)
+                    xi = take("x", i, inn).to(dt)
+                    ok = torch.zeros(32, dtype=torch.bool, device=dev)
+                    ok[inn] = vb[i[inn] - lo]
+                    sb = torch.cat([prev_s.reshape(1), si[:-1]])
+                    d, v, r = fill(si, sb, ok, xi, i)
+                    res[k, i[inn]] = r[inn]
+                    prev_s = si[31]
+                    d, v = row_levels(d, v, carry)
+                    if g == g0:
+                        deferred.append((g, d, v))
+                    else:
+                        write_row(g, d, v)
+                slots[j % depth] = None
+        for g, d, v in deferred:
+            write_row(g, d, v)
+        # the column levels: spans 32 m < L along the segments
+        swz = lane[None, :] ^ (torch.arange(G, device=dev)[:, None] & 31)
+        dd, vv = (p.view(G, 32).gather(1, swz) for p in (ds, vs))
+        m = 1
+        while 32 * m < L:
+            dp = torch.cat([torch.ones((m, 32), dtype=dt, device=dev),
+                            dd[:-m]])[:G]
+            vp = torch.cat([torch.zeros((m, 32), dtype=dt, device=dev),
+                            vv[:-m]])[:G]
+            vv = vv + dd * vp
+            dd = dd * dp
+            m *= 2
+        ema[k] = vv.reshape(-1)[:L]
+    return res, ema
+
+
 def resample_ema_cuda(secs: torch.Tensor, x: torch.Tensor,
                       valid: torch.Tensor, step, alpha: float, scale=None, *,
                       _form: Optional[str] = None):
@@ -125,6 +295,8 @@ def resample_ema_cuda(secs: torch.Tensor, x: torch.Tensor,
     plan = stream.pick("resample_ema", stream.resample_plan(L), _form,
                        f"L={L}")
     if plan is not None:
+        stream.record_grid("resample_ema", K,
+                           -(-stream.resample_run(L) // plan.tile))
         cuda_lib.launch("resample_ema_ring", x.device,
                         "tempo_resample_ema_ring", secs.data_ptr(),
                         x.data_ptr(), valid.data_ptr(), step, float(alpha),

@@ -81,7 +81,8 @@ _SIGNATURES = {
     "tempo_legacy_stats": [_P] * 7 + [_I] * 6 + [_P],
     "tempo_bucket_stats": [_P] * 8 + [_I] * 3 + [_P],
     "tempo_bucket_stats_ring": [_P] * 7 + [_I] * 5 + [_P],
-    "tempo_range_stats_ring": [_P] * 7 + [_I] * 9 + [_P],
+    "tempo_range_stats_ring": [_P] * 8 + [_I] * 10 + [_P],
+    "tempo_range_centres": [_P] * 6 + [_I] * 3 + [_P],
     "tempo_ema_ladder": [_P, _P, ctypes.c_float, _P, _P, _I, _I, _P],
     "tempo_ema_scan": [_P, _P, ctypes.c_double] + [_P] * 3 + [_I] * 3 + [_P],
     "tempo_last_valid_index": [_P, _P, _I, _I, _P],
@@ -95,6 +96,7 @@ _SIGNATURES = {
     "tempo_error_string": [_I],
 }
 #: the staged forms' shared-memory totals, as the kernels compute them,
+#: the range-stats staged form's blocks an SM,
 #: the merge walk's step and column limit, the row form's, the walk's
 #: and the tile join's shared memory a block, the row limits of the
 #: ``cumsum3``, EMA, bucket-stats and range-stats kernels and the
@@ -113,6 +115,7 @@ _SMEM_SIGNATURES = {
     "tempo_bucket_max_lanes": [],
     "tempo_bucket_ring_smem": [_I] * 3,
     "tempo_range_ring_smem": [_I] * 5,
+    "tempo_range_ring_occupancy": [_I] * 2,
     "tempo_resample_ring_smem": [_I] * 3,
 }
 
@@ -280,6 +283,28 @@ def range_row_window() -> int:
     """Lanes the range-stats row form's shared-memory window holds; a tile
     and its halo past it walk several windows."""
     return lib().tempo_range_row_window()
+
+
+_ring_blocks: Dict[tuple, int] = {}
+
+
+def range_ring_blocks(device, tile: int, smem: int) -> int:
+    """Blocks of the range-stats staged form the card holds at once at
+    ``tile / 4`` threads and ``smem`` bytes of shared memory a block: its
+    SM count times the blocks an SM holds, as the card's occupancy
+    calculator gives them (cached by device and shape)."""
+    device = torch.device(device)
+    key = (device.index, int(tile), int(smem))
+    if key not in _ring_blocks:
+        with torch.cuda.device(device):
+            per_sm = lib().tempo_range_ring_occupancy(int(tile), int(smem))
+        if per_sm < 1:
+            raise RuntimeError(f"range-stats staged form: no block of "
+                               f"{tile // 4} threads and {smem} B of shared "
+                               f"memory fits an SM ({per_sm})")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _ring_blocks[key] = int(per_sm) * int(sms)
+    return _ring_blocks[key]
 
 
 def range_max_lanes() -> int:

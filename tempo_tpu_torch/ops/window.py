@@ -16,14 +16,16 @@ bounds are scalars.  A call launches the row centres, then the stats
 (``csrc/range_stats.cu``): a row form (blocks of 1024 outputs, each
 thread walking four consecutive outputs over a shared-memory window of
 the tile and its halo, several windows where the halo is wider) and a
-staged form (``ops/stream.py``: a row's tiles and their halo through the
-staging ring).  The wrapper takes the staged form where
+staged form (``ops/stream.py``: the card's blocks each walk a contiguous
+run of tiles through the staging ring, carrying each tile's halo to the
+next).  The wrapper takes the staged form where
 ``stream.range_plan`` fits the halo, else the row form, and the private
 keyword ``_form`` ("row" | "ring") forces one, for tests and
 ``chip_smoke.py``; ``_center_out`` receives the kernel's centres, which
 :func:`range_stats_plain` takes back as ``_centers`` to give the same
 bits.  :func:`range_stats_tiled_plain` runs the kernel's tiles, windows
-and walk as tensor code.  Outputs: ``mean``, ``count``, ``min``, ``max``,
+and walk as tensor code, :func:`range_stats_staged_plain` the staged
+form's runs and carried halo.  Outputs: ``mean``, ``count``, ``min``, ``max``,
 ``sum``, ``stddev``, ``zscore`` as [C, K, L] (or [K, L] for a single
 column) and ``clipped`` as [C, K, 1] (or [K, 1]).
 """
@@ -184,77 +186,47 @@ def range_windows(hb: int, ha: int, lanes: int, tile: int,
     return out
 
 
-def range_stats_tiled_plain(secs, xs, valids, window, max_behind, max_ahead,
-                            window_ahead=0, scales=None, *,
-                            threads: int = ROW_THREADS, lanes: int = LANES,
-                            window_cap: Optional[int] = ROW_WINDOW,
-                            _centers=None) -> Dict[str, torch.Tensor]:
-    """:func:`range_stats_plain`'s stats as the kernel cuts them, bit for
-    bit: tiles of ``threads * lanes`` outputs, each thread ``lanes``
-    consecutive ones (its first at i0); the windows of
-    :func:`range_windows` (``window_cap=None``: one window, the staged
-    form), each neighbour read checked to lie inside the current one; the
-    behind walk over offsets d = lanes - 2 down to -mb (the ahead walk
-    from 1 up to lanes - 1 + ma) with the active outputs of each step as
-    the kernel's head, middle and tail (or its generic loop where a bound
-    is below ``lanes - 1``); count, sum of squares and min/max updated
-    under the in-window predicate (min/max ignoring NaN, set to NaN at
-    the end where the sum of squares is NaN), the sum by ``inw ? c :
-    0``, steps past the row skipped and one ``s1 + 0`` for them at the
-    end.  ``_centers`` as for :func:`range_stats_plain`."""
-    dt, idt, dev = xs.dtype, secs.dtype, xs.device
+def _entry_planes(secs, xs, valids, scales, _centers):
+    """The window entries of every lane as [C, K, L] planes: c, c*c with
+    the validity in its sign (-0.0 where invalid; a NaN the card computes
+    is positive, 0x7fffffff, one the CPU computes from inf - inf negative,
+    so c*c's NaN is made positive), the key and x * scale; and the
+    centres [C, K, 1]."""
+    dt, dev = xs.dtype, xs.device
     C, K, L = xs.shape
-    big = torch.iinfo(idt).max
-    imin = torch.iinfo(idt).min
-    w = _clamp_window(window)
-    wa = _clamp_window(window_ahead)
-    x = xs * _scale_vector(scales, C, dt, dev)[:, None, None]
-    center = (_center(x, valids) if _centers is None
-              else _given_center(_centers, C, K, dt))
-    E, T = int(lanes), int(threads) * int(lanes)
-    mb, ma = min(int(max_behind), L - 1), min(int(max_ahead), L - 1)
-    hb = L if int(max_behind) >= L - 1 else int(max_behind) + 1
-    ha = L if int(max_ahead) >= L - 1 else int(max_ahead) + 1
-    nth = -(-L // T) * int(threads)
-    i0 = torch.arange(nth, device=dev) * E            # [NTH]
-    t0 = i0 // T * T
-    e = torch.arange(E, device=dev)
     zero = torch.zeros((), dtype=dt, device=dev)
     nzero = torch.tensor(-0.0, dtype=dt, device=dev)
     nan = torch.tensor(float("nan"), dtype=dt, device=dev).abs()
-    inf = torch.tensor(float("inf"), dtype=dt, device=dev)
-    # the window entries: c, c*c (-0.0 where invalid), key, x * scale;
-    # a NaN the card computes is positive (0x7fffffff), one the CPU
-    # computes from inf - inf negative, so c*c's NaN is made positive
+    x = xs * _scale_vector(scales, C, dt, dev)[:, None, None]
+    center = (_center(x, valids) if _centers is None
+              else _given_center(_centers, C, K, dt))
     c_pl = torch.where(valids, x - center, zero)
     c2_pl = c_pl * c_pl
     c2_pl = torch.where(valids, torch.where(torch.isnan(c2_pl), nan, c2_pl),
                         nzero)
-    key_pl = secs[None].expand(C, K, L)
-    win = {}
+    return (c_pl, c2_pl, secs[None].expand(C, K, L), x), center
 
-    def at(p):
-        """Entries at lanes p (any shape S) -> [C, K, *S] each, the pad
-        entry outside the row; p must lie in the current window."""
-        lo_, hi_ = win["lanes"]
-        assert bool(((p >= t0.reshape((-1,) + (1,) * (p.dim() - 1)) + lo_)
-                     & (p <= t0.reshape((-1,) + (1,) * (p.dim() - 1))
-                        + hi_)).all()), "read outside the window"
-        inrow = (p >= 0) & (p < L)
-        q = p.clamp(0, L - 1).reshape(-1)
-        shape = (C, K) + tuple(p.shape)
-        pick = lambda pl, pad: torch.where(inrow, pl[..., q].reshape(shape),
-                                           pad)
-        return (pick(c_pl, zero), pick(c2_pl, nzero),
-                pick(key_pl, torch.tensor(big, dtype=idt, device=dev)),
-                pick(x, zero))
 
+def _walk_tiles(at, i0, E, mb, ma, hb, ha, L, w, wa, windows, dt, idt, dev,
+                enter=lambda dl, dh: None):
+    """The kernel's walk of the threads whose first outputs are ``i0``
+    ([NTH]), ``E`` outputs each, over ``windows`` (:func:`range_windows`):
+    ``at(p, need)`` gives the entries (c, c2, key, x * scale) at lanes p
+    as [C', K', *p.shape] (``need``: where a thread of the kernel reads
+    p), ``enter(dl, dh)`` opens each window.  Returns the accumulators
+    ([C', K', NTH, E]: cnt, s1, s2, mn, mx, xs, vi, clip)."""
+    big = torch.iinfo(idt).max
+    imin = torch.iinfo(idt).min
+    zero = torch.zeros((), dtype=dt, device=dev)
+    inf = torch.tensor(float("inf"), dtype=dt, device=dev)
+    e = torch.arange(E, device=dev)
     acc = {}
 
     def step(d, active, behind):
         """Offset d's neighbour into the outputs where ``active`` ([NTH,
         E]) holds."""
-        c, c2, key, _ = at(i0 + d)
+        need = active.expand(i0.shape[0], E).any(-1)
+        c, c2, key, _ = at(i0 + d, need)
         ok = ~torch.signbit(c2)
         if behind:
             inw = torch.where(ok, key, imin)[..., None] >= acc["lo"]
@@ -308,16 +280,17 @@ def range_stats_tiled_plain(secs, xs, valids, window, max_behind, max_ahead,
             d = j + off
             if dl <= d <= dh:
                 p = i0 + d
-                _, c2, key, _ = at(p)
+                inrow = (p >= 0) & (p < L)
+                _, c2, key, _ = at(p, inrow)
                 hit = ((key >= acc["lo"][..., j]) & (key <= acc["hi"][..., j])
-                       & (acc["vi"][..., j] | ~torch.signbit(c2))
-                       & ((p >= 0) & (p < L)))
+                       & (acc["vi"][..., j] | ~torch.signbit(c2)) & inrow)
                 acc["clip"][..., j] |= hit
 
-    for kind, dl, dh in range_windows(hb, ha, E, T, window_cap):
-        win["lanes"] = (dl, T - E + dh)
+    for kind, dl, dh in windows:
+        enter(dl, dh)
         if kind != "ahead" and "cnt" not in acc:         # own lanes first
-            c, c2, key, xsv = at(i0[:, None] + e)
+            own = i0[:, None] + e
+            c, c2, key, xsv = at(own, torch.ones_like(own, dtype=torch.bool))
             vi = ~torch.signbit(c2)
             acc.update(
                 lo=key - w,
@@ -332,14 +305,20 @@ def range_stats_tiled_plain(secs, xs, valids, window, max_behind, max_ahead,
         if kind != "behind":
             walk_ahead(dl, dh)
             clip_at(ha, dl, dh)
+    return acc
 
-    i = i0[:, None] + e
+
+def _finish_tiles(acc, i, mb, ma, L, c3, dt, dev):
+    """The kernel's epilogue on :func:`_walk_tiles`' accumulators at
+    output lanes ``i`` ([NTH, E]), centres ``c3`` broadcast to them:
+    the seven stats, and each output's clip flag where ``i < L``."""
+    nan = torch.tensor(float("nan"), dtype=dt, device=dev).abs()
+    zero = torch.zeros((), dtype=dt, device=dev)
     s1 = torch.where((i < mb) | (i + ma >= L), acc["s1"] + zero, acc["s1"])
     cnt, s2, mn, mx = acc["cnt"], acc["s2"], acc["mn"], acc["mx"]
     if mb + ma > 0:
         mn = torch.where(torch.isnan(s2), nan, mn)
         mx = torch.where(torch.isnan(s2), nan, mx)
-    c3 = center[..., None]
     one = torch.ones((), dtype=dt, device=dev)
     cnt1 = torch.maximum(cnt, one)
     mean = torch.where(cnt > 0, s1 / cnt1 + c3, nan)
@@ -353,8 +332,175 @@ def range_stats_tiled_plain(secs, xs, valids, window, max_behind, max_ahead,
         "max": torch.where(cnt > 0, mx + c3, nan),
         "sum": torch.where(cnt > 0, total, nan), "stddev": std,
         "zscore": torch.where(acc["vi"], (acc["xs"] - mean) / std, nan)}
+    return planes, acc["clip"] & (i < L)
+
+
+def _bounds(max_behind, max_ahead, L):
+    """(mb, ma, hb, ha): the walks' loop counts and the clip lanes'
+    offsets (``range_params``)."""
+    mb, ma = min(int(max_behind), L - 1), min(int(max_ahead), L - 1)
+    hb = L if int(max_behind) >= L - 1 else int(max_behind) + 1
+    ha = L if int(max_ahead) >= L - 1 else int(max_ahead) + 1
+    return mb, ma, hb, ha
+
+
+def range_stats_tiled_plain(secs, xs, valids, window, max_behind, max_ahead,
+                            window_ahead=0, scales=None, *,
+                            threads: int = ROW_THREADS, lanes: int = LANES,
+                            window_cap: Optional[int] = ROW_WINDOW,
+                            _centers=None) -> Dict[str, torch.Tensor]:
+    """:func:`range_stats_plain`'s stats as the kernel cuts them, bit for
+    bit: tiles of ``threads * lanes`` outputs, each thread ``lanes``
+    consecutive ones (its first at i0); the windows of
+    :func:`range_windows` (``window_cap=None``: one window), each
+    neighbour read checked to lie inside the current one; the behind walk
+    over offsets d = lanes - 2 down to -mb (the ahead walk from 1 up to
+    lanes - 1 + ma) with the active outputs of each step as the kernel's
+    head, middle and tail (or its generic loop where a bound is below
+    ``lanes - 1``); count, sum of squares and min/max updated under the
+    in-window predicate (min/max ignoring NaN, set to NaN at the end
+    where the sum of squares is NaN), the sum by ``inw ? c : 0``, steps
+    past the row skipped and one ``s1 + 0`` for them at the end.
+    ``_centers`` as for :func:`range_stats_plain`."""
+    dt, idt, dev = xs.dtype, secs.dtype, xs.device
+    C, K, L = xs.shape
+    big = torch.iinfo(idt).max
+    (c_pl, c2_pl, key_pl, x), center = _entry_planes(secs, xs, valids,
+                                                     scales, _centers)
+    E, T = int(lanes), int(threads) * int(lanes)
+    mb, ma, hb, ha = _bounds(max_behind, max_ahead, L)
+    nth = -(-L // T) * int(threads)
+    i0 = torch.arange(nth, device=dev) * E            # [NTH]
+    t0 = i0 // T * T
+    zero = torch.zeros((), dtype=dt, device=dev)
+    nzero = torch.tensor(-0.0, dtype=dt, device=dev)
+    win = {}
+
+    def at(p, need):
+        """Entries at lanes p (any shape S) -> [C, K, *S] each, the pad
+        entry outside the row; p must lie in the current window."""
+        lo_, hi_ = win["lanes"]
+        assert bool(((p >= t0.reshape((-1,) + (1,) * (p.dim() - 1)) + lo_)
+                     & (p <= t0.reshape((-1,) + (1,) * (p.dim() - 1))
+                        + hi_)).all()), "read outside the window"
+        inrow = (p >= 0) & (p < L)
+        q = p.clamp(0, L - 1).reshape(-1)
+        shape = (C, K) + tuple(p.shape)
+        pick = lambda pl, pad: torch.where(inrow, pl[..., q].reshape(shape),
+                                           pad)
+        return (pick(c_pl, zero), pick(c2_pl, nzero),
+                pick(key_pl, torch.tensor(big, dtype=idt, device=dev)),
+                pick(x, zero))
+
+    def enter(dl, dh):
+        win["lanes"] = (dl, T - E + dh)
+
+    acc = _walk_tiles(at, i0, E, mb, ma, hb, ha, L, _clamp_window(window),
+                      _clamp_window(window_ahead),
+                      range_windows(hb, ha, E, T, window_cap), dt, idt, dev,
+                      enter)
+    i = i0[:, None] + torch.arange(E, device=dev)
+    planes, clip = _finish_tiles(acc, i, mb, ma, L, center[..., None], dt,
+                                 dev)
     out = {k: v.reshape(C, K, -1)[..., :L] for k, v in planes.items()}
-    out["clipped"] = (acc["clip"] & (i < L)).to(dt).sum((-2, -1))[..., None]
+    out["clipped"] = clip.to(dt).sum((-2, -1))[..., None]
+    return out
+
+
+def range_stats_staged_plain(secs, xs, valids, window, max_behind,
+                             max_ahead, window_ahead=0, scales=None, *,
+                             tile: int = 1024, blocks: int = 1,
+                             lanes: int = LANES,
+                             _centers=None) -> Dict[str, torch.Tensor]:
+    """The staged form's walk (``range_ring_kernel``) emulated in run
+    order, bit for bit: the (column, row, tile) items cut into
+    ``blocks`` runs (:func:`stream.ring_runs`); each run walked over two
+    windows of the tile and its halo, item j's the window j % 2, whose
+    entries carry the row and lane they hold; an item that continues its
+    row takes its first lanes, the halo it shares with the tile before,
+    from the other window (each checked to hold its lane), and forms the
+    lanes after them; one that starts the run or its row forms them all;
+    pads past the row in the last tile; each read of the walk checked to
+    find its own lane's entry; clipped lanes counted in integers a row,
+    added at each row's end and at the run's end, and rounded once.
+    ``_centers`` as for :func:`range_stats_plain`."""
+    dt, idt, dev = xs.dtype, secs.dtype, xs.device
+    C, K, L = xs.shape
+    big = torch.iinfo(idt).max
+    E, T = int(lanes), int(tile)
+    mb, ma, hb, ha = _bounds(max_behind, max_ahead, L)
+    WL = T + hb + ha
+    (c_pl, c2_pl, key_pl, x), center = _entry_planes(secs, xs, valids,
+                                                     scales, _centers)
+    w, wa = _clamp_window(window), _clamp_window(window_ahead)
+    nt = -(-L // T)
+    pad = (torch.zeros((), dtype=dt, device=dev),
+           torch.tensor(-0.0, dtype=dt, device=dev),
+           torch.tensor(big, dtype=idt, device=dev),
+           torch.zeros((), dtype=dt, device=dev))
+    out = {k: torch.full((C, K, L), float("nan"), dtype=dt, device=dev)
+           for k in STATS}
+    tally = torch.zeros((C, K), dtype=torch.int64)
+    i0 = torch.arange(T // E, device=dev) * E
+    e = torch.arange(E, device=dev)
+    for s0, s1 in stream.ring_runs(C * K * nt, blocks):
+        tags = [torch.full((WL,), -1, dtype=torch.int64, device=dev)
+                for _ in range(2)]
+        ents = [[torch.zeros(WL, dtype=p.dtype, device=dev) for p in pad]
+                for _ in range(2)]
+        nclip = 0
+        for it in range(s0, s1):
+            ck, t = divmod(it, nt)
+            c, k = divmod(ck, K)
+            t0 = t * T
+            base = t0 - hb
+            row = ck << 40
+            first = it == s0 or t == 0
+            tag, ent = tags[(it - s0) & 1], ents[(it - s0) & 1]
+            if not first:
+                # the halo shared with the tile before, from the other window
+                nc = min(hb + ha, L - base)
+                src = torch.arange(T, T + nc, device=dev)
+                other = tags[(it - s0 + 1) & 1]
+                lane = base + torch.arange(nc, device=dev)
+                assert bool(((other[src] == row + lane) | (lane < 0)).all()), \
+                    "the carried halo lacks a lane"
+                tag[:nc] = other[src]
+                for j in range(4):
+                    ent[j][:nc] = ents[(it - s0 + 1) & 1][j][src]
+            lo = min(max(t0 - hb if first else t0 + ha, 0), L)
+            hi = min(max(t0 + T + ha, lo), L)
+            # the slot: keys, x and valid of lanes [lo, hi)
+            slot = [pl[c, k, lo:hi] for pl in (c_pl, c2_pl, key_pl, x)]
+            end = hi if hi < L else max(L, t0 + T)
+            new = torch.arange(lo, end, device=dev)
+            tag[new - base] = row + new
+            inrow = new < L
+            for j, (sl, pv) in enumerate(zip(slot, pad)):
+                vals = torch.full(new.shape, pv.item(), dtype=sl.dtype,
+                                  device=dev)
+                vals[inrow] = sl[(new[inrow] - lo)]
+                ent[j][new - base] = vals
+
+            def at(p, need):
+                q = (p - base).clamp(0, WL - 1)
+                ok = (tag[q] == row + p) | ~need.expand(p.shape)
+                assert bool(ok.all()), "a walk read a lane its window lacks"
+                return tuple(en[q][None, None] for en in ent)
+
+            acc = _walk_tiles(at, t0 + i0, E, mb, ma, hb, ha, L, w, wa,
+                              [("one", -hb, E - 1 + ha)], dt, idt, dev)
+            i = (t0 + i0)[:, None] + e
+            planes, clip = _finish_tiles(acc, i, mb, ma, L,
+                                         center[c, k].reshape(()), dt, dev)
+            n_out = min(T, L - t0)
+            for name, v in planes.items():
+                out[name][c, k, t0:t0 + n_out] = v.reshape(-1)[:n_out]
+            nclip += int(clip.sum())
+            if t == nt - 1 or it == s1 - 1:
+                tally[c, k] += nclip
+                nclip = 0
+    out["clipped"] = tally.to(dt).to(dev)[..., None]
     return out
 
 
@@ -412,14 +558,19 @@ def range_stats_cuda(secs, xs, valids, window, max_behind, max_ahead,
                 cuda_lib.ptr(scale), out.data_ptr(), clipped.data_ptr(),
                 centre.data_ptr(), _clamp_window(window),
                 _clamp_window(window_ahead), mb, ma, C, K, L)
+        tally = torch.empty((C, K), dtype=torch.int32, device=xs.device)
         if plan is None:
-            tally = torch.empty((C, K), dtype=torch.int32, device=xs.device)
             cuda_lib.launch("range_stats", xs.device, "tempo_range_stats",
                             *args[:7], tally.data_ptr(), *args[7:])
         else:
+            items = C * K * -(-L // plan.tile)
+            blocks = min(items, cuda_lib.range_ring_blocks(
+                xs.device, plan.tile, plan.smem))
+            stream.record_grid("range_stats", blocks, -(-items // blocks))
             cuda_lib.launch("range_stats_ring", xs.device,
-                            "tempo_range_stats_ring", *args, plan.tile,
-                            plan.depth)
+                            "tempo_range_stats_ring", *args[:7],
+                            tally.data_ptr(), *args[7:], plan.tile,
+                            plan.depth, blocks)
     else:
         clipped.zero_()
     stats = {name: out[i] for i, name in enumerate(STATS)}

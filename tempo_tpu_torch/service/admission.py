@@ -161,15 +161,15 @@ def _node_hbm_bytes(node: ir.Node) -> int:
     return K * L * (8 + 5 * int(planes))
 
 
-def _largest_fitting(nbytes, hi: int) -> int:
-    """Largest ``mb`` in [0, hi] with ``nbytes(mb) <= SMEM_LIMIT`` (the
-    bytes grow with ``mb``), -1 when none."""
-    if nbytes(0) > ops_stream.SMEM_LIMIT:
+def _largest_fitting(nbytes, hi: int, limit: int) -> int:
+    """Largest ``mb`` in [0, hi] with ``nbytes(mb) <= limit`` (the bytes
+    grow with ``mb``), -1 when none."""
+    if nbytes(0) > limit:
         return -1
     lo = 0
     while lo < hi:
         mid = (lo + hi + 1) // 2
-        if nbytes(mid) <= ops_stream.SMEM_LIMIT:
+        if nbytes(mid) <= limit:
             lo = mid
         else:
             hi = mid - 1
@@ -179,29 +179,23 @@ def _largest_fitting(nbytes, hi: int) -> int:
 def range_stats_smem(L: int) -> int:
     """Largest block of range stats over rows of ``L`` lanes, whatever
     the data's row bounds: the row form's fixed window, or the largest
-    block ``ops.stream.range_plan`` returns at any row bound.  The
-    planner keeps one (tile, depth) over an interval of bounds and its
-    bytes grow with the bound, so the largest block is the planner's own
-    plan at the last bound each (tile, depth) still fits."""
+    block ``ops.stream.range_plan`` returns at any row bound.  Each of
+    the planner's candidates (``ops.stream.range_candidates``) fits up to
+    a largest bound and its bytes grow with the bound, and the planner
+    takes the first that fits; so a candidate is taken, if at all, up to
+    its own largest bound, and the largest block is the planner's plan at
+    one of those bounds (or at the widest, L - 1)."""
     hi = max(0, L - 1)
     bounds = {hi}
-    depth = ops_stream.dma_buffers()
-    depths = [depth, ops_stream.MIN_DEPTH] if depth > ops_stream.MIN_DEPTH \
-        else [ops_stream.MIN_DEPTH]
-    for want in depths:
-        for T in ops_stream.RANGE_TILES:
-            n_tiles = -(-L // T)
-            if n_tiles < 2:
-                continue
-            d = max(ops_stream.MIN_DEPTH, min(want, n_tiles))
-            mb = _largest_fitting(
-                lambda mb, T=T, d=d: ops_stream.range_ring_bytes(
-                    mb, 0, L, T, d), hi)
-            if mb >= 0:
-                bounds.add(mb)
+    for limit, T, d in ops_stream.range_candidates(L):
+        mb = _largest_fitting(
+            lambda mb, T=T, d=d: ops_stream.range_ring_bytes(mb, 0, L, T, d),
+            hi, limit)
+        if mb >= 0:
+            bounds.add(mb)
     worst = RANGE_ROW_SMEM
     for mb in bounds:
-        plan = ops_stream.range_plan(mb, 0, L, depth)
+        plan = ops_stream.range_plan(mb, 0, L)
         if plan is not None:
             worst = max(worst, plan.smem)
     return worst

@@ -71,31 +71,44 @@ def test_bucket_plan_at_phase_h_width(depth, tile):
 
 
 def test_range_and_resample_plans():
-    # phase C/H: 10 s window, 10 rows behind, 0 ahead
+    # phase C/H: 10 s window, 10 rows behind, 0 ahead.  Range stats keep
+    # the row form's threads an SM (four blocks of 256 at T = 1024):
+    # two windows of the tile and its halo (1,036 lanes, 18,656 B each)
+    # and two slots (9,376 B each) fit 57,344 B; a third slot does not,
+    # nor does any narrower tile at depth 3 or 8 within its own budget,
+    # so every depth settles on depth 2
     for depth in (2, 3, 8):
         p = stream.range_plan(10, 0, 12760, depth)
-        assert (p.tile, p.depth) == (1024, depth)
-    # a halo past a slot's room: the row form, at every depth (the window
-    # takes 18 B a lane of the tile and halo, each slot 9 B more)
+        assert (p.tile, p.depth) == (1024, 2)
+        assert p.smem == 64 + 2 * 18_656 + 2 * 9_376
+        assert p.smem <= stream.range_smem(1024) == 57_344
+    assert [stream.range_smem(T) for T in stream.RANGE_TILES] == [
+        57_344, 28_160, 13_568]
+    # a halo past the windows' and slots' room: the row form, at every
+    # depth (each window takes 18 B a lane of the tile and halo, each slot
+    # 9 B more); 4,042 rows behind is the widest that still stages
     assert stream.range_plan(6_500, 0, 102_056, 2) is None
     assert stream.range_plan(6_500, 0, 102_056, 8) is None
-    assert stream.range_plan(6_000, 0, 102_056, 8) == stream.RingPlan(
-        256, 2, stream.range_ring_bytes(6_000, 0, 102_056, 256, 2))
-    # phase E: the register ladder takes 102,144 B of 232,448 (8 B a
-    # lane); the widest tile fits beside it at every depth
-    want = {2: (1024, 2), 3: (1024, 3), 4: (1024, 4), 8: (1024, 8)}
+    assert stream.range_plan(4_043, 0, 102_056, 8) is None
+    assert stream.range_plan(4_042, 0, 102_056, 8) == stream.RingPlan(
+        256, 2, stream.range_ring_bytes(4_042, 0, 102_056, 256, 2))
+    # phase E: the register ladder takes 102,176 B (8 B a lane and 16 B a
+    # plane for the staged words of a row off 16 bytes); beside it, within
+    # two blocks an SM (115,712 B), a ring a warp: depth barriers and
+    # slots of an item's T valid bytes, 128 d + 16 d (T + 16) bytes
+    want = {2: (256, 2), 3: (256, 3), 4: (128, 4), 8: (256, 2)}
     for depth, (tile, d) in want.items():
         p = stream.resample_plan(12760, depth)
         assert (p.tile, p.depth) == (tile, d)
-        assert p.smem <= stream.SMEM_LIMIT
-        # a slot: secs and x over the tile and the 33 lanes behind it
-        # (4,228 B each), valid (1,057 B), each plane rounded up to 16 B
-        # with 16 B of alignment slack
-        assert p.smem - stream.resample_ring_bytes(12760, tile, 0) \
-            == d * (2 * (4240 + 16) + 1072 + 16)
-    # past the one-launch ladder (16,384 lanes), phase F's rows among
-    # them: the row form, at every depth
-    assert stream.resample_plan(16_384, 8).tile == 1024
+        assert p.smem <= stream.BUCKET_SMEM
+        assert stream.resample_ring_bytes(12760, tile, 0) == 102_176
+        assert p.smem - 102_176 == 128 * d + 16 * d * (tile + 16)
+    # the ladder's planes past two blocks an SM (13,824 lanes), and past
+    # the one-launch ladder (16,384 lanes), phase F's rows among them: the
+    # row form, at every depth
+    assert stream.resample_plan(13_824, 8) == stream.RingPlan(
+        128, 2, stream.resample_ring_bytes(13_824, 128, 2))
+    assert stream.resample_plan(13_825, 2) is None
     assert stream.resample_plan(16_385, 2) is None
     assert stream.resample_plan(102_056, 2) is None
 
