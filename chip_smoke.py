@@ -360,6 +360,42 @@ version bitwise at [2, 1024, 4096], [1, 16, 64], [10240, 8] (phase N's
 cohort step) and [1, 2^20] (plain on the CPU there), with split runs
 bitwise one run.
 
+Q. The chaos campaigns (``tempo_tpu_torch.testing.chaos``) on the card:
+   ``run_campaign``'s two planes at the reference bench's config 15
+   size (48 streams x 80 events), each between its own counter reads;
+   ``run_store_campaign`` at config 17's (200,000 rows in 20,000-row
+   segments, 64 streams over a resident budget of 12, 24 events a
+   stream); ``run_pipeline_campaign`` at config 16's slab (4,000,000
+   physical rows, 32 keys) on a mesh of four ``cuda:0`` entries, so the
+   ingest kill lands between shards of one card, its sweep cut to 8
+   slabs (``rows_total`` 32,000,000, a barrier every 3 slabs and 6
+   windows, against the reference's 10^9, 10 and 8: in 8 slabs only
+   fewer than 7 windows all compile before the kill; each cut printed
+   beside it).  Each campaign asserts its own invariants (no hung
+   ticket, bounded recovery, zero new builds and captures after
+   recovery, bitwise tails and resumed artifacts, refusals by name, no
+   capture left open by a kill), and must have launched its kernels on
+   the card: serving ``ema_scan``, the service the EMA ladder, the
+   pipeline the merge join, range stats (by the engine its shape picks)
+   and the EMA ladder.  These launches are printed apart, never added to
+   the main paths' counts.
+R. The tuner on the card: the smoke sweep (``python -m
+   tempo_tpu_torch.tune --smoke``, ``stream_medium`` and ``serve_batch``
+   in child processes) writing a profile to a temporary directory, run
+   beside phase Q (its children share the card with the campaigns; the
+   sweep's audits, not its rates, are what this phase checks): zero
+   audit failures and exit 0, then a ``strict`` load of that profile,
+   with ``ops.stream.dma_buffers()`` and ``MicroBatchExecutor``'s
+   ``batch_rows`` returning its knobs, then a ``strict`` load of the
+   checked-in profile of this card (``tempo_tpu_torch/tune/profiles/``),
+   printing its knobs and ``measured``.  Every earlier phase ran under
+   that checked-in profile, as a user's process does.  Then the two
+   stream classes' probe in this process at ring depths 2-8 (rates, the
+   plan each depth ran, bitwise across depths).  Last, a saxpy
+   stream rate over a 256 MiB plane, and ``profiling.window_roofline``
+   of phase B's staged range stats at the HHAR shape (row 2, at each
+   depth and at the profile's) against it.
+
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line
 (each kernel's launches summed over the main-path runs of phases C, E,
 F, G's legacy step, H, I, K, M, N, O and P, ``ema_scan``'s phase P
@@ -381,6 +417,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -874,7 +911,7 @@ def phase_b(pd, left, right, left3, dev, d_args):
     # behind and ~60 ahead clipped both ways; bitwise the row form and
     # across depths, clipped the exact count
     wg = torch.Generator(device=dev).manual_seed(19)
-    Kh, Lh = 128, x.shape[1]
+    Kh, Lh = 128, 12760           # the HHAR width, whatever --rows asks
     sh = torch.randint(0, 2, (Kh, Lh), generator=wg, device=dev).cumsum(1)
     xh = torch.randn((2, Kh, Lh), generator=wg, device=dev)
     vh = torch.rand((2, Kh, Lh), generator=wg, device=dev) > 0.1
@@ -986,6 +1023,14 @@ def phase_b(pd, left, right, left3, dev, d_args):
         hh_row, hh_want, check_range_stats, rows["range_stats"],
         "tempo_tpu_torch/csrc/range_stats.cu",
         lambda p: (mb, ma, L, p["tile"], p["depth"])))
+    # the staged form at each depth and at the ring depth this process
+    # resolves (the checked-in tuned profile's, where it sets one): phase
+    # R puts them against a measured stream rate (window_roofline)
+    hh_ms = {f"depth {d}": rows[f"range_stats_ring_d{d}"]["ms"]
+             for d in RING_DEPTHS}
+    hh_ms[f"resolved depth {stream.dma_buffers()}"] = time_ms(
+        lambda: window.range_stats_cuda(*hh_args, _form="ring"))
+    rows["range_stats"]["_hh"] = dict(lanes=Kw * L, ms=hh_ms)
     del got, want, hh_row, hh_want, six8, lt6, x6, valid6, secs6
 
     # -- exact EMA ladder at the HHAR shape and phase D's -------------
@@ -1175,10 +1220,11 @@ def phase_b_slice2(right, left3, dev):
     cases.append((joined(secs, L + 1), joined(x, L + 1), joined(v, L + 1),
                   60, None, f"[{k2 // 2}, {L + 1}] (rows at every word "
                             f"offset)"))
+    n_off = min(256, (x.numel() - 3) // L)   # 256 but at small --rows
     for off in (1, 2, 3):
-        view = lambda t: t.reshape(-1)[off:off + 256 * L].view(256, L)
+        view = lambda t: t.reshape(-1)[off:off + n_off * L].view(n_off, L)
         cases.append((view(neg), view(x), view(v), 7, 1.5,
-                      f"[256, {L}] from word {off}, negative seconds, "
+                      f"[{n_off}, {L}] from word {off}, negative seconds, "
                       f"step 7, scale 1.5"))
     if stream.resample_plan(L + 1) is None:
         raise AssertionError(f"resample EMA: rows of {L + 1} lanes take no "
@@ -6120,6 +6166,230 @@ def phase_p(pd, dev, n_delta=1536, n_stateless=384, n_remainder=128,
     return launches
 
 
+# ----------------------------------------------------------------------
+# Phase Q: the chaos campaigns on the card; phase R: the tuner on the card
+# ----------------------------------------------------------------------
+
+#: phase Q's sizes: the reference bench's config 15 and 17 at full size,
+#: config 16's slab with the slab sweep cut (reference values beside)
+Q_SERVING = dict(n_streams=48, events_per_stream=80, seed=15)
+Q_STORE = dict(rows=200_000, segment_rows=20_000, n_streams=64,
+               resident_budget=12, events_per_stream=24, seed=17)
+#: with at most 8 slabs the sweep can compile every window before its
+#: kill (the campaign's zero-builds-on-resume assertion) only for fewer
+#: than 7 windows, so n_windows is cut too
+Q_PIPELINE = dict(physical_rows=4_000_000, n_keys=32, n_windows=6,
+                  rows_total=32_000_000, ckpt_every=3, seed=16)
+Q_PIPELINE_REFERENCE = dict(rows_total=1_000_000_000, ckpt_every=10,
+                            n_windows=8)
+#: the kernels each campaign must have launched on the card: one of each
+#: group (range stats by whichever engine the shape picks: the row or
+#: staged form, or the windowed engine's rank and prefix sums)
+Q_KERNELS = {"serving": (("ema_scan",),), "service": (("ema_ladder",),),
+             "pipeline": (("asof_merge",),
+                          ("range_stats", "range_stats_ring", "merge_rank",
+                           "legacy_stats"),
+                          ("ema_ladder",))}
+
+
+def phase_q(dev, tmp: str) -> dict:
+    """Phase Q: each campaign between a reset and a read of the launch
+    counters; returns the launches a campaign (printed apart)."""
+    from tempo_tpu_torch.testing import chaos
+
+    take_counts(dev)
+    out = {}
+
+    def run(name, fn):
+        t0 = time.perf_counter()
+        rep = fn()
+        seconds = time.perf_counter() - t0
+        counts = {k: v for k, v in take_counts(dev).items() if v}
+        idle = [group for group in Q_KERNELS.get(name, ())
+                if not any(counts.get(k, 0) for k in group)]
+        if idle:
+            raise AssertionError(f"Q {name} campaign launched no {idle} on "
+                                 f"the card: {counts}")
+        out[name] = counts
+        return rep, seconds
+
+    serving, s_serv = run("serving", lambda: chaos.run_serving_campaign(
+        os.path.join(tmp, "serving"), n_streams=Q_SERVING["n_streams"],
+        events_per_stream=Q_SERVING["events_per_stream"],
+        seed=Q_SERVING["seed"], recovery_bound_s=60.0, device=dev))
+    log(f"Q serving campaign (config 15: {Q_SERVING['n_streams']} streams x "
+        f"{Q_SERVING['events_per_stream']} events): {s_serv:.1f} s, "
+        f"{serving['ticks_per_sec']} ticks/s, recovery "
+        f"{serving['recovery_s']} s, {serving['replayed_ticks']} replayed, "
+        f"outcomes {serving['outcomes']}, injected {serving['injected']}, "
+        f"restarts {serving['restarts']}, snapshot bytes diff/full "
+        f"{serving['snapshot_bytes']['diff_vs_full']}; "
+        f"{serving['tail_audit']}; launches {out['serving']}")
+    service, s_svc = run("service", lambda: chaos.run_service_campaign(
+        seed=Q_SERVING["seed"] + 1, device=dev))
+    log(f"Q service campaign: {s_svc:.1f} s, outcomes {service['outcomes']}, "
+        f"restarts {service['restarts']}, breaker {service['breaker']}; "
+        f"launches {out['service']}")
+    store, s_store = run("store", lambda: chaos.run_store_campaign(
+        os.path.join(tmp, "store"), device=dev, **Q_STORE))
+    log(f"Q store campaign (config 17: {Q_STORE['rows']} rows, "
+        f"{Q_STORE['n_streams']} streams over {Q_STORE['resident_budget']} "
+        f"resident): {s_store:.1f} s, write resume {store['write_resume']}, "
+        f"refusals {store['refusals_by_name']}, compaction "
+        f"{store['compaction']['segments_before']} -> "
+        f"{store['compaction']['segments_after']} segments, cohort spill "
+        f"{ {k: v for k, v in store['cohort_spill'].items() if k != 'value_audit'} }; "
+        f"launches {out['store']}")
+    log("Q pipeline campaign cuts (config 16): " + ", ".join(
+        f"{k} {Q_PIPELINE[k]} (reference {v})"
+        for k, v in Q_PIPELINE_REFERENCE.items()))
+    pipe, s_pipe = run("pipeline", lambda: chaos.run_pipeline_campaign(
+        os.path.join(tmp, "pipeline"), device=dev,
+        devices=[dev] * 4,
+        recovery_bound_s=120.0, **Q_PIPELINE))
+    if pipe["n_slabs"] > 8:
+        raise AssertionError(f"Q pipeline sweep ran {pipe['n_slabs']} slabs")
+    log(f"Q pipeline campaign: {s_pipe:.1f} s, {pipe['n_slabs']} slabs of "
+        f"{pipe['slab_rows']} rows ({pipe['rows_total']} rows driven, "
+        f"{pipe['rows_per_sec']} rows/s), ingest resume "
+        f"{ {k: v for k, v in pipe['ingest_resume'].items() if k != 'value_audit'} }, "
+        f"quarantine rows kept {pipe['quarantine']['rows_kept']} of "
+        f"{pipe['quarantine']['rows_clean']}, deadline stage "
+        f"{pipe['ingest_deadline_stage']!r}, plan barriers recovery "
+        f"{pipe['plan_barriers']['recovery_s']} s, sweep {pipe['sweep']}, "
+        f"foreign refused {pipe['foreign_signature_refused']}; "
+        f"launches {out['pipeline']}")
+    print(json.dumps({"phase_q": {
+        "recovery_s": {"serving": serving["recovery_s"],
+                       "plan_barriers": pipe["plan_barriers"]["recovery_s"],
+                       "sweep": pipe["sweep"]["recovery_s"]},
+        "seconds": {"serving": round(s_serv, 3), "service": round(s_svc, 3),
+                    "store": round(s_store, 3),
+                    "pipeline": round(s_pipe, 3)},
+        "launches": out}}), flush=True)
+    return out
+
+
+def start_phase_r(tmp: str, dev):
+    """Phase R's smoke sweep as a child process (its own probe children
+    below it), writing its profile under ``tmp``."""
+    out = os.path.join(tmp, "smoke_profile.json")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(HERE), env.get("PYTHONPATH")) if p)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tempo_tpu_torch.tune", "--smoke", "--out",
+         out, "--device", str(dev)], cwd=str(HERE), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    return proc, out, time.perf_counter()
+
+
+def stop_group(proc) -> None:
+    """End ``proc`` and its probe children if it is still running."""
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, 9)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+
+
+def phase_r(sweep, dev, hh: dict) -> None:
+    """Phase R: wait for the smoke sweep, check its audits and load its
+    profile strictly, then the checked-in profile; then the window
+    roofline of phase B's staged range stats against a saxpy rate."""
+    from tempo_tpu_torch import profiling, tune
+    from tempo_tpu_torch.ops import stream
+    from tempo_tpu_torch.serve import MicroBatchExecutor, StreamingTSDF
+    from tempo_tpu_torch.tune import probe
+
+    proc, path, t0 = sweep
+    stdout, stderr = proc.communicate(timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"R smoke sweep exited {proc.returncode}: "
+                             f"{stderr.strip().splitlines()[-5:]}")
+    payload = json.loads(stdout.strip().splitlines()[-1])
+    if payload.get("audit_failures"):
+        raise AssertionError(f"R smoke sweep audit failures: "
+                             f"{payload['audit_failures']}")
+    log(f"R smoke sweep: {seconds:.1f} s (beside phase Q), zero audit "
+        f"failures; " + "; ".join(
+            f"{n}: knobs {r.get('knobs')}, speedup {r.get('speedup')}, "
+            f"{r.get('probes')} probes, {len(r.get('rejected', []))} "
+            f"rejected" for n, r in payload["classes"].items()))
+
+    with env_set("TEMPO_TPU_TUNE_PROFILE", path):
+        tune.reload()
+        prof = tune.load(strict=True)
+        if prof is None or prof["crc"] != tp_crc(path):
+            raise AssertionError("R smoke profile did not load")
+        want_depth = prof["knobs"].get("TEMPO_TPU_DMA_BUFFERS", 2)
+        if stream.dma_buffers() != want_depth:
+            raise AssertionError(f"R dma_buffers() {stream.dma_buffers()} "
+                                 f"!= the profile's {want_depth}")
+        s = StreamingTSDF(["a"], ["x"], window_secs=10, window_rows_bound=8,
+                          device=dev)
+        with MicroBatchExecutor(s) as ex:
+            rows = ex.batch_rows
+        want_rows = tune.knob_value("TEMPO_TPU_SERVE_BATCH_ROWS",
+                                    "serve_batch") or 64
+        if rows != want_rows:
+            raise AssertionError(f"R batch_rows {rows} != the profile's "
+                                 f"{want_rows}")
+        log(f"R strict load of the smoke profile: knobs {prof['knobs']}, "
+            f"dma_buffers() {stream.dma_buffers()}, MicroBatchExecutor "
+            f"batch_rows {rows}")
+    tune.reload()
+    checked_in = tune.load(strict=True)
+    if checked_in is None:
+        raise AssertionError(f"R no checked-in profile for "
+                             f"{tune.runtime_fingerprint()} at "
+                             f"{tune.default_path()}")
+    log(f"R strict load of the checked-in profile "
+        f"{os.path.relpath(tune.active_path(), HERE)} (crc "
+        f"{checked_in['crc']}, {checked_in['fingerprint']}): knobs "
+        f"{checked_in['knobs']}, measured {checked_in['measured']}; "
+        f"dma_buffers() {stream.dma_buffers()}")
+
+    # the stream classes' probe at every ring depth, in this process:
+    # the rate and the plan each depth asked for runs (the sweep prunes
+    # its ladders, so its profile holds no rate a depth)
+    for name in ("stream_dense", "stream_medium"):
+        ladder, digests = [], set()
+        for depth in range(2, 9):
+            with dma_depth(depth):
+                rec = {"knobs": {"TEMPO_TPU_DMA_BUFFERS": depth}}
+                probe.probe_stream(name, dev, rec)
+                plan = stream.last_plan["range_stats"]
+            digests.add(rec["digest"])
+            ladder.append(f"d{depth}: {rec['rows_per_sec']:.6g} rows/s "
+                          f"({rec['t_iter'] * 1e3:.5f} ms; plan "
+                          f"{plan['form']} T={plan.get('tile')} depth "
+                          f"{plan.get('depth')})")
+        if len(digests) != 1:
+            raise AssertionError(f"R {name} changed bits across ring "
+                                 f"depths: {digests}")
+        log(f"R {name} ladder at [256, 4096], bitwise across depths: "
+            + "; ".join(ladder))
+
+    gbps = probe.stream_saxpy_gbps(dev, 256, 262144)
+    log(f"R saxpy stream rate over a 256 MiB plane: {gbps:.1f} GB/s")
+    for label, ms in hh["ms"].items():
+        roof = profiling.window_roofline(
+            hh["lanes"], read_bytes_per_row=4 + 1, write_bytes_per_row=7 * 4,
+            t_iter=ms / 1e3, stream_bytes_per_sec=gbps * 1e9,
+            key_bytes_per_row=4)
+        log(f"B window roofline, row 2 staged at the HHAR shape ({label}, "
+            f"{ms:.4f} ms): {roof}")
+
+
+def tp_crc(path: str) -> int:
+    with open(path) as f:
+        return int(json.load(f)["crc"])
+
+
 def add_counts(*counts):
     """Launch counters of several runs, summed by kernel."""
     out = {}
@@ -6236,6 +6506,18 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     launches11 = phase_p(pd, torch.device("cuda",
                                           torch.cuda.current_device()))
+    torch.cuda.empty_cache()
+    qr_dev = torch.device("cuda", torch.cuda.current_device())
+    with tempfile.TemporaryDirectory(prefix="tempo_qr_") as tmp:
+        t0 = time.perf_counter()
+        sweep = start_phase_r(tmp, qr_dev)
+        try:
+            phase_q(qr_dev, tmp)
+            log(f"Q took {time.perf_counter() - t0:.1f} s")
+            phase_r(sweep, qr_dev, rows["range_stats"].pop("_hh"))
+        finally:
+            stop_group(sweep[0])
+        log(f"Q and R took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     # launches: summed over the main-path runs (phases C, E, F, G's legacy

@@ -9,7 +9,7 @@ Every ``os.environ`` read of the package goes through :func:`get`.
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Dict, Optional
 
 #: name -> one-line contract of every knob read here
 KNOBS = {
@@ -32,7 +32,8 @@ KNOBS = {
         "row-extent ceiling of the runtime-width range-stats engine",
     "TEMPO_TPU_DMA_BUFFERS":
         "depth of the staging ring of the bucket-stats, range-stats and "
-        "resample-EMA kernels, clamped to [2, 8]; default 2",
+        "resample-EMA kernels, clamped to [2, 8]; unset: the tuned "
+        "profile's value, else 2",
     "TEMPO_TPU_SQL_STRICT":
         "strict SQL: selectExpr/filter raise StrictSqlFallback instead of "
         "falling back to pandas eval/query (per-call strict= wins)",
@@ -158,14 +159,24 @@ KNOBS = {
         "total device-memory admission budget of the query service in "
         "bytes (default 2 GiB; explicit 0 admits nothing): a query over "
         "the whole budget is rejected, one over the free share queues",
+    "TEMPO_TPU_TUNE_PROFILE":
+        "tuned-knob profile source (path|off): a path to a profile the "
+        "sweep harness wrote, 'off' to load none, unset = the checked-in "
+        "profile of this device kind under tempo_tpu_torch/tune/profiles/ "
+        "(none ships for the CPU).  Tuned values are priors: a knob set in "
+        "the environment always wins; a corrupt or foreign profile is "
+        "refused by name and the built-in defaults stand",
     "TEMPO_TPU_SERVICE_DEADLINE_S":
         "default end-to-end deadline (seconds) of submitted queries, "
         "carried through quota wait, admission wait and dispatch; unset or "
         "0: none",
 }
 
-#: environment variables of other systems that the port reads
-EXTERNAL_VARS = ("DATABRICKS_RUNTIME_VERSION",)
+#: environment variables of other systems that the port reads; the two
+#: ``TEMPO_BENCH`` names are the tuner probe's, kept from the reference's
+#: ``bench.py`` so one environment drives both probes the same way
+EXTERNAL_VARS = ("DATABRICKS_RUNTIME_VERSION", "TEMPO_BENCH_SMOKE",
+                 "TEMPO_BENCH_TUNE_NO_SAXPY")
 
 
 def get(name: str, default: Optional[str] = None) -> Optional[str]:
@@ -202,11 +213,30 @@ def get_bool(name: str, default: bool = False) -> bool:
 
 
 def snapshot() -> tuple:
-    """``(name, value)`` of every declared knob that is set: what a
-    captured CUDA graph's key folds in, since the knobs pick kernel
-    forms and engines."""
-    return tuple((k, os.environ[k]) for k in sorted(KNOBS)
-                 if k in os.environ)
+    """``(name, value)`` of every declared knob that is set, and the
+    loaded tuned profile's CRC (``tune.stamp()``): what a captured CUDA
+    graph's key folds in, since the knobs, and the profile values that
+    stand in for the unset ones, pick kernel forms and engines."""
+    from tempo_tpu_torch import tune
+
+    out = tuple((k, os.environ[k]) for k in sorted(KNOBS)
+                if k in os.environ)
+    crc = tune.stamp()
+    return out if crc is None else out + (("tune_profile_crc", crc),)
+
+
+def child_env(overrides: Optional[Dict[str, Optional[str]]] = None
+              ) -> Dict[str, str]:
+    """The process environment for a child process (the tuner's probe
+    children), with ``overrides`` applied: ``None`` removes the name,
+    anything else is stringified."""
+    env = dict(os.environ)
+    for name, value in (overrides or {}).items():
+        if value is None:
+            env.pop(name, None)
+        else:
+            env[name] = str(value)
+    return env
 
 
 def env_external(name: str, default: Optional[str] = None) -> Optional[str]:

@@ -52,8 +52,8 @@ raises ``NotImplementedError``.  Several processes pack their own
 series instead (``parallel.multihost.process_series_range``,
 ``shard_series_global``).
 
-Slab pipelining (``TEMPO_TPU_INGEST_RING``, default 2; the port has no
-tuner): the shard loop, and any out-of-core sweep built on
+Slab pipelining (``TEMPO_TPU_INGEST_RING``, else the tuned profile's
+value, else 2): the shard loop, and any out-of-core sweep built on
 :func:`sweep_slabs`, runs as a bounded-ring three-stage pipeline: the
 load of slab N+1 (a producer thread) and the drain of slab N-1 (a
 collector thread) overlap the compute of slab N (the calling thread).
@@ -699,6 +699,15 @@ def _stream_shard(ds, read_cols: List[str], batch_rows: int, filt,
 # Slab pipelining: the bounded-ring three-stage sweep
 # ----------------------------------------------------------------------
 
+def ingest_ring() -> int:
+    """``TEMPO_TPU_INGEST_RING``: the slab ring's depth.  The env knob
+    wins, then the tuned profile's winner (tune/space.py
+    ``ingest_sweep`` class), then the built-in 2."""
+    from tempo_tpu_torch import tune
+
+    return tune.resolve("TEMPO_TPU_INGEST_RING", 2, "ingest_sweep")
+
+
 def sweep_slabs(n_slabs: int, load, compute, drain=None,
                 ring: Optional[int] = None) -> List:
     """Run ``drain(i, compute(i, load(i)))`` for every slab, pipelined
@@ -725,11 +734,7 @@ def sweep_slabs(n_slabs: int, load, compute, drain=None,
     pipeline cleanly drained (threads joined, no orphan slabs).
     Returns the per-slab results in slab order.
     """
-    if ring is None:
-        # the port has no tuner (ops/stream.py says the same of the
-        # staging ring): the knob, else 2
-        ring = config.get_int("TEMPO_TPU_INGEST_RING", 2)
-    ring = max(1, int(ring))
+    ring = max(1, int(ingest_ring() if ring is None else ring))
     n = int(n_slabs)
     if ring <= 1 or n <= 1:
         out = []

@@ -47,8 +47,12 @@ _UNROLL_MAX_W = 64
 
 
 def stream_max_rows() -> int:
-    n = config.get_int("TEMPO_TPU_STREAM_MAX_ROWS")
-    return 16384 if n is None else int(n)
+    """Row-extent ceiling of the runtime-width engine: the knob, else the
+    tuned profile's value (the autotuner's audit-gated winner, which by
+    its rule is never another ceiling than the default), else 16384."""
+    from tempo_tpu_torch import tune
+
+    return tune.resolve("TEMPO_TPU_STREAM_MAX_ROWS", 16384)
 
 
 def shifted_row_budget(n_elems: int, pallas_ok: bool = False) -> int:

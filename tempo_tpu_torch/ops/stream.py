@@ -53,8 +53,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
-from tempo_tpu_torch import config
-
 #: dynamic shared memory one block may take on sm_90 (227 KB)
 SMEM_LIMIT = 232_448
 #: shared memory an SM (228 KB) and the share of it each resident block
@@ -95,16 +93,15 @@ last_plan: Dict[str, dict] = {}
 
 
 def dma_buffers() -> int:
-    """``TEMPO_TPU_DMA_BUFFERS``: the staging ring's depth, default 2,
-    clamped to [2, 8] (one slot overlaps nothing; past 8 the slots crowd
-    out the compute's shared memory).  The reference falls back, when the
-    variable is unset, to the autotuner's tuned profile
-    (``tempo_tpu/tune``) before the default; the port has no tuner yet
-    (ROADMAP A14), so unset means 2."""
-    n = config.get_int("TEMPO_TPU_DMA_BUFFERS")
-    if n is None:
-        n = 2
-    return max(MIN_DEPTH, min(int(n), MAX_DEPTH))
+    """``TEMPO_TPU_DMA_BUFFERS``: the staging ring's depth, clamped to
+    [2, 8] (one slot overlaps nothing; past 8 the slots crowd out the
+    compute's shared memory).  Unset falls back to the tuned profile's
+    value (``tempo_tpu_torch/tune``, the autotuner's measured winner for
+    this card), then to 2."""
+    from tempo_tpu_torch import tune
+
+    n = tune.resolve("TEMPO_TPU_DMA_BUFFERS", 2)
+    return max(MIN_DEPTH, min(n, MAX_DEPTH))
 
 
 @dataclass(frozen=True)

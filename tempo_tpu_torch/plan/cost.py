@@ -158,14 +158,25 @@ def clear_measured() -> None:
 
 
 def params() -> Dict[str, float]:
-    """The active cost inputs: the priors and any :func:`set_measured`
-    overlay on top.  Inside a :func:`pinned` block the snapshot wins
-    outright (build-time consistency).  The reference also overlays its
-    autotuner's profile; the port has no tuner yet (ROADMAP A14)."""
+    """The active cost inputs: the priors, then the tuned profile's
+    overlay (``tempo_tpu_torch/tune``: the rates the autotuner measured
+    on this card, e.g. its saxpy stream rate), then any
+    :func:`set_measured` overlay on top.  A loaded profile also adds
+    ``tune_profile_crc``, inert to the arithmetic, which rides
+    :func:`fingerprint` into the executable cache's key: swapping
+    profiles (which can change knobs the rates do not cover) re-plans
+    instead of replaying.  Inside a :func:`pinned` block the snapshot
+    wins outright (build-time consistency)."""
     pin = _PINNED.get()
     if pin is not None:
         return dict(pin)
+    from tempo_tpu_torch import tune
+
     out = dict(PRIORS)
+    out.update(tune.measured())
+    crc = tune.stamp()
+    if crc is not None:
+        out["tune_profile_crc"] = crc
     with _lock:
         out.update(_measured)
     return out
@@ -186,7 +197,13 @@ def fingerprint(snap: Optional[Dict[str, float]] = None) -> tuple:
     decision made under the other inputs."""
     if snap is None:
         if not enabled():
-            return ("cost-off",)
+            from tempo_tpu_torch import tune
+
+            crc = tune.stamp()
+            # the tuned profile changes kernel-structure knobs (the ring
+            # depth) even with the cost model off: its stamp must still
+            # key the cache so a swap re-plans
+            return ("cost-off",) if crc is None else ("cost-off", crc)
         snap = params()
     return tuple(sorted(snap.items()))
 

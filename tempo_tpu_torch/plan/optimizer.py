@@ -1045,12 +1045,12 @@ def _mark_barriers(root: ir.Node) -> None:
 def _stitch_max_ops() -> int:
     """``TEMPO_TPU_STITCH_MAX_OPS`` — longest run of adjacent
     series-local planned ops collapsed into one ``stitched`` node
-    (plan/stitch.py); < 2 disables the pass.  Default 8 (the reference
-    also consults its autotuner's profile; the port has no tuner yet,
-    ROADMAP A14)."""
-    from tempo_tpu_torch import config
+    (plan/stitch.py); < 2 disables the pass.  Env knob wins, then the
+    tuned profile's winner (tune/space.py ``stitched_chain`` class),
+    then the built-in 8."""
+    from tempo_tpu_torch import tune
 
-    return config.get_int("TEMPO_TPU_STITCH_MAX_OPS", 8)
+    return tune.resolve("TEMPO_TPU_STITCH_MAX_OPS", 8, "stitched_chain")
 
 
 def _stitch_chains(root: ir.Node) -> ir.Node:

@@ -11,7 +11,8 @@ and, with a card present, the card's kernels and copies through
 ``pick_join_engine`` honours the planner's hoisted hint
 (``plan/hints.py``) and, with the cost model on, takes the cost
 argmin (``plan/cost.py``), which reproduces the rule under the default
-priors.  ``window_roofline`` is not ported yet (ROADMAP A14).
+priors.  ``window_roofline`` is the reference's byte accounting of a
+windowed pass against a measured stream rate, copied as it is.
 """
 
 from __future__ import annotations
@@ -88,6 +89,63 @@ def max_merged_lanes() -> int:
 
 def host_bytes(df: pd.DataFrame) -> int:
     return int(df.memory_usage(deep=True).sum())
+
+
+def window_roofline(
+    n_rows: int,
+    read_bytes_per_row: float,
+    write_bytes_per_row: float,
+    restream_bytes_per_row: float = 0.0,
+    t_iter: Optional[float] = None,
+    stream_bytes_per_sec: Optional[float] = None,
+    n_cols: int = 1,
+    key_bytes_per_row: float = 0.0,
+) -> Dict[str, float]:
+    """Roofline accounting for a windowed/streaming config: bytes-moved
+    vs bytes-minimal, and their fractions of a *measured* stream rate.
+
+    * ``bytes_minimal`` — the compulsory traffic of an ideal
+      implementation: every input column read ONCE, every output plane
+      written ONCE.  ``minimal_frac`` answers "how close is this config
+      to the fastest any implementation could possibly be".
+    * ``bytes_moved`` — what the current implementation actually
+      streams, including re-streamed intermediates (e.g. a cast or
+      scale pass that writes a converted copy the kernel then re-reads:
+      ``restream_bytes_per_row``).  ``achieved_frac`` answers "what
+      fraction of the machine's stream capability is this config
+      driving" — the utilization number the hbm-stream bound compares.
+    * ``stream_efficiency`` = minimal/moved — 1.0 means no byte is
+      moved twice; below 1.0 quantifies exactly the re-streaming that
+      kernel fusion (a scale or jitter passed as a kernel argument
+      instead of a converted copy) removes.
+
+    **Column packing** (``n_cols`` > 1): the shared key planes
+    (``key_bytes_per_row`` — timestamps/bucket ids) are compulsory
+    traffic ONCE per pass, while ``read_bytes_per_row`` /
+    ``write_bytes_per_row`` count one *column's* payload and scale by
+    ``n_cols``.  An unpacked implementation re-streams the keys per
+    column — model that by putting the extra (n_cols-1) x key bytes
+    into ``restream_bytes_per_row``; a kernel that reads the keys once
+    for all its columns reclaims exactly that term.  ``n_rows`` stays the per-column row count; the
+    per-row figures below are per base row.
+    """
+    per_row_min = key_bytes_per_row + n_cols * (
+        read_bytes_per_row + write_bytes_per_row)
+    bytes_min = float(n_rows) * per_row_min
+    bytes_moved = bytes_min + float(n_rows) * restream_bytes_per_row
+    out: Dict[str, float] = {
+        "bytes_minimal_per_row": per_row_min,
+        "bytes_moved_per_row": bytes_moved / max(n_rows, 1),
+        "stream_efficiency": round(bytes_min / max(bytes_moved, 1.0), 3),
+    }
+    if n_cols > 1:
+        out["packed_cols"] = n_cols
+    if t_iter and stream_bytes_per_sec:
+        out["achieved_frac"] = round(
+            bytes_moved / t_iter / stream_bytes_per_sec, 3)
+        out["minimal_frac"] = round(
+            bytes_min / t_iter / stream_bytes_per_sec, 3)
+    return out
 
 
 def join_engine_override() -> Optional[str]:

@@ -243,9 +243,12 @@ class MicroBatchExecutor:
             queue_depth = config.get_int("TEMPO_TPU_SERVE_QUEUE_DEPTH",
                                          1024)
         if batch_rows is None:
-            # the env knob, else the built-in 64 (the reference's
-            # autotuner, which may pick another default, is not ported)
-            batch_rows = config.get_int("TEMPO_TPU_SERVE_BATCH_ROWS", 64)
+            # env knob first, then the autotuner's measured winner for
+            # this card (tempo_tpu_torch/tune), then the built-in 64
+            from tempo_tpu_torch import tune
+
+            batch_rows = tune.resolve("TEMPO_TPU_SERVE_BATCH_ROWS", 64,
+                                      "serve_batch")
         self.stream = stream
         self.batch_rows = max(1, int(batch_rows))
         # micro-batch coalescing window: after the first tick of a
@@ -633,11 +636,13 @@ class CohortExecutor(MicroBatchExecutor):
                  coalesce_s: Optional[float] = None,
                  breaker: Optional[CircuitBreaker] = None):
         if coalesce_s is None:
-            # the env knob, else the built-in 2 ms; the reference then
-            # asks its autotuner (tune.knob_value), which is not ported
-            # yet (ROADMAP A14)
-            coalesce_s = config.get_float("TEMPO_TPU_SERVE_COALESCE_S",
-                                          0.002)
+            # the coalescing window is a measured autotuner axis on the
+            # cohort path (tune/space.py): env knob wins, then the
+            # profile's winner, then the built-in 2 ms
+            from tempo_tpu_torch import tune
+
+            coalesce_s = tune.resolve("TEMPO_TPU_SERVE_COALESCE_S", 0.002,
+                                      "serve_cohort", cast=float)
         super().__init__(cohort, queue_depth=queue_depth,
                          batch_rows=batch_rows, coalesce_s=coalesce_s)
         self.cohort = cohort
