@@ -352,7 +352,9 @@ Traces: phases C and H wrap pack, join, stats, EMA and collect in
 ``profiling.annotate`` spans; one extra run each of C's chain, H's
 chain, L.a's cache hit, L.c's op-by-op run and 200 pushes of M.b's
 steady state runs under ``profiling.trace`` (the timed runs stay
-untraced), and for each the script prints the top 10 device kernels and
+untraced; M.b's pushes in a child process, ``--trace-worker``, whose
+trace is its first: a long process's later profiling runs lose device
+records), and for each the script prints the top 10 device kernels and
 copies, the top 10 host spans, the host<->device copy bytes and time,
 and the card's busy share of the traced window (``trace_summary``).
 Phase B also holds ``ema_scan`` (``csrc/ema_scan.cu``) against its plain
@@ -395,6 +397,29 @@ R. The tuner on the card: the smoke sweep (``python -m
    stream rate over a 256 MiB plane, and ``profiling.window_roofline``
    of phase B's staged range stats at the HHAR shape (row 2, at each
    depth and at the profile's) against it.
+
+S. The compiled contracts (``tempo_tpu_torch/plan/contracts.py``) on the
+   card: ``build_all`` builds every registry program at its contract
+   shape on a mesh of eight entries of the card (the fused and service
+   nodes, the serving, cohort and standing steps captured as CUDA
+   graphs), then every rule of ``plan/contract_rules.py``: zero findings
+   beyond the declared barriers.  One line a program: its graphs' node
+   counts by type, kernel nodes by name and memcpy bytes by direction
+   (``profiling.graph_nodes``, the graph walk through libcuda), or its eager
+   record, and the bytes moved between mesh entries against the model.
+   The fused and ``service.dispatch_ema`` graphs must name the merge
+   join's, range stats' and the EMA ladder's kernels, the serving and
+   standing steps' ``ema_scan_kernel``.  Then two planted programs must
+   be flagged: a capture copying a pinned host tensor with
+   ``non_blocking=True`` (``no-host-transfer``) and a float64 [8, 32] op
+   (``no-f64-leak``).  Phase L.a's captured node and phase M.b's push
+   step are walked the same way on their own lines (the fused node's
+   kernels and ``ema_scan_kernel``), the first check that a replayed
+   graph runs the port's kernels.  Phase O.b holds admission's
+   projection (``service.admission.project_footprint``: the reference's
+   model plus the fused graph's bytes, estimated with the cache cold,
+   read from the cached graph after a hit) against the measured peaks of
+   a cold and a hit run: each peak must be at most its projection.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line
 (each kernel's launches summed over the main-path runs of phases C, E,
@@ -442,6 +467,7 @@ RING_PERF_MD_MS = {"bucket_stats": {2: 0.99141, 3: 1.16508, 8: 1.81517}}
 SLICE3_KERNELS = ("asof_merge_lookback", "merge_rank", "cumsum3",
                   "ema_ladder")
 LOOKBACK = 16                 # bench.py's serve-bench maxLookback
+CONTRACT_PLANT = (8, 32)      # phase S's planted programs: [K, L]
 DAY = 86_400
 
 
@@ -3807,6 +3833,9 @@ def phase_l(pd, TSDF, left, right, n, keep):
         if pool is None:
             raise AssertionError("L.a: the fused node was not captured")
         held = sum(exe.graph_bytes().values())
+        for dkey, ent in fnode.objs["_graphs"].items():
+            graph_walk(f"L.a fused node on {dkey}", ent,
+                       FUSED_GRAPH_KERNELS)
     if len(collected) != n or not np.isfinite(
             collected["EMA_x"].to_numpy()).all():
         raise AssertionError("L.a: collected frame lost rows")
@@ -4468,6 +4497,66 @@ def m_hhar_events(pd, left, right, n_right: int):
             vals[order])
 
 
+def trace_apart(events: dict, cfg: dict) -> dict:
+    """M.b's 200 traced steady-state pushes in a process of their own
+    (``--trace-worker DIR``, a fresh ``StreamingTSDF`` over ``events``
+    warmed up to 64 rows): each profiling run of a long process loses
+    a few more device records (measured on an H100: 45,000 records in a
+    fresh process's first two runs of these pushes, 44,997 by its
+    eighth, one ``ema_scan_kernel`` among them), and this trace is the
+    script's fifth.  Relays the worker's lines and returns its
+    ``trace_summary`` with ``captures``, the graphs captured while
+    traced."""
+    import shutil
+
+    tmp = tempfile.mkdtemp(prefix="tempo_mb_trace_")
+    try:
+        np.savez(os.path.join(tmp, "events.npz"), **events)
+        with open(os.path.join(tmp, "cfg.json"), "w") as f:
+            json.dump(cfg, f)
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--trace-worker", tmp], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, timeout=300)
+        for line in proc.stdout.splitlines():
+            if not line.startswith("["):
+                print(line, flush=True)
+        if proc.returncode:
+            raise AssertionError(f"M.b trace worker failed "
+                                 f"({proc.returncode}):\n"
+                                 f"{proc.stdout[-3000:]}")
+        with open(os.path.join(tmp, "summary.json")) as f:
+            return json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def trace_worker(in_dir: str) -> int:
+    """The child of :func:`trace_apart`: warm a stream up, trace 200
+    pushes, write the summary."""
+    from tempo_tpu_torch import profiling
+    from tempo_tpu_torch.serve import StreamingTSDF
+
+    a = np.load(os.path.join(in_dir, "events.npz"))
+    with open(os.path.join(in_dir, "cfg.json")) as f:
+        cfg = json.load(f)
+    names = a["names"]
+    again = StreamingTSDF(names.tolist(), ["wx"], device=torch.device(
+        "cuda", 0), **cfg)
+    again.warmup(64)
+    c0 = profiling.plan_cache_stats()["graph_captures"]
+    _, summary = traced(
+        "M.b steady state (200 pushes)",
+        lambda: drive_stream(again, a["k"], a["ts"], a["is_left"],
+                             a["vals"], a["step"], ["wx"], names,
+                             limit=200)[1],
+        kernels=("ema_scan_kernel",))
+    summary["captures"] = profiling.plan_cache_stats()["graph_captures"] - c0
+    with open(os.path.join(in_dir, "summary.json"), "w") as f:
+        json.dump(summary, f)
+    return 0
+
+
 def phase_m(pd, left, right, n_series: int, dev):
     """Serving one stream (``tempo_tpu_torch.serve``) on the card.  a. The
     reference benchmark's config 11 through ``MicroBatchExecutor``;
@@ -4602,6 +4691,10 @@ def phase_m(pd, left, right, n_series: int, dev):
                              f"{oracle['clipped']}")
     checked = check_served("M.b", k, pos, is_left, got, oracle, ["wx"])
     pool = stream.graph_pool_bytes()
+    lb, step_exe = [(lb, e) for (kind, lb), e in
+                    sorted(stream._exes.items()) if kind == "push"][-1]
+    graph_walk(f"M.b push step (Lb {lb})", step_exe.graph,
+               STEP_GRAPH_KERNELS)
     log(f"M.b HHAR stream ({n_series} series, wx right, phone left, 10 s "
         f"window of <= 64 rows, EMA 0.2, maxLookback {LOOKBACK}): "
         f"{len(k)} events ({int((~is_left).sum())} right, "
@@ -4617,16 +4710,10 @@ def phase_m(pd, left, right, n_series: int, dev):
     # the steady state traced: a replay launches ema_scan through no
     # wrapper, so the trace shows it ran, once a right push (a right
     # push takes an even step: serve_steps gives a run its side's parity)
-    again = StreamingTSDF(names.tolist(), ["wx"], device=dev, **cfg_b)
-    again.warmup(64)
     right_pushes = int((np.unique(step)[:200] % 2 == 0).sum())
-    c0 = stats()["graph_captures"]
-    _, summary = traced(
-        "M.b steady state (200 pushes)",
-        lambda: drive_stream(again, k, ts, is_left, vals, step, ["wx"],
-                             names, limit=200)[1],
-        kernels=("ema_scan_kernel",))
-    if stats()["graph_captures"] != c0:
+    summary = trace_apart(dict(k=k, ts=ts, is_left=is_left, vals=vals,
+                               step=step, names=names), cfg_b)
+    if summary["captures"]:
         raise AssertionError("M.b traced run captured a graph")
     ran = summary["kernel_counts"]["ema_scan_kernel"]
     if not summary["device_events"]:
@@ -4636,7 +4723,7 @@ def phase_m(pd, left, right, n_series: int, dev):
                              f"times for {right_pushes} right pushes")
     log(f"M.b traced steady state: {right_pushes} right pushes of 200, "
         f"ema_scan_kernel runs on the card in their graph replays: {ran}")
-    del stream, again
+    del stream
 
     # -- c. no lookback, skip_nulls both ways ---------------------------
     r_idx = np.flatnonzero(~is_left)
@@ -5513,7 +5600,8 @@ def o_hhar(pd, TSDF, left, right, keep, mesh):
     from tempo_tpu_torch.plan import cache as plan_cache
     from tempo_tpu_torch.service import (AdmissionController,
                                          AdmissionError, QueryService,
-                                         lazy_frame, project_footprint)
+                                         admission, lazy_frame,
+                                         project_footprint)
 
     want = keep["H"]["planes"]
     plan_cache.CACHE.clear()
@@ -5527,41 +5615,68 @@ def o_hhar(pd, TSDF, left, right, keep, mesh):
     t0 = time.perf_counter()
     fp = project_footprint(root)
     proj_s = time.perf_counter() - t0
+    g_cold = admission.graph_bytes(root)
     try:
         AdmissionController().check(fp)
         default = "admitted"
     except AdmissionError as e:
         default = f"rejected ({str(e)[:120]}...)"
     free, total = torch.cuda.mem_get_info()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    take_counts(torch.device("cuda"))
-    with QueryService(workers=1, hbm_budget=int(free)) as svc:
+
+    def submit(svc):
+        """One run through ``submit``: (result, seconds, peak bytes above
+        what was allocated before, that base)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         out = svc.submit("hhar", root).result(timeout=900)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-    launches = take_counts(torch.device("cuda"))
-    peak = torch.cuda.max_memory_allocated() - base
-    got = global_planes(out)
-    for c, (wv, wok) in want.items():
-        gv, gok = got[c]
-        if not (torch.equal(gok, wok) and torch.equal(
-                gv.view(torch.int32), wv.view(torch.int32))):
-            raise AssertionError(f"O.b: {c} is not bitwise phase L.a's")
+        peak = torch.cuda.max_memory_allocated() - base
+        got = global_planes(out)
+        for c, (wv, wok) in want.items():
+            gv, gok = got[c]
+            if not (torch.equal(gok, wok) and torch.equal(
+                    gv.view(torch.int32), wv.view(torch.int32))):
+                raise AssertionError(f"O.b: {c} is not bitwise phase "
+                                     f"L.a's")
+        del out, got
+        return secs, peak, base
+
+    take_counts(torch.device("cuda"))
+    with QueryService(workers=1, hbm_budget=int(free)) as svc:
+        secs, peak, base = submit(svc)
+        launches = take_counts(torch.device("cuda"))
+        # after the cold run the cache holds the captured graph: the
+        # projection now reads its bytes instead of the estimate
+        fp_hit = project_footprint(root)
+        g_hit = admission.graph_bytes(root)
+        secs_hit, peak_hit, _ = submit(svc)
     log(f"O.b ({card_line()}): phase L.a's chain (on_mesh -> asofJoin -> "
         f"withRangeStats(10 s) -> EMA) over {len(left)} rows a side "
         f"through QueryService.submit with hbm_budget = the card's free "
-        f"{free} of {total} bytes: {secs:.3f} s, every plane bitwise phase "
-        f"L.a's (phase H's); projected Footprint(hbm_bytes="
-        f"{fp.hbm_bytes}, vmem_bytes={fp.vmem_bytes}) in {proj_s:.3f} s, "
-        f"measured peak {peak} bytes above the {base} already allocated "
-        f"(torch.cuda.max_memory_allocated); under the default 2 GiB "
+        f"{free} of {total} bytes: {secs:.3f} s cold, {secs_hit:.3f} s "
+        f"on a cache hit, every plane bitwise phase L.a's (phase H's) "
+        f"both times; projected Footprint(hbm_bytes={fp.hbm_bytes}, "
+        f"vmem_bytes={fp.vmem_bytes}) in {proj_s:.3f} s with the cache "
+        f"cold (the reference's model {fp.hbm_bytes - g_cold} + the "
+        f"fused graph's estimate {g_cold}), measured peak {peak} bytes "
+        f"above the {base} already allocated "
+        f"(torch.cuda.max_memory_allocated): projection / peak "
+        f"{fp.hbm_bytes / peak:.4f}; after the hit the projection is "
+        f"{fp_hit.hbm_bytes} (the captured graph's {g_hit} bytes), the "
+        f"hit's peak {peak_hit}: projection / peak "
+        f"{fp_hit.hbm_bytes / max(peak_hit, 1):.4f} (against the cold "
+        f"peak {fp_hit.hbm_bytes / peak:.4f}); under the default 2 GiB "
         f"budget the projection is {default}; launches {launches} (the "
         f"fused node's warm-up and capture; a replay counts none); "
         f"kernel builds {cuda_lib.builds}")
-    del out, got
+    if peak > fp.hbm_bytes or peak_hit > fp_hit.hbm_bytes:
+        raise AssertionError(
+            f"O.b: admission projected {fp.hbm_bytes} bytes cold and "
+            f"{fp_hit.hbm_bytes} after a hit, the runs peaked at {peak} "
+            f"and {peak_hit}")
     plan_cache.CACHE.clear()
     torch.cuda.empty_cache()
     return launches
@@ -6385,6 +6500,127 @@ def phase_r(sweep, dev, hh: dict) -> None:
             f"{ms:.4f} ms): {roof}")
 
 
+# ----------------------------------------------------------------------
+# Phase S: the compiled contracts on the card
+# ----------------------------------------------------------------------
+
+#: the kernels a captured graph must name: one of each group (a part of
+#: a mangled name); the fused node runs asof_merge (its row walk, or the
+#: lookback tiles for few rows), range stats (the centres, then the row
+#: or staged form) and the EMA ladder's ema_block
+FUSED_GRAPH_KERNELS = (("asof_walk_kernel", "lookback_join_kernel"),
+                       ("range_centres",),
+                       ("range_rows", "range_ring_kernel"),
+                       ("ema_block",))
+STEP_GRAPH_KERNELS = (("ema_scan_kernel",),)
+
+
+def graph_walk(label: str, captured, need=()) -> dict:
+    """Print the walk of a captured graph (``profiling.graph_nodes``:
+    node counts by type, kernel names, memcpy bytes by direction) and
+    require one kernel of each group of ``need`` among its nodes."""
+    from tempo_tpu_torch import profiling
+
+    nodes = (captured if isinstance(captured, list)
+             else profiling.graph_nodes(captured))
+    summ = profiling.graph_summary(nodes)
+    names = summ["kernels"]
+    missing = [grp for grp in need
+               if not any(g in n for g in grp for n in names)]
+    by_name = {}
+    for n in nodes:
+        if n["type"] == "kernel":
+            k = profiling.short_kernel_name(n["name"])
+            by_name[k] = by_name.get(k, 0) + 1
+    log(f"{label} graph walk ({card_line()}): nodes {summ['nodes']}, "
+        f"memcpy bytes {summ['memcpy_bytes']}, kernel nodes by name "
+        f"{by_name}")
+    if missing:
+        raise AssertionError(f"{label}: the graph names no kernel of "
+                             f"{missing}")
+    return summ
+
+
+def phase_s(dev) -> None:
+    """Phase S: ``plan/contracts.build_all`` on the card (each program at
+    its contract shape on a mesh of eight entries of ``dev``, the
+    replayed ones captured) and every rule: zero findings beyond the
+    declared barriers.  The fused and service programs' graphs must name
+    the fused node's kernels, the serving and standing steps'
+    ``ema_scan_kernel``.  Then two planted programs through the same
+    rules, each of which must be flagged: a capture that copies a pinned
+    host tensor with ``non_blocking=True`` (``no-host-transfer``, from
+    the graph walk) and a float64 [K, L] op (``no-f64-leak``)."""
+    from tempo_tpu_torch import profiling
+    from tempo_tpu_torch.plan import cache as plan_cache
+    from tempo_tpu_torch.plan import contract_rules as rules
+    from tempo_tpu_torch.plan import contracts, fused
+
+    t0 = time.perf_counter()
+    with env_set("TEMPO_TPU_COMPUTE_DTYPE", "float32"):
+        programs, chains, errors = contracts.build_all(device=dev)
+    build_s = time.perf_counter() - t0
+    findings, code = rules.run_compiled(rules.COMPILED_RULES, programs,
+                                        chains, errors)
+    need = {"fused.asof_stats_ema": FUSED_GRAPH_KERNELS,
+            "service.dispatch_ema": FUSED_GRAPH_KERNELS,
+            "serve.step": STEP_GRAPH_KERNELS,
+            "standing.step": STEP_GRAPH_KERNELS,
+            "serve.cohort_push": STEP_GRAPH_KERNELS}
+    for p in programs:
+        moved = profiling.comm_bytes_from_record(p.record)
+        model = dict(p.contract.collectives, **p.contract.incidental)
+        if p.graph is None:
+            log(f"S {p.name}: eager, {len(p.record.ops)} aten ops, moved "
+                f"{moved} B against the model {model} B, host reads "
+                f"{len(p.record.host_reads)}")
+            continue
+        graph_walk(f"S {p.name} ({len(p.graphs())} graph(s); moved "
+                   f"{moved} B against the model {model} B)",
+                   p.graph_nodes(), need.get(p.name, ()))
+    missing = [n for n in need if n not in {p.name for p in programs}]
+    if errors or missing or findings or code:
+        raise AssertionError(
+            f"S: exit code {code}, build errors {errors}, programs "
+            f"missing {missing}, findings "
+            f"{[f.render() for f in findings]}")
+
+    # planted programs: each must be flagged
+    pinned = torch.arange(CONTRACT_PLANT[1],
+                          dtype=torch.float32).pin_memory()
+    x = torch.randn(CONTRACT_PLANT, device=dev)
+
+    def plant(x):
+        buf = torch.empty(pinned.shape, device=x.device)
+        buf.copy_(pinned, non_blocking=True)
+        return [x + buf]
+
+    host_p = contracts.CompiledProgram(
+        "planted.pinned_copy", contracts._record(plant, x)[0],
+        contracts.Contract(), fused.capture(None, dev, plant, [x]))
+    f64_p = contracts.CompiledProgram(
+        "planted.f64", contracts._record(lambda t: t.double() * 3, x)[0],
+        contracts.Contract())
+    got = {}
+    for rule, p in ((rules.NoHostTransferRule(), host_p),
+                    (rules.NoF64LeakRule(), f64_p)):
+        found, c = rules.run_compiled([rule], [p], [], {}, registry=False)
+        got[p.name] = [f.render() for f in found]
+        if c != rule.code:
+            raise AssertionError(f"S: {p.name} was not flagged by "
+                                 f"{rule.name}: {got[p.name]}")
+    graph_walk("S planted.pinned_copy", host_p.graph_nodes())
+    n_graphs = sum(len(p.graphs()) for p in programs)
+    del programs, chains, host_p
+    plan_cache.CACHE.clear()
+    torch.cuda.empty_cache()
+    log(f"S compiled contracts ({card_line()}): {len(need)} graph "
+        f"programs named their kernels; {n_graphs} graphs walked; zero "
+        f"findings over the registry (build {build_s:.2f} s, rules and "
+        f"plants {time.perf_counter() - t0 - build_s:.2f} s); planted "
+        f"programs flagged: {got}")
+
+
 def tp_crc(path: str) -> int:
     with open(path) as f:
         return int(json.load(f)["crc"])
@@ -6407,6 +6643,8 @@ def main(argv=None) -> int:
                     help="series of phase F's frames (the same --rows)")
     ap.add_argument("--rank-worker", nargs=3, metavar=("RANK", "PORT", "DIR"),
                     help="run one rank of phase K's two-process part")
+    ap.add_argument("--trace-worker", metavar="DIR",
+                    help="trace phase M.b's steady state in this process")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -6433,6 +6671,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
 
+    if args.trace_worker:
+        return trace_worker(args.trace_worker)
     if args.rank_worker:
         rank, port, out_dir = args.rank_worker
         return rank_worker(int(rank), int(port), out_dir, args.rows,
@@ -6519,6 +6759,9 @@ def main(argv=None) -> int:
             stop_group(sweep[0])
         log(f"Q and R took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_s(qr_dev)
+    log(f"S took {time.perf_counter() - t0:.1f} s")
 
     # launches: summed over the main-path runs (phases C, E, F, G's legacy
     # step, H, I, K, M, N, O and P), each counted between a reset and a

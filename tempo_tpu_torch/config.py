@@ -166,6 +166,9 @@ KNOBS = {
         "(none ships for the CPU).  Tuned values are priors: a knob set in "
         "the environment always wins; a corrupt or foreign profile is "
         "refused by name and the built-in defaults stand",
+    "TEMPO_TPU_CONTRACT_LANES":
+        "padded lanes L of the compiled contracts' program shapes "
+        "(plan/contracts.py; default 32, clamped to [16, 4096])",
     "TEMPO_TPU_SERVICE_DEADLINE_S":
         "default end-to-end deadline (seconds) of submitted queries, "
         "carried through quota wait, admission wait and dispatch; unset or "

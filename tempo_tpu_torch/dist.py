@@ -218,7 +218,9 @@ def _align_rows(mesh: Mesh, src: Shards, src_axis, dst_axis,
     n_dst = len(dst_devs)
     ks_dst = len(perm) // n_dst
     perm = np.clip(perm, 0, ks_src * len(src) - 1)
-    moves, plan = [], []
+    src_ent, dst_ent = mesh.axis_entries(src_axis), \
+        mesh.axis_entries(dst_axis)
+    moves, plan, entries = [], [], []
     for d in range(n_dst):
         p = perm[d * ks_dst:(d + 1) * ks_dst]
         owner, local = p // ks_src, p % ks_src
@@ -233,8 +235,9 @@ def _align_rows(mesh: Mesh, src: Shards, src_axis, dst_axis,
             else:
                 piece = meta_like(s, shape)
             moves.append((piece, src_ranks[j], dst_devs[d], dst_ranks[d]))
+            entries.append((src_ent[j], dst_ent[d]))
             plan.append((d, sel))
-    moved = transfer(moves)
+    moved = transfer(moves, "all-gather", entries)
     me = process_index()
     out = []
     for d, dev in enumerate(dst_devs):

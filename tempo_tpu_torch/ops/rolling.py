@@ -126,8 +126,12 @@ def _range_query(table, start, end, reducer):
     K, L, nlev = table.shape
     flat = table.reshape(K, L * nlev)
     length = torch.clamp(end - start, min=1)
-    k = torch.clamp(torch.floor(torch.log2(length.double())).long(),
-                    max=nlev - 1)
+    # floor(log2(length)) by a binary search on the bits: integer ops
+    # only (a float64 log2 would put float64 planes on the card)
+    k = torch.zeros_like(length)
+    for b in (16, 8, 4, 2, 1):
+        k = k + ((length >> (k + b)) > 0).to(length.dtype) * b
+    k = torch.clamp(k, max=nlev - 1)
     span = 1 << k
     p1 = (end - 1).clamp(min=0) * nlev + k
     p2 = (start + span - 1).clamp(min=0) * nlev + k

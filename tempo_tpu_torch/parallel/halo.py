@@ -63,7 +63,8 @@ def _neighbour(mesh: Mesh, blocks: Shards, halo: int, fill, step: int,
     axes = time_axes(mesh, series_axis, time_axis)
     _, n_s, n_t = _grid(mesh, series_axis, time_axis)
     devs, ranks = mesh.axis_devices(axes), mesh.axis_ranks(axes)
-    moves, dst = [], []
+    ent = mesh.axis_entries(axes)
+    moves, dst, entries = [], [], []
     for s in range(n_s):
         for t in range(n_t):
             src_t = t + step
@@ -73,7 +74,8 @@ def _neighbour(mesh: Mesh, blocks: Shards, halo: int, fill, step: int,
                 moves.append((piece, ranks[s * n_t + src_t],
                               devs[s * n_t + t], ranks[s * n_t + t]))
                 dst.append(s * n_t + t)
-    moved = dict(zip(dst, transfer(moves)))
+                entries.append((ent[s * n_t + src_t], ent[s * n_t + t]))
+    moved = dict(zip(dst, transfer(moves, "collective-permute", entries)))
     out = []
     for i, b in enumerate(blocks):
         if i in moved:
@@ -176,7 +178,8 @@ def _gather_to_later(mesh: Mesh, parts: Shards, time_axis: str,
     axes = time_axes(mesh, series_axis, time_axis)
     _, n_s, n_t = _grid(mesh, series_axis, time_axis)
     devs, ranks = mesh.axis_devices(axes), mesh.axis_ranks(axes)
-    moves, dst = [], []
+    ent = mesh.axis_entries(axes)
+    moves, dst, entries = [], [], []
     for s in range(n_s):
         for t in range(n_t):
             for j in range(t):
@@ -184,8 +187,9 @@ def _gather_to_later(mesh: Mesh, parts: Shards, time_axis: str,
                 moves.append((parts[src], ranks[src], devs[s * n_t + t],
                               ranks[s * n_t + t]))
                 dst.append(s * n_t + t)
+                entries.append((ent[src], ent[s * n_t + t]))
     got: List[List[torch.Tensor]] = [[] for _ in parts]
-    for i, t in zip(dst, transfer(moves)):
+    for i, t in zip(dst, transfer(moves, "all-gather", entries)):
         got[i].append(t)
     return got
 

@@ -102,6 +102,13 @@ class Mesh:
         """The owner ranks of :meth:`axis_devices`' entries."""
         return [int(r) for r in self._along(self.ranks, axis)]
 
+    def axis_entries(self, axis: Axis) -> List[int]:
+        """The flat indices into ``devices`` of :meth:`axis_devices`'
+        entries: which mesh entry a shard is, even where several entries
+        name one device."""
+        idx = np.arange(self.devices.size).reshape(self.devices.shape)
+        return [int(i) for i in self._along(idx, axis)]
+
     @property
     def n_processes(self) -> int:
         return len(set(int(r) for r in self.ranks.flat))
@@ -325,11 +332,20 @@ def _wire_device() -> torch.device:
     return torch.device("cpu")
 
 
-def transfer(moves: Sequence[Tuple[torch.Tensor, int, torch.device, int]]
+def transfer(moves: Sequence[Tuple[torch.Tensor, int, torch.device, int]],
+             kind: Optional[str] = None,
+             entries: Optional[Sequence[Tuple[int, int]]] = None
              ) -> List[torch.Tensor]:
     """Move tensors between the devices of a mesh: each move is
     ``(tensor, source rank, destination device, destination rank)``,
     the tensor real on the source process (a placeholder elsewhere).
+    ``kind`` names the collective the moves stand for (``all-gather``,
+    ``all-to-all``, ``collective-permute``) and ``entries`` gives each
+    move's (source, destination) mesh entry (:meth:`Mesh.axis_entries`):
+    with both, each move between two distinct entries adds its bytes to
+    the active ``profiling.record_program`` record, even where both
+    entries are one device and nothing moves physically; a move within
+    one entry adds nothing.
     Returns each tensor on its destination device where this process is
     the destination, a placeholder elsewhere.  Within a process a move
     is ``tensor.to(device)``, issued on the current stream of the
@@ -337,6 +353,14 @@ def transfer(moves: Sequence[Tuple[torch.Tensor, int, torch.device, int]]
     processes every send and receive is posted at once
     (``isend``/``irecv``, tagged by the move's index, so the processes,
     which all build the same list, match them) and then awaited."""
+    if kind is not None and entries is not None:
+        from tempo_tpu_torch import profiling
+
+        if profiling.active_record() is not None:
+            for (t, *_), (src_e, dst_e) in zip(moves, entries):
+                if src_e != dst_e:
+                    profiling.note_transfer(kind,
+                                            t.numel() * t.element_size())
     me = process_index()
     out: List[Optional[torch.Tensor]] = [None] * len(moves)
     pending, recvs, keep = [], [], []

@@ -72,7 +72,8 @@ def _a2a(blocks: Shards, mesh: Mesh, series_axis: str, time_axis: str,
         raise ValueError(f"dimension {size} does not split into {n_t} "
                          f"chunks")
     c = size // n_t
-    moves = []
+    ent = mesh.axis_entries(axes)
+    moves, entries = [], []
     for s in range(n_s):
         for j in range(n_t):
             for t in range(n_t):
@@ -80,7 +81,8 @@ def _a2a(blocks: Shards, mesh: Mesh, series_axis: str, time_axis: str,
                 moves.append((blocks[src].narrow(split_dim, j * c, c),
                               ranks[src], devs[s * n_t + j],
                               ranks[s * n_t + j]))
-    moved = transfer(moves)
+                entries.append((ent[src], ent[s * n_t + j]))
+    moved = transfer(moves, "all-to-all", entries)
     me = process_index()
     out = []
     for g in range(n_s * n_t):
@@ -149,9 +151,11 @@ def reshard(shards: Shards, mesh: Mesh, spec: Sequence,
                 else [mesh.devices.flat[0]])
     dst_ranks = (mesh.axis_ranks(dst_axes) if dst_axes
                  else [int(mesh.ranks.flat[0])])
+    src_ent = mesh.axis_entries(src_axes) if src_axes else [0]
+    dst_ent = mesh.axis_entries(dst_axes) if dst_axes else [0]
     src_sl = block_slices(mesh, src_spec, shape)
     dst_sl = block_slices(mesh, spec, shape)
-    moves, plan = [], []
+    moves, plan, entries = [], [], []
     for d, dsl in enumerate(dst_sl):
         for j, ssl in enumerate(src_sl):
             lo = [max(a.start, b.start) for a, b in zip(dsl, ssl)]
@@ -161,9 +165,10 @@ def reshard(shards: Shards, mesh: Mesh, spec: Sequence,
             piece = shards[j][tuple(slice(l - b.start, h - b.start)
                                     for l, h, b in zip(lo, hi, ssl))]
             moves.append((piece, src_ranks[j], dst_devs[d], dst_ranks[d]))
+            entries.append((src_ent[j], dst_ent[d]))
             plan.append((d, tuple(slice(l - a.start, h - a.start)
                                   for l, h, a in zip(lo, hi, dsl))))
-    moved = transfer(moves)
+    moved = transfer(moves, "all-to-all", entries)
     me = process_index()
     out = []
     for d, dsl in enumerate(dst_sl):
@@ -192,7 +197,11 @@ def assemble(shards: Shards, mesh: Mesh, spec: Sequence, device=None,
     ranks = mesh.axis_ranks(axes) if axes else [int(mesh.ranks.flat[0])]
     dev = torch.device(device) if device is not None else \
         devs[ranks.index(rank)]
-    moved = transfer([(s, r, dev, rank) for s, r in zip(shards, ranks)])
+    # the destination is a mesh entry only when the caller names none
+    ent = mesh.axis_entries(axes) if axes else [0]
+    dst_e = ent[ranks.index(rank)] if device is None else -1
+    moved = transfer([(s, r, dev, rank) for s, r in zip(shards, ranks)],
+                     "all-to-all", [(e, dst_e) for e in ent])
     if rank != process_index():
         return meta_like(shards[0], shape)
     out = torch.empty(shape, dtype=shards[0].dtype, device=dev)

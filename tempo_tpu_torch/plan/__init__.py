@@ -21,7 +21,12 @@ instead and return lazy wrappers:
   its device segments (:mod:`~tempo_tpu_torch.plan.fused`,
   :mod:`~tempo_tpu_torch.plan.stitch`) are captured as CUDA graphs
   once and replayed;
-* :mod:`~tempo_tpu_torch.plan.render` — ``explain()``.
+* :mod:`~tempo_tpu_torch.plan.render` — ``explain()``;
+* :mod:`~tempo_tpu_torch.plan.contracts` and
+  :mod:`~tempo_tpu_torch.plan.contract_rules` — the compiled contracts:
+  each production program's declared guarantees, checked on the record
+  of one run and, on the card, on its captured CUDA graph
+  (``python -m tempo_tpu_torch.plan.contracts``).
 
 Recording is suspended inside the executor (and inside eager bodies
 that call other recorded methods) via :func:`suspended`, so replaying a

@@ -169,6 +169,15 @@ class PlanCache:  # thread-shared
                 self._bump(key, "misses")
             return exe
 
+    def peek(self, key: Optional[tuple]):
+        """The executable cached under ``key`` (None when absent or
+        uncacheable), leaving the LRU order and every counter as they
+        are: admission reads the captured graphs' bytes through it."""
+        if key is None:
+            return None
+        with self._lock:
+            return self._entries.get(key)
+
     def _evict_locked(self, key: tuple):  # guarded-by: self._lock
         exe = self._entries.pop(key)
         self.evictions += 1

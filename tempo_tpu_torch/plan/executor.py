@@ -26,6 +26,25 @@ from tempo_tpu_torch.plan import checkpoints as plan_ckpt
 logger = logging.getLogger(__name__)
 
 
+def cache_key(root: ir.Node, snap=None) -> Optional[tuple]:
+    """The executable-cache key of ``root`` under the cost inputs
+    ``snap`` (default: the current ones), None when uncacheable."""
+    from tempo_tpu_torch.plan import cost
+
+    key = ir.state_key(root)
+    if key is None:
+        return None
+    # the reshard-placement mode, the active cost-model inputs and the
+    # checkpoint-barrier spec all change the OPTIMIZED plan without
+    # touching the logical signature — fold them into the cache key so
+    # flipping TEMPO_TPU_RESHARD_PLACEMENT, a measured cost input, or a
+    # checkpointed() context never replays a plan decided under the
+    # other configuration
+    snap = cost.snapshot() if snap is None else snap
+    return key + (optimizer.reshard_mode(), cost.fingerprint(snap),
+                  plan_ckpt.fingerprint())
+
+
 def execute(root: ir.Node):
     from tempo_tpu_torch.plan import cost
 
@@ -34,16 +53,7 @@ def execute(root: ir.Node):
     # the same inputs even if a concurrent set_measured() lands
     # mid-build (cost.pinned below)
     snap = cost.snapshot()
-    key = ir.state_key(root)
-    if key is not None:
-        # the reshard-placement mode, the active cost-model inputs and
-        # the checkpoint-barrier spec all change the OPTIMIZED plan
-        # without touching the logical signature — fold them into the
-        # cache key so flipping TEMPO_TPU_RESHARD_PLACEMENT, a measured
-        # cost input, or a checkpointed() context never replays a plan
-        # decided under the other configuration
-        key = key + (optimizer.reshard_mode(), cost.fingerprint(snap),
-                     plan_ckpt.fingerprint())
+    key = cache_key(root, snap)
 
     def build():
         t0 = time.perf_counter()

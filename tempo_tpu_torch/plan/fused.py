@@ -139,7 +139,11 @@ def capture(key, device, fn: Callable, inputs: Sequence[torch.Tensor],
       not land inside another thread's capture.
 
     A capture that fails raises to its caller (a service ticket, a
-    cohort dispatch); nothing falls back to eager execution."""
+    cohort dispatch); nothing falls back to eager execution.
+
+    The graph keeps its node graph (``keep_graph=True``, instantiated
+    here before the first replay), so ``profiling.graph_nodes`` can walk
+    what the capture recorded (the compiled contracts read it)."""
     with _CAPTURE_LOCK, torch.cuda.device(device):
         static_in = [t.clone() for t in inputs]
         side = torch.cuda.Stream(device)
@@ -148,9 +152,10 @@ def capture(key, device, fn: Callable, inputs: Sequence[torch.Tensor],
             fn(*static_in)            # warm-up, outside the capture
         torch.cuda.current_stream(device).wait_stream(side)
         torch.cuda.synchronize(device)
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             static_out = list(fn(*static_in))
+        graph.instantiate()
         pool = graph_pool_bytes(graph, device)
     return Captured(key, device, static_in, graph, static_out, pool, keep)
 

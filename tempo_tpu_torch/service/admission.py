@@ -31,12 +31,24 @@ Counterpart of ``tempo_tpu/service/admission.py``.  Two budgets:
   name, at submit.  Where no staged plan fits, the row form's bytes are
   reported: the smallest block the op can run with, as the reference
   reports its minimal ``[8, L]`` block.
-* **Device memory** (``TEMPO_TPU_SERVICE_HBM_BUDGET``, default 2 GiB),
-  the reference's model unchanged: every source's packed planes plus the
-  two widest op results, ``K * L * (8 + 5 * planes)`` bytes a frame from
-  ``optimizer._device_plane_count`` and ``packing.pad_length``.  A query
-  over the whole budget is rejected; one over the currently free share
-  queues until running queries release theirs.
+* **Device memory** (``TEMPO_TPU_SERVICE_HBM_BUDGET``, default 2 GiB):
+  the reference's model, every source's packed planes plus the two
+  widest op results, ``K * L * (8 + 5 * planes)`` bytes a frame from
+  ``optimizer._device_plane_count`` and ``packing.pad_length``, plus one
+  term of the port's own: the device bytes of each CUDA graph the plan
+  captures (:func:`graph_bytes`).  XLA's buffers lie inside the
+  reference's model, but a CUDA graph keeps a private pool (its outputs
+  and intermediates) and clones of its static inputs beside the frames,
+  which the model does not count: without the term a budget between
+  the model and the real peak admitted a query that then took more than
+  the budget.  Where the planner's cache holds the plan's captured
+  graph, the term is what it keeps (``Captured.nbytes``); otherwise an
+  estimate from the node's packed geometry (:func:`fused_graph_estimate`,
+  :func:`stitched_graph_estimate`).  Admission captures nothing, and a
+  plan whose graphs would not be captured (on the CPU, or a mesh over
+  several processes) adds nothing.  A query over the whole budget is
+  rejected; one over the currently free share queues until running
+  queries release theirs.
 
 No card is needed: admission runs on the host before anything launches.
 """
@@ -228,10 +240,125 @@ def _node_vmem_bytes(node: ir.Node) -> int:
     return max(ASOF_SMEM, range_stats_smem(L), ema_ladder_smem(L))
 
 
+#: plan ops a card runs as one captured CUDA graph
+#: (``plan/fused.py``, ``plan/stitch.py``)
+GRAPH_OPS = ("fused_asof_stats_ema", "stitched")
+#: device bytes a lane of the fused node's graph holds beyond its value
+#: planes: the static input clones' int64 left and right keys and left
+#: mask; the join's int64 last-row index; the int64 seconds, their
+#: rebase and clamp, and the int32 rebased seconds range stats read
+_FUSED_FIXED = 8 + 8 + 1 + 8 + 3 * 8 + 4
+
+
+def _mesh_of(node: ir.Node):
+    """(mesh, device of the source frame) under ``node``'s primary
+    input chain; the mesh is None for a frame not on one."""
+    cur = node
+    while True:
+        if cur.op == "dist_source":
+            return cur.payload.mesh, None
+        if cur.op == "on_mesh":
+            src = cur.inputs[0].payload if cur.inputs else None
+            return cur.objs.get("mesh"), getattr(src, "device", None)
+        if not cur.inputs:
+            return None, None
+        cur = cur.inputs[0]
+
+
+def captures(node: ir.Node) -> bool:
+    """Whether a card captures ``node`` as a CUDA graph: a graph op
+    whose mesh lies in one process, over CUDA devices (a default mesh
+    is every card, for a CUDA frame)."""
+    import torch
+
+    if node.op not in GRAPH_OPS:
+        return False
+    mesh, dev = _mesh_of(node)
+    if mesh is None:
+        return dev is not None and torch.device(dev).type == "cuda"
+    return mesh.n_processes == 1 and all(
+        torch.device(d).type == "cuda" for d in mesh.devices.flat)
+
+
+def fused_graph_estimate(node: ir.Node) -> int:
+    """Device bytes the graph of a ``fused_asof_stats_ema`` node keeps,
+    from its packed geometry: the static input clones (keys, the left
+    mask and value planes, the right stacks of the value and three key
+    chunk planes with their validity), the static outputs (the joined
+    planes and their validity, the masked right columns, seven stats
+    planes a summarized column, the EMA) and the intermediates (the
+    join's row index, the seconds range stats read, the stats stacks and
+    the clipped plane, the EMA ladder's decay plane), float32 values."""
+    from tempo_tpu_torch import packing
+    from tempo_tpu_torch.plan import optimizer
+
+    geom = _geometry(node)
+    if geom is None or len(node.inputs) != 2:
+        return 0
+    K, L = geom
+    n_l = optimizer._device_plane_count(node.inputs[0]) or 1
+    n_r = optimizer._device_plane_count(node.inputs[1]) or 1
+    picked = node.param("s_cols")
+    n_s = len(picked) if picked else n_l + n_r
+    ema = 1 if node.param("has_ema") else 0
+    n_stats = len(packing.RANGE_STATS)
+    per_lane = (_FUSED_FIXED
+                + 5 * n_l + 2 * 5 * (n_r + 3)        # inputs and joined
+                + 4 * n_r                             # masked right
+                + (4 * n_stats + 6 + 4) * n_s         # stats, stacks
+                + 2 * 4 * ema)                        # EMA, decay plane
+    return K * L * per_lane
+
+
+def stitched_graph_estimate(node: ir.Node) -> int:
+    """Device bytes the graph of a ``stitched`` node keeps: the static
+    input clones (its input frame's planes) and each stage's result
+    planes (the intermediates, the last one the static outputs), by the
+    reference's plane model."""
+    cur = node.inputs[0] if node.inputs else None
+    if cur is None:
+        return 0
+    total = _node_hbm_bytes(cur)
+    for op, params in node.param("stages") or ():
+        cur = ir.Node(op, params=dict(params), inputs=(cur,))
+        total += _node_hbm_bytes(cur)
+    return total
+
+
+def graph_bytes(root: ir.Node) -> int:
+    """Device bytes of the CUDA graphs the plan's graph nodes keep: what
+    the planner's cached executable of the plan holds for a captured
+    node (``fused.graph_bytes``: pool and static inputs), the estimate
+    for one not captured yet.  With no cached executable the fusion and
+    stitching passes run on a copy of the plan to find the graph nodes
+    (host work only: nothing is captured or launched)."""
+    from tempo_tpu_torch.plan import executor, fused, optimizer
+    from tempo_tpu_torch.plan.cache import CACHE
+
+    exe = CACHE.peek(executor.cache_key(root))
+    if exe is not None:
+        plan = exe.plan
+    else:
+        plan = optimizer._stitch_chains(
+            optimizer._fuse_mesh_chain(optimizer._copy(root)))
+    total = 0
+    for n in plan.walk():
+        held = sum(fused.graph_bytes(n).values())
+        if held:
+            total += held
+        elif captures(n):
+            total += (fused_graph_estimate(n)
+                      if n.op == "fused_asof_stats_ema"
+                      else stitched_graph_estimate(n))
+    return total
+
+
 def project_footprint(root: ir.Node) -> Footprint:
     """Project one plan's working set: all source planes resident plus
     the two widest op results (an op's input and output are live
-    together), and the largest kernel block any op takes."""
+    together), the reference's model, plus the bytes of the CUDA graphs
+    the plan captures (:func:`graph_bytes`); and the largest kernel
+    block any op takes."""
     hbm = 0
     op_bytes = []
     vmem = 0
@@ -242,7 +369,7 @@ def project_footprint(root: ir.Node) -> Footprint:
             op_bytes.append(_node_hbm_bytes(n))
             vmem = max(vmem, _node_vmem_bytes(n))
     op_bytes.sort(reverse=True)
-    hbm += sum(op_bytes[:2])
+    hbm += sum(op_bytes[:2]) + graph_bytes(root)
     return Footprint(hbm_bytes=int(hbm), vmem_bytes=int(vmem))
 
 

@@ -23,7 +23,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "tempo_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 FORBIDDEN = {"jax", "jaxlib", "tempo_tpu", "__graft_entry__", "bench",
-             "bench_frame", "bench_baseline"}
+             "bench_frame", "bench_baseline", "tools"}
 
 
 def _imported_roots(path: Path):
