@@ -358,9 +358,14 @@ records), and for each the script prints the top 10 device kernels and
 copies, the top 10 host spans, the host<->device copy bytes and time,
 and the card's busy share of the traced window (``trace_summary``).
 Phase B also holds ``ema_scan`` (``csrc/ema_scan.cu``) against its plain
-version bitwise at [2, 1024, 4096], [1, 16, 64], [10240, 8] (phase N's
-cohort step) and [1, 2^20] (plain on the CPU there), with split runs
-bitwise one run.
+version bitwise at [2, 1024, 4096], M.b's push shape [2, 1024, 64],
+[1, 16, 64], [10240, 8] (phase N's cohort step), [2100, 333], [4100, 5],
+float64 [3, 700, 1366] and [1, 2^20] (plain on the CPU there), with split
+runs bitwise one run, and times each shape eagerly and as CUDA-graph
+replays in turns with the kernel's earlier form
+(``csrc/yardstick/ema_scan_warp.cu``, built apart), beside its byte
+bound and its chain bound (a one-thread probe's step times L, with
+``clocks.sm``).
 
 Q. The chaos campaigns (``tempo_tpu_torch.testing.chaos``) on the card:
    ``run_campaign``'s two planes at the reference bench's config 15
@@ -4171,24 +4176,167 @@ def traced(label: str, fn, kernels=()):
 EMA_SCAN_LONG = 1 << 20
 #: the cohort step's EMA at config 14: S * C * K rows of block_lanes()
 COHORT_SCAN = (10240, 8)
+#: M.b's push step: the 1024-series stream's two columns at Lb 64
+PUSH_SCAN = (2, 1024, 64)
+#: float32 shapes past the callers': an odd L whose last tile is partial
+#: and an L of 5, each over R not a multiple of the block's rows
+EMA_SCAN_ODD = ((2100, 333), (4100, 5))
+#: the float64 shape (R = 2100, not a multiple of the block's rows)
+EMA_SCAN_F64 = (3, 700, 1366)
+#: the kernel's earlier form, timed in turns with the kernel
+EMA_SCAN_YARDSTICK = ("tempo_tpu_torch", "csrc", "yardstick",
+                      "ema_scan_warp.cu")
+#: kernel launches a timing graph holds, and its replays
+GRAPH_LAUNCHES, GRAPH_REPLAYS = 16, 20
+
+
+def build_yardstick(tmp: str):
+    """The yardstick form (``csrc/yardstick/ema_scan_warp.cu``) built with
+    the library's nvcc flags into ``tmp`` and loaded (ctypes)."""
+    import ctypes
+
+    from tempo_tpu_torch.ops import cuda_lib
+
+    src = HERE.joinpath(*EMA_SCAN_YARDSTICK)
+    so = Path(tmp) / "libema_scan_warp.so"
+    out = subprocess.run(
+        [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-I", str(cuda_lib.CSRC),
+         "-shared", str(src), "-o", str(so)],
+        capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{out.stdout}{out.stderr}")
+    lib = ctypes.CDLL(str(so))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.tempo_ema_scan_warp.argtypes = [P, P, ctypes.c_double] + [P] * 3 + \
+        [I] * 3 + [P]
+    lib.tempo_ema_scan_warp.restype = I
+    return lib
+
+
+def yardstick_scan(lib, x, v, alpha, y0):
+    """``(ys, y_end)`` of the yardstick form (no launch count: it is no
+    kernel of the port)."""
+    L = x.shape[-1]
+    ys = torch.empty_like(x)
+    y_end = torch.empty(x.shape[:-1], dtype=x.dtype, device=x.device)
+    code = lib.tempo_ema_scan_warp(
+        x.data_ptr(), v.data_ptr(), float(alpha),
+        None if y0 is None else y0.data_ptr(), ys.data_ptr(),
+        y_end.data_ptr(), x.numel() // L, L, int(x.dtype == torch.float64),
+        torch.cuda.current_stream().cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"yardstick ema_scan launch failed: CUDA error "
+                           f"{code}")
+    return ys, y_end
+
+
+def scan_bare(x, v, alpha, y0, plan):
+    """``(ys, y_end)`` of the kernel launched straight through ctypes at
+    ``plan`` (``(rows, tile, depth)``), as :func:`yardstick_scan` launches
+    the yardstick: the eager figure the two share (no wrapper checks, no
+    launch count)."""
+    from tempo_tpu_torch.ops import cuda_lib
+
+    L = x.shape[-1]
+    ys = torch.empty_like(x)
+    y_end = torch.empty(x.shape[:-1], dtype=x.dtype, device=x.device)
+    code = cuda_lib.lib().tempo_ema_scan(
+        x.data_ptr(), v.data_ptr(), float(alpha),
+        None if y0 is None else y0.data_ptr(), ys.data_ptr(),
+        y_end.data_ptr(), x.numel() // L, L, *plan,
+        int(x.dtype == torch.float64),
+        torch.cuda.current_stream().cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"ema_scan launch failed: CUDA error {code}")
+    return ys, y_end
+
+
+def graph_ms(fn, launches: int = GRAPH_LAUNCHES,
+             replays: int = GRAPH_REPLAYS) -> float:
+    """Milliseconds a launch of ``fn()`` as CUDA-graph replays: a graph of
+    ``launches`` calls, replayed ``replays`` times between CUDA events
+    (after a warm-up replay), over the launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(launches):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * launches)
+    del g
+    return ms
+
+
+def chain_probe(dev, dtype) -> dict:
+    """The chain bound's step: one thread runs 2^20 dependent
+    ``mul_rn``/``add_rn`` steps (``tempo_ema_chain_probe``), timed by CUDA
+    events over 5 launches, with ``clocks.sm`` read by ``nvidia-smi``
+    while 100 more launches run."""
+    from tempo_tpu_torch.ops import cuda_lib
+
+    steps = 1 << 20
+    di = torch.tensor([0.8, 0.25, 1.5], dtype=dtype, device=dev)
+    out = torch.empty(1, dtype=dtype, device=dev)
+    is_double = int(dtype == torch.float64)
+
+    def run():
+        code = cuda_lib.lib().tempo_ema_chain_probe(
+            di.data_ptr(), out.data_ptr(), steps, is_double,
+            torch.cuda.current_stream().cuda_stream)
+        if code != 0:
+            raise RuntimeError(f"chain probe launch failed: {code}")
+
+    ms = time_ms(run, reps=5)
+    for _ in range(100):
+        run()
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    torch.cuda.synchronize()
+    return dict(step_ns=ms * 1e6 / steps, clocks_sm=clock,
+                cycles_a_step=(ms * 1e6 / steps
+                               * float(clock.split()[0]) / 1e3
+                               if clock.split() and clock.split()[0]
+                               .replace(".", "").isdigit() else None))
 
 
 def phase_b_ema_scan(dev):
     """``ema_scan`` bitwise against its plain version at [2, 1024, 4096],
-    [1, 16, 64], [10240, 8] (phase N's cohort step) and one row of 2^20
-    lanes (whose plain run is on the CPU:
-    two torch ops a lane take seconds either way), alpha 0.2 and 1, with
-    and without a carry, -0.0 in x and NaN in null lanes (and, but for
-    the long row, whose plain run writes the CPU's NaN bits, +-inf and
-    NaN in valid lanes); split invariance on the card (A, then B from
-    A's ``y_end``, bitwise one run over A + B).
+    M.b's push shape [2, 1024, 64], [1, 16, 64], [10240, 8] (phase N's
+    cohort step), [2100, 333] and [4100, 5] (R not a multiple of the
+    block's rows), float64 [3, 700, 1366] and one row of 2^20 lanes
+    (whose plain run is on the CPU: two torch ops a lane take seconds
+    either way), alpha 0.2 and 1, with and without a carry, -0.0 in x and
+    NaN in null lanes (and, but for the long row, whose plain run writes
+    the CPU's NaN bits, +-inf and NaN in valid lanes); split invariance
+    on the card (A, then B from A's ``y_end``, bitwise one run over A +
+    B; A's L is L // 3 + 1, 1366 at 4096); the kernel's shared memory
+    equal to its plan's.  Then each shape timed eagerly (host-inclusive:
+    through the wrapper, and bare: a ctypes launch a call, as the
+    yardstick's) and as CUDA-graph replays, in turns with the yardstick
+    form (the kernel's earlier form, bitwise the same), the plan against
+    four others at [2, 1024, 4096], and the chain bound from a one-thread
+    probe beside ``clocks.sm``.
     Returns its row of the result line (launches filled in by phase M)."""
-    from tempo_tpu_torch.ops import scan
+    from tempo_tpu_torch.ops import cuda_lib, scan
 
     gen = torch.Generator(device=dev).manual_seed(16)
 
-    def case(shape):
-        x = torch.randn(shape, generator=gen, device=dev) * 50
+    def case(shape, dtype=torch.float32):
+        x = (torch.randn(shape, generator=gen, device=dev) * 50).to(dtype)
         v = torch.rand(shape, generator=gen, device=dev) > 0.2
         x[..., 0] = -0.0
         x[..., 1::7] = -0.0
@@ -4196,7 +4344,7 @@ def phase_b_ema_scan(dev):
         # NaN in null lanes (ignored: their input is 0), as the serving
         # steps pass them
         x = torch.where(~v & (lanes % 3 == 0), float("nan"), x)
-        if shape[-1] < EMA_SCAN_LONG:
+        if shape[-1] < EMA_SCAN_LONG and shape[-1] >= 4:
             # +-inf and NaN in valid lanes near the end of three rows,
             # carried to the end (the plain run is on the card, so the
             # NaN bits are the card's)
@@ -4206,76 +4354,173 @@ def phase_b_ema_scan(dev):
                                      float("nan"))):
                 rows2[r % rows2.shape[0], -4 + r] = val
                 vrows[r % rows2.shape[0], -4 + r] = True
-        y0 = torch.randn(shape[:-1], generator=gen, device=dev)
+        y0 = torch.randn(shape[:-1], generator=gen, device=dev).to(dtype)
         return x, v, y0
 
-    inputs = {}
-    for shape in ((2, 1024, 4096), (1, 16, 64), COHORT_SCAN,
-                  (1, EMA_SCAN_LONG)):
-        x, v, y0 = inputs[shape] = case(shape)
-        L = shape[-1]
-        checks = ([(0.2, y0)] if L == EMA_SCAN_LONG
-                  else [(a, c) for a in (0.2, 1.0) for c in (None, y0)])
-        for alpha, carry in checks:
-            got, got_end = scan.ema_scan_cuda(x, v, alpha, carry)
-            on = "cpu" if L == EMA_SCAN_LONG else dev
-            want, want_end = scan.ema_scan_plain(
-                x.to(on), v.to(on), alpha, None if carry is None
-                else carry.to(on))
-            what = f"ema_scan {list(shape)} alpha {alpha} " \
-                   f"{'y0' if carry is not None else 'zero carry'}"
-            check_bitwise(got, want.to(dev), what)
-            check_bitwise(got_end, want_end.to(dev), what + " (y_end)")
-        cut = L // 3 + 1
-        a, a_end = scan.ema_scan_cuda(x[..., :cut], v[..., :cut], 0.2, y0)
-        b, b_end = scan.ema_scan_cuda(x[..., cut:], v[..., cut:], 0.2, a_end)
-        whole, whole_end = scan.ema_scan_cuda(x, v, 0.2, y0)
-        check_bitwise(torch.cat([a, b], -1), whole,
-                      f"ema_scan {list(shape)} split at {cut}")
-        check_bitwise(b_end, whole_end, f"ema_scan {list(shape)} split y_end")
-
-    def nbytes(shape):
-        R, L = int(np.prod(shape[:-1])), shape[-1]
-        return R * L * (4 + 1 + 4) + R * 8        # x, valid, ys; y0, y_end
-
     main = (2, 1024, 4096)
-    x, v, y0 = inputs[main]
+    shapes = {"main": (main, torch.float32),
+              "push_shape": (PUSH_SCAN, torch.float32),
+              "serving_shape": ((1, 16, 64), torch.float32),
+              "cohort_shape": (COHORT_SCAN, torch.float32),
+              "odd_lanes": (EMA_SCAN_ODD[0], torch.float32),
+              "five_lanes": (EMA_SCAN_ODD[1], torch.float32),
+              "f64": (EMA_SCAN_F64, torch.float64),
+              "long_row": ((1, EMA_SCAN_LONG), torch.float32)}
+    smem = cuda_lib.lib().tempo_ema_scan_smem
+    inputs, plans = {}, {}
+    with tempfile.TemporaryDirectory(prefix="tempo_yard_") as tmp:
+        t0 = time.perf_counter()
+        yard = build_yardstick(tmp)
+        yard_s = time.perf_counter() - t0
+        for key, (shape, dtype) in shapes.items():
+            x, v, y0 = inputs[key] = case(shape, dtype)
+            L = shape[-1]
+            R = x.numel() // L
+            plan = plans[key] = scan.ema_scan_plan(
+                R, L, x.element_size(), cuda_lib.sm_count(dev))
+            if smem(plan["rows"], plan["tile"], plan["depth"], L,
+                    int(dtype == torch.float64)) != plan["smem"]:
+                raise AssertionError(f"ema_scan {list(shape)}: the kernel's "
+                                     f"shared memory differs from {plan}")
+            long = L == EMA_SCAN_LONG
+            checks = ([(0.2, y0)] if long
+                      else [(a, c) for a in (0.2, 1.0) for c in (None, y0)])
+            for alpha, carry in checks:
+                got, got_end = scan.ema_scan_cuda(x, v, alpha, carry)
+                on = "cpu" if long else dev
+                want, want_end = scan.ema_scan_plain(
+                    x.to(on), v.to(on), alpha, None if carry is None
+                    else carry.to(on))
+                what = f"ema_scan {list(shape)} {dtype} alpha {alpha} " \
+                       f"{'y0' if carry is not None else 'zero carry'}"
+                check_bitwise(got, want.to(dev), what)
+                check_bitwise(got_end, want_end.to(dev), what + " (y_end)")
+                old, old_end = yardstick_scan(yard, x, v, alpha, carry)
+                check_bitwise(old, got, what + " (yardstick form)")
+                check_bitwise(old_end, got_end, what + " (yardstick y_end)")
+            cut = L // 3 + 1
+            if cut < L:
+                a, a_end = scan.ema_scan_cuda(x[..., :cut], v[..., :cut],
+                                              0.2, y0)
+                b, b_end = scan.ema_scan_cuda(x[..., cut:], v[..., cut:],
+                                              0.2, a_end)
+                whole, whole_end = scan.ema_scan_cuda(x, v, 0.2, y0)
+                check_bitwise(torch.cat([a, b], -1), whole,
+                              f"ema_scan {list(shape)} split at {cut}")
+                check_bitwise(b_end, whole_end,
+                              f"ema_scan {list(shape)} split y_end")
+
+        # timed in turns: yardstick, kernel, kernel, yardstick; eagerly
+        # through the wrapper, straight through ctypes (as the yardstick),
+        # and as graph replays
+        times = {}
+        for key, (shape, dtype) in shapes.items():
+            x, v, y0 = inputs[key]
+            p = plans[key]
+            plan = (p["rows"], p["tile"], p["depth"])
+            long = key == "long_row"
+            reps = 3 if long else 10
+            new = lambda: scan.ema_scan_cuda(x, v, 0.2, y0)
+            bare = lambda: scan_bare(x, v, 0.2, y0, plan)
+            old = lambda: yardstick_scan(yard, x, v, 0.2, y0)
+            t = {"ms": [], "bare_ms": [], "parent_ms": [], "replay_ms": [],
+                 "parent_replay_ms": []}
+            for fn, tag in ((old, "parent_"), (new, ""), (new, ""),
+                            (old, "parent_")):
+                t[tag + "ms"].append(time_ms(fn, reps=reps))
+                if tag == "":
+                    t["bare_ms"].append(time_ms(bare, reps=reps))
+                t[tag + "replay_ms"].append(
+                    graph_ms(fn, launches=2 if long else GRAPH_LAUNCHES,
+                             replays=2 if long else GRAPH_REPLAYS))
+            times[key] = t
+        # the plan against others at the main shape (replays, bare
+        # launches): four, two and one blocks an SM, and half the tile
+        x, v, y0 = inputs["main"]
+        sweep = {}
+        for alt in ((4, 512, 2), (8, 256, 4), (16, 128, 4), (4, 256, 2),
+                    (2, 1024, 2)):
+            sweep["x".join(map(str, alt))] = graph_ms(
+                lambda: scan_bare(x, v, 0.2, y0, alt))
+    chain32 = chain_probe(dev, torch.float32)
+    chain64 = chain_probe(dev, torch.float64)
+
+    def nbytes(shape, item=4):
+        R, L = int(np.prod(shape[:-1])), shape[-1]
+        return R * L * (item + 1 + item) + R * 2 * item   # x, valid, ys; y0, y_end
+
+    x, v, y0 = inputs["main"]
     b, by = bound_ms(nbytes(main), 2 * x.numel())
-    xs, vs, ys0 = inputs[(1, 16, 64)]
-    xl, vl, yl0 = inputs[(1, EMA_SCAN_LONG)]
-    xc, vc, yc0 = inputs[COHORT_SCAN]
     row = dict(
         name="ema_scan", route="cuda",
         source="tempo_tpu_torch/csrc/ema_scan.cu",
         replaces="tempo_tpu/ops/rolling.py:485 (ema_scan, a lax.scan; no "
                  "Pallas kernel)",
         max_abs_err=0.0,
-        ms=time_ms(lambda: scan.ema_scan_cuda(x, v, 0.2, y0)),
         plain_ms=time_ms(lambda: scan.ema_scan_plain(x, v, 0.2, y0), reps=2),
         bound_ms=b, bound_by=by, library_ms=None,
-        shape=f"{list(main)}",
-        ms_serving_shape=time_ms(lambda: scan.ema_scan_cuda(xs, vs, 0.2, ys0)),
-        bound_ms_serving_shape=bound_ms(nbytes((1, 16, 64)), 2 * 16 * 64)[0],
-        ms_cohort_shape=time_ms(lambda: scan.ema_scan_cuda(xc, vc, 0.2, yc0)),
-        bound_ms_cohort_shape=bound_ms(nbytes(COHORT_SCAN),
-                                       2 * int(np.prod(COHORT_SCAN)))[0],
-        ms_long_row=time_ms(lambda: scan.ema_scan_cuda(xl, vl, 0.2, yl0),
-                            reps=3),
-        bound_ms_long_row=bound_ms(nbytes((1, EMA_SCAN_LONG)),
-                                   2 * EMA_SCAN_LONG)[0])
-    log(f"B ema_scan: bitwise (bit views) equal to the plain version at "
-        f"[2, 1024, 4096], [1, 16, 64], {list(COHORT_SCAN)} (alpha 0.2 and 1, with and without a "
-        f"carry; -0.0, NaN in null lanes, +-inf and NaN in valid lanes) and "
-        f"[1, {EMA_SCAN_LONG}] (plain on the CPU; -0.0 and NaN in null "
-        f"lanes); split runs bitwise one run at every shape; kernel "
-        f"{row['ms']:.4f} ms at [2, 1024, 4096] (bound {b:.4f}, plain "
-        f"{row['plain_ms']:.2f} ms), {row['ms_serving_shape']:.4f} ms at "
-        f"[1, 16, 64], {row['ms_cohort_shape']:.4f} ms at {list(COHORT_SCAN)} "
-        f"(phase N's cohort step: S * C * K rows of block_lanes(); bound "
-        f"{row['bound_ms_cohort_shape']:.5f}), "
-        f"{row['ms_long_row']:.3f} ms at [1, {EMA_SCAN_LONG}] "
-        f"(bound {row['bound_ms_long_row']:.4f}: a thread a row runs the "
-        f"row's lanes one after another) ({card_line()})")
+        shape=f"{list(main)}", yardstick_build_s=yard_s,
+        chain_step_ns=chain32["step_ns"],
+        chain_step_ns_f64=chain64["step_ns"],
+        chain_cycles_a_step=chain32["cycles_a_step"],
+        chain_cycles_a_step_f64=chain64["cycles_a_step"],
+        clocks_sm=chain32["clocks_sm"], clocks_sm_f64=chain64["clocks_sm"],
+        plan_sweep_replay_ms=sweep)
+    notes = []
+    for key, (shape, dtype) in shapes.items():
+        item = 8 if dtype == torch.float64 else 4
+        L = shape[-1]
+        sfx = "" if key == "main" else f"_{key}"
+        t = times[key]
+        mean = lambda a: sum(a) / len(a)
+        row[f"ms{sfx}"] = mean(t["ms"])
+        row[f"ms_spread{sfx}"] = [min(t["ms"]), max(t["ms"])]
+        row[f"bare_ms{sfx}"] = mean(t["bare_ms"])
+        row[f"replay_ms{sfx}"] = mean(t["replay_ms"])
+        row[f"replay_ms_spread{sfx}"] = [min(t["replay_ms"]),
+                                         max(t["replay_ms"])]
+        row[f"parent_ms{sfx}"] = mean(t["parent_ms"])
+        row[f"parent_replay_ms{sfx}"] = mean(t["parent_replay_ms"])
+        row[f"parent_replay_ms_spread{sfx}"] = [min(t["parent_replay_ms"]),
+                                                max(t["parent_replay_ms"])]
+        if key != "main":
+            row[f"bound_ms{sfx}"] = bound_ms(
+                nbytes(shape, item), 2 * int(np.prod(shape)))[0]
+        step = chain64 if item == 8 else chain32
+        row[f"chain_bound_ms{sfx}"] = L * step["step_ns"] / 1e6
+        row[f"plan{sfx}"] = plans[key]
+        p = plans[key]
+        notes.append(
+            f"{list(shape)}{' f64' if item == 8 else ''}: "
+            f"{p['form']} {p['rows']}x{p['tile']} d{p['depth']} "
+            f"{p['blocks']} blocks; eager {row[f'ms{sfx}']:.5f}, bare "
+            f"{row[f'bare_ms{sfx}']:.5f} (yardstick "
+            f"{row[f'parent_ms{sfx}']:.5f}), replay "
+            f"{row[f'replay_ms{sfx}']:.5f} (yardstick "
+            f"{row[f'parent_replay_ms{sfx}']:.5f}); bounds bytes "
+            f"{row[f'bound_ms{sfx}']:.5f}, chain "
+            f"{row[f'chain_bound_ms{sfx}']:.5f}")
+    log(f"B ema_scan: bitwise (bit views) equal to the plain version and to "
+        f"the yardstick form at [2, 1024, 4096], {list(PUSH_SCAN)}, [1, 16, "
+        f"64], {list(COHORT_SCAN)}, {list(EMA_SCAN_ODD[0])}, "
+        f"{list(EMA_SCAN_ODD[1])} and float64 {list(EMA_SCAN_F64)} (alpha "
+        f"0.2 and 1, with and without a carry; -0.0, NaN in null lanes, "
+        f"+-inf and NaN in valid lanes) and [1, {EMA_SCAN_LONG}] (plain on "
+        f"the CPU; -0.0 and NaN in null lanes); split runs bitwise one run "
+        f"at every shape; shared memory as planned. Times in ms, eager "
+        f"(host-inclusive: through the wrapper, and bare: a ctypes launch "
+        f"as the yardstick's) and as CUDA-graph replays ({GRAPH_LAUNCHES} "
+        f"launches a graph), each the mean of two turns beside the "
+        f"yardstick's (yardstick, kernel, kernel, yardstick): "
+        + "; ".join(notes)
+        + f"; plans at [2, 1024, 4096] (rows x tile x depth: replay ms) "
+        f"{json.dumps({k: round(t, 5) for k, t in sweep.items()})}"
+        + f"; plain {row['plain_ms']:.2f} ms at [2, 1024, 4096]; chain "
+        f"step {chain32['step_ns']:.4f} ns float32 at clocks.sm "
+        f"{chain32['clocks_sm']} ({chain32['cycles_a_step']} cycles), "
+        f"{chain64['step_ns']:.4f} ns float64 at {chain64['clocks_sm']} "
+        f"({chain64['cycles_a_step']} cycles); yardstick built in "
+        f"{yard_s:.2f} s ({card_line()})")
     return {"ema_scan": row}
 
 

@@ -84,7 +84,8 @@ _SIGNATURES = {
     "tempo_range_stats_ring": [_P] * 8 + [_I] * 10 + [_P],
     "tempo_range_centres": [_P] * 6 + [_I] * 3 + [_P],
     "tempo_ema_ladder": [_P, _P, ctypes.c_float, _P, _P, _I, _I, _P],
-    "tempo_ema_scan": [_P, _P, ctypes.c_double] + [_P] * 3 + [_I] * 3 + [_P],
+    "tempo_ema_scan": [_P, _P, ctypes.c_double] + [_P] * 3 + [_I] * 6 + [_P],
+    "tempo_ema_chain_probe": [_P, _P, _I, _I, _P],
     "tempo_last_valid_index": [_P, _P, _I, _I, _P],
     "tempo_first_valid_index": [_P, _P, _I, _I, _P],
     "tempo_last_valid_scan": [_P] * 4 + [_I, _I, _P],
@@ -95,8 +96,8 @@ _SIGNATURES = {
                                + [_P] * 2 + [_I] * 4 + [_P],
     "tempo_error_string": [_I],
 }
-#: the staged forms' shared-memory totals, as the kernels compute them,
-#: the range-stats staged form's blocks an SM,
+#: the staged forms' and the sequential EMA's shared-memory totals, as
+#: the kernels compute them, the range-stats staged form's blocks an SM,
 #: the merge walk's step and column limit, the row form's, the walk's
 #: and the tile join's shared memory a block, the row limits of the
 #: ``cumsum3``, EMA, bucket-stats and range-stats kernels and the
@@ -117,6 +118,7 @@ _SMEM_SIGNATURES = {
     "tempo_range_ring_smem": [_I] * 5,
     "tempo_range_ring_occupancy": [_I] * 2,
     "tempo_resample_ring_smem": [_I] * 3,
+    "tempo_ema_scan_smem": [_I] * 5,
 }
 
 
@@ -283,6 +285,21 @@ def range_row_window() -> int:
     """Lanes the range-stats row form's shared-memory window holds; a tile
     and its halo past it walk several windows."""
     return lib().tempo_range_row_window()
+
+
+_sms: Dict[int, int] = {}
+
+
+def sm_count(device) -> int:
+    """The SMs of ``device``'s card (cached: a plan made inside a CUDA
+    graph capture reads nothing from the card)."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sms[index]
 
 
 _ring_blocks: Dict[tuple, int] = {}

@@ -29,7 +29,9 @@ Counterpart of ``tempo_tpu/ops/pallas_kernels.py``:
   and no Pallas kernel): the same recurrence strictly left to right
   with an explicit carry, ``(ys, y_end)``, one multiply and one add a
   lane, so resuming from ``y_end`` at any split is bitwise one run.
-  The serving steps run it on every push.
+  The serving steps run it on every push.  The kernel runs a thread a
+  row over tiles that helper warps stream through a ring in shared
+  memory; :func:`ema_scan_plan` picks its launch by shape.
 
 A CUDA tensor goes to the kernel (``csrc/ema_ladder.cu``,
 ``csrc/index_scan.cu``, ``csrc/cumsum3.cu``, ``csrc/ema_scan.cu``), a CPU
@@ -41,6 +43,8 @@ from __future__ import annotations
 import torch
 
 from tempo_tpu_torch.ops import cuda_lib
+from tempo_tpu_torch.ops.stream import (BLOCK_RESERVE, SM_SMEM, SMEM_LIMIT,
+                                        _align16, _plane)
 
 
 def _shift(a: torch.Tensor, span: int, identity: float) -> torch.Tensor:
@@ -245,11 +249,99 @@ def ema_scan_plain(x: torch.Tensor, valid: torch.Tensor, alpha,
     return torch.stack(ys, -1), y
 
 
+#: the sequential-EMA kernel's block (``csrc/ema_scan.cu``): a scan warp
+#: (a thread a row, at most ``EMA_SCAN_MAX_ROWS`` rows) and three helper
+#: warps; the ring depth it asks for, and the lanes a tile of a block
+#: holds about (``EMA_SCAN_TILE_LANES / rows``, at least 64)
+EMA_SCAN_MAX_ROWS, EMA_SCAN_DEPTH, EMA_SCAN_TILE_LANES = 32, 4, 2048
+#: blocks an SM the plan spreads the rows over, and so the shared memory
+#: a block may take to keep them all resident (57,344 bytes)
+EMA_SCAN_BLOCKS_A_SM = 4
+EMA_SCAN_SMEM = SM_SMEM // EMA_SCAN_BLOCKS_A_SM - BLOCK_RESERVE
+#: an H100 SXM's SMs, the plan's default card
+H100_SMS = 132
+
+
+def ema_scan_layout(rows: int, tile: int, depth: int, L: int,
+                    itemsize: int) -> dict:
+    """Shared memory of a block of the sequential-EMA kernel, offsets in
+    bytes (``scan_layout`` in ``csrc/ema_scan.cu``; its ``total`` is
+    ``tempo_ema_scan_smem`` on the card): ``depth`` barriers, then
+    ``depth`` raw slots of ``slot`` bytes from ``slots``, each a 16-byte
+    span plane (:func:`stream._plane`) of x (``px``) and of valid
+    (``pv``, from ``raw_v``) a row, or one each for all the block's rows
+    where they fit one tile (``tile == L``); then from ``planes`` the
+    scan's decay and input planes of ``plane`` bytes, rows ``stride``
+    elements (an odd number of 16-byte words: eight rows' 128-bit
+    accesses at one lane hit distinct banks) apart, in one buffer for one
+    tile, else two."""
+    whole = tile >= L
+    if whole:
+        px, pv = _plane(rows * L * itemsize), _plane(rows * L)
+        raw_v = px
+    else:
+        px, pv = _plane(tile * itemsize), _plane(tile)
+        raw_v = rows * px
+    slot = raw_v + (pv if whole else rows * pv)
+    stride = ((_align16(tile * itemsize) // 16) | 1) * 16 // itemsize
+    plane = rows * stride * itemsize
+    slots = _align16(8 * depth)
+    planes = slots + depth * slot
+    return dict(px=px, pv=pv, raw_v=raw_v, slot=slot, slots=slots,
+                planes=planes, plane=plane, stride=stride,
+                total=planes + (2 if whole else 4) * plane)
+
+
+def ema_scan_plan(R: int, L: int, itemsize: int, sms: int = H100_SMS) -> dict:
+    """The sequential-EMA kernel's launch over ``R`` rows of ``L`` lanes
+    of ``itemsize``-byte floats on a card of ``sms`` SMs, from the shape
+    alone (a CUDA graph captures it): ``rows`` a block (the rows spread
+    over four blocks an SM, at most 32), ``tile`` lanes a tile and the
+    ring's ``depth`` (at most ``EMA_SCAN_DEPTH`` and the tiles a row, at
+    least two where a row has two).  The first, from the widest tile
+    (about 2048 lanes a block's tile) down to 64 and then the deepest
+    ring, whose block fits ``EMA_SCAN_SMEM`` (four blocks an SM), else
+    the one of least shared memory.  ``tile`` is ``L`` where a row fits
+    (the ``"rows"`` form: the block's rows are one contiguous copy and
+    one scan).  Also its shared memory and ``blocks``.  Raises where the
+    kernel takes no such launch."""
+    if not (1 <= R < 2**31 and 1 <= L < 2**31):
+        raise ValueError(f"ema_scan kernel takes int32 row counts and "
+                         f"lengths of at least 1, got [{R}, {L}]")
+    if itemsize not in (4, 8):
+        raise TypeError(f"ema_scan kernel takes float32 or float64, got "
+                        f"{itemsize}-byte items")
+    rows = min(EMA_SCAN_MAX_ROWS, -(-R // (EMA_SCAN_BLOCKS_A_SM * sms)))
+    widest = max(64, EMA_SCAN_TILE_LANES >> (rows - 1).bit_length())
+    plans = []
+    for lanes in (widest >> i for i in range(widest.bit_length())
+                  if widest >> i >= 64):
+        tile = min(L, lanes)
+        tiles = -(-L // tile)
+        for d in range(min(EMA_SCAN_DEPTH, tiles), min(2, tiles) - 1, -1):
+            smem = ema_scan_layout(rows, tile, d, L, itemsize)["total"]
+            plans.append(dict(form="rows" if tile == L else "tiles",
+                              rows=rows, tile=tile, depth=d, tiles=tiles,
+                              smem=smem, blocks=-(-R // rows)))
+            if smem <= EMA_SCAN_SMEM:
+                return plans[-1]
+    least = min(plans, key=lambda p: p["smem"])
+    if least["smem"] > SMEM_LIMIT:
+        raise ValueError(f"ema_scan: no plan of [{R}, {L}] fits "
+                         f"{SMEM_LIMIT} B of shared memory")
+    return least
+
+
+#: (R, L, itemsize, SMs) -> the launch's (rows, tile, depth)
+_scan_plans: dict = {}
+
+
 def ema_scan_cuda(x: torch.Tensor, valid: torch.Tensor, alpha,
                   y0: torch.Tensor = None):
     """Launch the sequential-EMA kernel on a float32 or float64 [..., L]
-    CUDA tensor (one launch: ``y0`` read and ``y_end`` written in it, on
-    the current stream, so a CUDA graph captures it)."""
+    CUDA tensor (one launch at :func:`ema_scan_plan`'s plan: ``y0`` read
+    and ``y_end`` written in it, on the current stream, nothing read back
+    or allocated in the launch, so a CUDA graph captures it)."""
     if x.dtype not in (torch.float32, torch.float64) or x.dim() < 1:
         raise TypeError(f"ema_scan kernel takes float32 or float64 [..., L], "
                         f"got {x.dtype} {tuple(x.shape)}")
@@ -274,9 +366,13 @@ def ema_scan_cuda(x: torch.Tensor, valid: torch.Tensor, alpha,
         return ys, y_end
     x, valid = x.contiguous(), valid.contiguous()
     y0 = None if y0 is None else y0.contiguous()
+    key = (R, L, x.element_size(), cuda_lib.sm_count(x.device))
+    if key not in _scan_plans:
+        plan = ema_scan_plan(*key)
+        _scan_plans[key] = (plan["rows"], plan["tile"], plan["depth"])
     cuda_lib.launch("ema_scan", x.device, "tempo_ema_scan", x.data_ptr(),
                     valid.data_ptr(), float(alpha), cuda_lib.ptr(y0),
-                    ys.data_ptr(), y_end.data_ptr(), R, L,
+                    ys.data_ptr(), y_end.data_ptr(), R, L, *_scan_plans[key],
                     int(x.dtype == torch.float64))
     return ys, y_end
 
