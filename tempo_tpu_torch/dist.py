@@ -42,6 +42,10 @@ Design notes:
 * Counts ride as floats (exact below 2^24) and are cast to int64 at
   collect.
 * Non-numeric columns stay on the host and rejoin the frame at collect.
+* ``asofJoin``, ``withRangeStats``, ``EMA`` and ``collect`` open spans
+  ``tempo.dist.<op>[.<phase>]`` (``profiling.annotate``; free with no
+  profiler active): the host preparation of each op is named in a
+  trace, on the clock of the card's records.
 * Several processes (``parallel/multihost.py``): a process uploads and
   computes its own devices' shards (the others' are ``meta``
   placeholders); the join's row gather and the time axis's moves cross
@@ -61,7 +65,7 @@ import pandas as pd
 import torch
 
 from tempo_tpu_torch import device as device_policy
-from tempo_tpu_torch import packing
+from tempo_tpu_torch import packing, profiling
 from tempo_tpu_torch.freq import (
     CLOSEST_LEAD, MAX_LEAD, MEAN_LEAD, MIN_LEAD, UNIT_SECONDS, average,
     ceiling, floor, freq_to_seconds, max_func, min_func, validateFuncExists,
@@ -626,7 +630,11 @@ class DistributedTSDF:
 
         Without a time axis both strategies compute the exact frames
         (``"halo"`` takes the windowed form, as the reference does on one
-        time shard)."""
+        time shard).
+
+        The trace spans ``tempo.dist.range_stats``; the series-local
+        computation's phases are ``.engine``, ``.stack``, ``.compute``
+        and ``.outputs``."""
         from tempo_tpu_torch import plan
 
         if plan.recording():
@@ -636,6 +644,12 @@ class DistributedTSDF:
                 rangeBackWindowSecs=rangeBackWindowSecs, strategy=strategy))
         if strategy not in ("exact", "halo"):
             raise ValueError("strategy must be 'exact' or 'halo'")
+        with profiling.annotate("tempo.dist.range_stats"):
+            return self._range_stats(colsToSummarize, rangeBackWindowSecs,
+                                     strategy)
+
+    def _range_stats(self, colsToSummarize, rangeBackWindowSecs,
+                     strategy: str) -> "DistributedTSDF":
         if strategy == "exact" and self.n_time > 1:
             local = reshard_frame(self, RESHARD_SERIES_LOCAL)
             out = local.withRangeStats(
@@ -665,29 +679,33 @@ class DistributedTSDF:
                     new_cols[f"{stat}_{c}"] = DistCol(
                         stats[stat], self.mask, int64=(stat == "count"))
             return self._with(cols=new_cols, audits=audits)
-        if strategy == "exact":
-            engine, rowbounds = self._range_engine_choice(w)
-        else:
-            engine, rowbounds = "windowed", None
-        xs, vs = self._stack(cols)
-        stats, clipped = unzip(self._map(
-            lambda ts, mask, x, v: _range_stats_shard(ts, x, v & mask, w,
-                                                      rowbounds, engine),
-            self.ts, self.mask, xs, vs))
-        for ci, c in enumerate(cols):
-            if rowbounds is not None:
-                # deferred audit: the host-derived row bounds cover every
-                # frame by construction; a count here is a bug
-                audits.append((
-                    f"withRangeStats({c}): %d rows had window frames "
-                    f"extending past the static row bounds {rowbounds}; "
-                    f"this is a tempo_tpu_torch bug",
-                    [cl[ci] for cl in clipped]))
-            for stat in packing.RANGE_STATS:
-                new_cols[f"{stat}_{c}"] = DistCol(
-                    [s[stat][ci] for s in stats], self.mask,
-                    int64=(stat == "count"))
-        return self._with(cols=new_cols, audits=audits)
+        with profiling.annotate("tempo.dist.range_stats.engine"):
+            if strategy == "exact":
+                engine, rowbounds = self._range_engine_choice(w)
+            else:
+                engine, rowbounds = "windowed", None
+        with profiling.annotate("tempo.dist.range_stats.stack"):
+            xs, vs = self._stack(cols)
+        with profiling.annotate("tempo.dist.range_stats.compute"):
+            stats, clipped = unzip(self._map(
+                lambda ts, mask, x, v: _range_stats_shard(
+                    ts, x, v & mask, w, rowbounds, engine),
+                self.ts, self.mask, xs, vs))
+        with profiling.annotate("tempo.dist.range_stats.outputs"):
+            for ci, c in enumerate(cols):
+                if rowbounds is not None:
+                    # deferred audit: the host-derived row bounds cover
+                    # every frame by construction; a count here is a bug
+                    audits.append((
+                        f"withRangeStats({c}): %d rows had window frames "
+                        f"extending past the static row bounds "
+                        f"{rowbounds}; this is a tempo_tpu_torch bug",
+                        [cl[ci] for cl in clipped]))
+                for stat in packing.RANGE_STATS:
+                    new_cols[f"{stat}_{c}"] = DistCol(
+                        [s[stat][ci] for s in stats], self.mask,
+                        int64=(stat == "count"))
+            return self._with(cols=new_cols, audits=audits)
 
     rangeStats = withRangeStats
 
@@ -698,13 +716,20 @@ class DistributedTSDF:
         form, or ``exact=True`` for the infinite-horizon ladder).  The
         exact form composes across time blocks (an associative carry,
         ``parallel/halo.ema_time_sharded``); the truncated form does not,
-        so a time-sharded frame needs ``exact=True``."""
+        so a time-sharded frame needs ``exact=True``.  The trace spans
+        ``tempo.dist.ema``."""
         from tempo_tpu_torch import plan
 
         if plan.recording():
             return self._plan_record("ema", params=dict(
                 colName=colName, window=window, exp_factor=exp_factor,
                 exact=exact, inclusive_window=inclusive_window))
+        with profiling.annotate("tempo.dist.ema"):
+            return self._ema(colName, window, exp_factor, exact,
+                             inclusive_window)
+
+    def _ema(self, colName: str, window: int, exp_factor: float,
+             exact: bool, inclusive_window: bool) -> "DistributedTSDF":
         col = self.cols[colName]
         alpha = float(exp_factor)
         if self.n_time > 1:
@@ -748,7 +773,13 @@ class DistributedTSDF:
 
     def collect(self):
         """One device-to-host copy a shard -> a host-backed TSDF on the
-        mesh's first device."""
+        mesh's first device.  The trace spans ``tempo.dist.collect``,
+        with the phases ``.fetch`` (the copies) and ``.assemble`` (the
+        host frame)."""
+        with profiling.annotate("tempo.dist.collect"):
+            return self._collect()
+
+    def _collect(self):
         global _FETCH_EVENTS
         from tempo_tpu_torch.frame import TSDF
 
@@ -760,76 +791,81 @@ class DistributedTSDF:
         # the audit counts ride the same fetch (a [1, 1] block a shard)
         counts = [[c.reshape(1, 1) for c in counts]
                   for _, counts in self.audits]
-        host = self._host_planes(planes + counts)
+        with profiling.annotate("tempo.dist.collect.fetch"):
+            host = self._host_planes(planes + counts)
         _FETCH_EVENTS += 1
-        for j, (msg, _) in enumerate(self.audits):
-            n = int(round(float(host[n_planes + j].astype(np.float64).sum())))
-            if n > 0:
-                logger.warning(msg, n) if "%d" in msg else logger.warning(msg)
-        K = self.layout.n_series
-        ts_h, mask_h = host[0][:K], host[1][:K]
-        val_block = host[2:2 + len(names)]
-        ok_block = host[2 + len(names):2 + 2 * len(names)]
+        with profiling.annotate("tempo.dist.collect.assemble"):
+            for j, (msg, _) in enumerate(self.audits):
+                n = int(round(float(
+                    host[n_planes + j].astype(np.float64).sum())))
+                if n > 0:
+                    logger.warning(msg, *((n,) if "%d" in msg else ()))
+            K = self.layout.n_series
+            ts_h, mask_h = host[0][:K], host[1][:K]
+            val_block = host[2:2 + len(names)]
+            ok_block = host[2 + len(names):2 + 2 * len(names)]
 
-        lengths = mask_h.sum(axis=1).astype(np.int64)
-        key_ids = np.repeat(np.arange(K, dtype=np.int64), lengths)
-        flat = lambda a: a[:K][mask_h]
+            lengths = mask_h.sum(axis=1).astype(np.int64)
+            key_ids = np.repeat(np.arange(K, dtype=np.int64), lengths)
+            flat = lambda a: a[:K][mask_h]
 
-        out = {}
-        kf = self.layout.key_frame
-        for c in self.partitionCols:
-            out[c] = kf[c].to_numpy()[key_ids]
-        out[self.ts_col] = packing.ns_to_original(flat(ts_h), self._ts_dtype)
-        ts_parts: Dict[str, dict] = {}
-        for i, c in enumerate(names):
-            col = self.cols[c]
-            v = flat(val_block[i]).astype(np.float64)
-            okv = flat(ok_block[i])
-            if col.ts_chunk is not None:
-                target, shift = col.ts_chunk
-                part = ts_parts.setdefault(target, {"ns": 0, "ok": okv})
-                part["ns"] = part["ns"] + (
-                    np.round(np.where(okv, v, 0.0)).astype(np.int64) << shift)
-            elif col.host_gather is not None:
-                flat_vals, r_starts, perm = col.host_gather
-                ridx = np.round(np.where(okv, v, 0.0)).astype(np.int64)
-                pos = r_starts[perm[key_ids]] + ridx
-                pos = np.clip(pos, 0, max(len(flat_vals) - 1, 0))
-                if len(flat_vals) and np.issubdtype(flat_vals.dtype,
-                                                    np.integer):
-                    # an integer host column (e.g. a joined sequence
-                    # column) keeps int exactness; unmatched rows are NA
-                    arr = pd.array(flat_vals[pos].astype(np.int64),
-                                   dtype="Int64")
-                    arr[~okv] = pd.NA
-                    out[c] = arr
-                    continue
-                if len(flat_vals) and np.issubdtype(flat_vals.dtype,
-                                                    np.number):
-                    out[c] = np.where(okv, flat_vals[pos].astype(np.float64),
-                                      np.nan)
-                    continue
-                gathered = (flat_vals[pos] if len(flat_vals)
-                            else np.full(len(pos), None, object))
-                res = np.empty(len(pos), dtype=object)
-                res[:] = gathered
-                res[~okv] = None
-                out[c] = res
-            elif col.int64:
-                out[c] = np.where(okv, v, 0).astype(np.int64)
-            else:
-                out[c] = np.where(okv, v, np.nan)
-        for target, part in ts_parts.items():
-            tsv = packing.ns_to_original(part["ns"], self._ts_dtype)
-            if np.issubdtype(np.asarray(tsv).dtype, np.datetime64):
-                tsv = np.where(part["ok"], tsv, np.datetime64("NaT"))
-            out[target] = tsv
-        if not self.resampled:
-            # host-resident (non-numeric) columns rejoin by row identity
-            for c, src in self.host_cols.items():
-                out[c] = self._source_df[src].to_numpy()[self.layout.order]
-        return TSDF(pd.DataFrame(out), self.ts_col, self.partitionCols,
-                    device=self.devices[0], dtype=self.dtype)
+            out = {}
+            kf = self.layout.key_frame
+            for c in self.partitionCols:
+                out[c] = kf[c].to_numpy()[key_ids]
+            out[self.ts_col] = packing.ns_to_original(flat(ts_h),
+                                                      self._ts_dtype)
+            ts_parts: Dict[str, dict] = {}
+            for i, c in enumerate(names):
+                col = self.cols[c]
+                v = flat(val_block[i]).astype(np.float64)
+                okv = flat(ok_block[i])
+                if col.ts_chunk is not None:
+                    target, shift = col.ts_chunk
+                    part = ts_parts.setdefault(target, {"ns": 0, "ok": okv})
+                    part["ns"] = part["ns"] + (
+                        np.round(np.where(okv, v, 0.0)).astype(np.int64)
+                        << shift)
+                elif col.host_gather is not None:
+                    flat_vals, r_starts, perm = col.host_gather
+                    ridx = np.round(np.where(okv, v, 0.0)).astype(np.int64)
+                    pos = r_starts[perm[key_ids]] + ridx
+                    pos = np.clip(pos, 0, max(len(flat_vals) - 1, 0))
+                    if len(flat_vals) and np.issubdtype(flat_vals.dtype,
+                                                        np.integer):
+                        # an integer host column (e.g. a joined sequence
+                        # column) keeps int exactness; unmatched rows are NA
+                        arr = pd.array(flat_vals[pos].astype(np.int64),
+                                       dtype="Int64")
+                        arr[~okv] = pd.NA
+                        out[c] = arr
+                        continue
+                    if len(flat_vals) and np.issubdtype(flat_vals.dtype,
+                                                        np.number):
+                        out[c] = np.where(
+                            okv, flat_vals[pos].astype(np.float64), np.nan)
+                        continue
+                    gathered = (flat_vals[pos] if len(flat_vals)
+                                else np.full(len(pos), None, object))
+                    res = np.empty(len(pos), dtype=object)
+                    res[:] = gathered
+                    res[~okv] = None
+                    out[c] = res
+                elif col.int64:
+                    out[c] = np.where(okv, v, 0).astype(np.int64)
+                else:
+                    out[c] = np.where(okv, v, np.nan)
+            for target, part in ts_parts.items():
+                tsv = packing.ns_to_original(part["ns"], self._ts_dtype)
+                if np.issubdtype(np.asarray(tsv).dtype, np.datetime64):
+                    tsv = np.where(part["ok"], tsv, np.datetime64("NaT"))
+                out[target] = tsv
+            if not self.resampled:
+                # host-resident (non-numeric) columns rejoin by row identity
+                for c, src in self.host_cols.items():
+                    out[c] = self._source_df[src].to_numpy()[self.layout.order]
+            return TSDF(pd.DataFrame(out), self.ts_col, self.partitionCols,
+                        device=self.devices[0], dtype=self.dtype)
 
     def audit_counts(self) -> List[Tuple[str, int]]:
         """Each deferred audit's message and count, summed over the
@@ -887,7 +923,9 @@ class DistributedTSDF:
         tsdf.py:117-121).  ``maxLookback`` > 0 caps the fill at the
         trailing maxLookback+1 merged rows (asofJoin.scala:64-88).
         ``tsPartitionVal``, ``fraction`` and ``sql_join_opt`` are accepted
-        and ignored, as in the reference's mesh join."""
+        and ignored, as in the reference's mesh join.  The trace spans
+        ``tempo.dist.asof_join`` with the phases ``.key_perm``,
+        ``.right_stacks``, ``.align``, ``.merge`` and ``.outputs``."""
         from tempo_tpu_torch import plan
 
         if plan.recording():
@@ -897,6 +935,14 @@ class DistributedTSDF:
                 skipNulls=skipNulls, sql_join_opt=sql_join_opt,
                 suppress_null_warning=suppress_null_warning,
                 maxLookback=maxLookback))
+        with profiling.annotate("tempo.dist.asof_join"):
+            return self._asof_join(right, left_prefix, right_prefix,
+                                   tsPartitionVal, skipNulls, maxLookback)
+
+    def _asof_join(self, right: "DistributedTSDF",
+                   left_prefix: Optional[str], right_prefix: str,
+                   tsPartitionVal: Optional[int], skipNulls: bool,
+                   maxLookback: int) -> "DistributedTSDF":
         if tsPartitionVal is not None:
             logger.info("asofJoin: tsPartitionVal ignored on the mesh — "
                         "the packed layout needs no skew brackets")
@@ -906,8 +952,10 @@ class DistributedTSDF:
             raise ValueError(
                 "left and right dataframe partition columns should have same name in same order"
             )
-        perm, ok = _key_perm(self.layout.key_frame, right.layout.key_frame,
-                             self.partitionCols, self.K_dev)
+        with profiling.annotate("tempo.dist.asof_join.key_perm"):
+            perm, ok = _key_perm(self.layout.key_frame,
+                                 right.layout.key_frame,
+                                 self.partitionCols, self.K_dev)
         mesh = self.mesh
         # the join runs on whole rows: a time-sharded side switches to its
         # series-local layout (one all-to-all a plane), the right rows are
@@ -926,14 +974,6 @@ class DistributedTSDF:
         n, H = len(r_recs), len(h_names)
         dt = self.dtype
         host_flat: Dict[str, np.ndarray] = {}
-        h_notna: List[Shards] = []
-        for c in h_names:
-            flat = right._source_df[right.host_cols[c]].to_numpy()[
-                right.layout.order]
-            host_flat[c] = flat
-            h_notna.append(right._place(_pad_k(packing.pack_column(
-                ~pd.isna(flat), right.layout, right.L, fill=False),
-                right.K_dev, False)))
 
         # value stack layout (offsets named below):
         #   [0, n)              right col values (all kinds)
@@ -961,15 +1001,21 @@ class DistributedTSDF:
                 vstack = [mask] * len(planes)
             return torch.stack(planes), torch.stack(vstack)
 
-        r_local = right._to_local(right.ts, right.mask,
-                                  *[col.values for _, col in r_recs],
-                                  *[col.valid for _, col in r_recs],
-                                  *h_notna)
-        pstack, vstack = unzip(shard_map(right_stacks, mesh, *r_local,
-                                         axis=r_axes))
-        pstack = align(pstack, float("nan"), row_axis=1)
-        vstack = align(vstack, False, row_axis=1)
-        r_ts = align(r_local[0], int(packing.TS_PAD))
+        with profiling.annotate("tempo.dist.asof_join.right_stacks"):
+            h_notna: List[Shards] = []
+            for c in h_names:
+                flat = right._source_df[right.host_cols[c]].to_numpy()[
+                    right.layout.order]
+                host_flat[c] = flat
+                h_notna.append(right._place(_pad_k(packing.pack_column(
+                    ~pd.isna(flat), right.layout, right.L, fill=False),
+                    right.K_dev, False)))
+            r_local = right._to_local(right.ts, right.mask,
+                                      *[col.values for _, col in r_recs],
+                                      *[col.valid for _, col in r_recs],
+                                      *h_notna)
+            pstack, vstack = unzip(shard_map(right_stacks, mesh, *r_local,
+                                             axis=r_axes))
 
         ml = int(maxLookback or 0)
         # resampled (bucket-head) views keep real-looking ts on masked
@@ -977,9 +1023,14 @@ class DistributedTSDF:
         # sorted to the row's tail first, on either side
         compact = bool(ml and right.resampled)
         compact_left = bool(ml and self.resampled)
-        r_mask = (align(r_local[1], False) if compact else [None] * n_dst)
-        r_seq = (align(right._to_local(right.seq)[0], float("inf"))
-                 if right.seq is not None else [None] * n_dst)
+        with profiling.annotate("tempo.dist.asof_join.align"):
+            pstack = align(pstack, float("nan"), row_axis=1)
+            vstack = align(vstack, False, row_axis=1)
+            r_ts = align(r_local[0], int(packing.TS_PAD))
+            r_mask = (align(r_local[1], False) if compact
+                      else [None] * n_dst)
+            r_seq = (align(right._to_local(right.seq)[0], float("inf"))
+                     if right.seq is not None else [None] * n_dst)
 
         def join(l_ts, l_mask, rt, rm, rs, vs, ps):
             if compact:
@@ -992,10 +1043,12 @@ class DistributedTSDF:
                 vals, found = _uncompact_left(src, vals, found)
             return vals, found
 
-        l_ts, l_mask = self._to_local(self.ts, self.mask)
-        vals, found = unzip(shard_map(join, mesh, l_ts, l_mask, r_ts, r_mask,
-                                      r_seq, vstack, pstack, axis=l_axes))
-        vals, found = self._to_blocks(vals, found)
+        with profiling.annotate("tempo.dist.asof_join.merge"):
+            l_ts, l_mask = self._to_local(self.ts, self.mask)
+            vals, found = unzip(shard_map(join, mesh, l_ts, l_mask, r_ts,
+                                          r_mask, r_seq, vstack, pstack,
+                                          axis=l_axes))
+            vals, found = self._to_blocks(vals, found)
 
         def plane(p):
             return [v[p] for v in vals], [f[p] for f in found]
@@ -1006,46 +1059,51 @@ class DistributedTSDF:
             return ([v[p] for v in vals],
                     [f[p] & (v[q] > 0.5) for v, f in zip(vals, found)])
 
-        rename = ((lambda c: f"{left_prefix}_{c}") if left_prefix
-                  else (lambda c: c))
-        new_cols = {rename(c): col for c, col in self.cols.items()}
-        new_host = {rename(c): src for c, src in self.host_cols.items()}
-        hidx_off = (n + 3) if skipNulls else (2 * n + 3)
-        for i, (c, rcol) in enumerate(r_recs):
-            v, f = plane(i) if skipNulls else plane_and(i, n + 3 + i)
-            if rcol.ts_chunk is not None:
-                # an earlier join's timestamp chunk: re-target its
-                # recompose name under this join's prefix
-                target, shift = rcol.ts_chunk
-                nt = f"{right_prefix}_{target}"
-                j = {42: 0, 21: 1, 0: 2}[shift]
-                new_cols[f"__{nt}__c{j}"] = DistCol(v, f, ts_chunk=(nt, shift))
-            elif rcol.host_gather is not None:
-                # an earlier join's host-column plane: compose this join's
-                # series map into its gather map
-                fv, st, pm = rcol.host_gather
-                pm2 = pm[np.clip(perm, 0, max(len(pm) - 1, 0))]
+        with profiling.annotate("tempo.dist.asof_join.outputs"):
+            rename = ((lambda c: f"{left_prefix}_{c}") if left_prefix
+                      else (lambda c: c))
+            new_cols = {rename(c): col for c, col in self.cols.items()}
+            new_host = {rename(c): src for c, src in self.host_cols.items()}
+            hidx_off = (n + 3) if skipNulls else (2 * n + 3)
+            for i, (c, rcol) in enumerate(r_recs):
+                v, f = plane(i) if skipNulls else plane_and(i, n + 3 + i)
+                if rcol.ts_chunk is not None:
+                    # an earlier join's timestamp chunk: re-target its
+                    # recompose name under this join's prefix
+                    target, shift = rcol.ts_chunk
+                    nt = f"{right_prefix}_{target}"
+                    j = {42: 0, 21: 1, 0: 2}[shift]
+                    new_cols[f"__{nt}__c{j}"] = DistCol(
+                        v, f, ts_chunk=(nt, shift))
+                elif rcol.host_gather is not None:
+                    # an earlier join's host-column plane: compose this
+                    # join's series map into its gather map
+                    fv, st, pm = rcol.host_gather
+                    pm2 = pm[np.clip(perm, 0, max(len(pm) - 1, 0))]
+                    new_cols[f"{right_prefix}_{c}"] = DistCol(
+                        v, f, host_gather=(fv, st, pm2))
+                else:
+                    masked = [torch.where(fi, vi, float("nan"))
+                              for vi, fi in zip(v, f)]
+                    new_cols[f"{right_prefix}_{c}"] = DistCol(
+                        masked, f, int64=rcol.int64)
+            rts_name = f"{right_prefix}_{right.ts_col}"
+            for j, shift in enumerate((42, 21, 0)):
+                v, f = plane(n + j)
+                new_cols[f"__{rts_name}__c{j}"] = DistCol(
+                    v, f, ts_chunk=(rts_name, shift))
+            for i, c in enumerate(h_names):
+                v, f = (plane(hidx_off + i) if skipNulls
+                        else plane_and(hidx_off + i, hidx_off + H + i))
                 new_cols[f"{right_prefix}_{c}"] = DistCol(
-                    v, f, host_gather=(fv, st, pm2))
-            else:
-                masked = [torch.where(fi, vi, float("nan"))
-                          for vi, fi in zip(v, f)]
-                new_cols[f"{right_prefix}_{c}"] = DistCol(masked, f,
-                                                          int64=rcol.int64)
-        rts_name = f"{right_prefix}_{right.ts_col}"
-        for j, shift in enumerate((42, 21, 0)):
-            v, f = plane(n + j)
-            new_cols[f"__{rts_name}__c{j}"] = DistCol(
-                v, f, ts_chunk=(rts_name, shift))
-        for i, c in enumerate(h_names):
-            v, f = (plane(hidx_off + i) if skipNulls
-                    else plane_and(hidx_off + i, hidx_off + H + i))
-            new_cols[f"{right_prefix}_{c}"] = DistCol(
-                v, f, host_gather=(host_flat[c], right.layout.starts, perm))
-        # the join result has no sequence column (chained joins must not
-        # re-apply the tie-break); the left sequence rides the host cols
-        return self._with(cols=new_cols, host_cols=new_host,
-                          ts_col=rename(self.ts_col), seq=None, seq_col="")
+                    v, f,
+                    host_gather=(host_flat[c], right.layout.starts, perm))
+            # the join result has no sequence column (chained joins must
+            # not re-apply the tie-break); the left sequence rides the
+            # host cols
+            return self._with(cols=new_cols, host_cols=new_host,
+                              ts_col=rename(self.ts_col), seq=None,
+                              seq_col="")
 
     # ------------------------------------------------------------------
     # resample (resample.py:38-117) as a bucket-head view, calc_bars

@@ -24,7 +24,10 @@ row forms: ``bucket_stats_ring``, ``range_stats_ring`` and
 Every wrapper launches through :func:`launch`, which makes the
 operands' device the current CUDA device first: a launch onto a stream
 of another device than the current one fails, and a shard of a
-``DistributedTSDF`` may lie on any card.
+``DistributedTSDF`` may lie on any card.  Each launch is a span of the
+trace, ``tempo.kernel.<kernel>`` (the ctypes call and :func:`check`),
+and each compile one named ``tempo.kernel.build``
+(``profiling.annotate``).
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ from typing import Dict, List
 
 import torch
 
-from tempo_tpu_torch import config
+from tempo_tpu_torch import config, profiling
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("asof_merge.cu", "range_stats.cu", "ema_ladder.cu",
@@ -161,7 +164,8 @@ def build() -> Path:
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+    with profiling.annotate("tempo.kernel.build"), \
+            tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         objs = [Path(tmp) / (Path(src).stem + ".o") for src in SOURCES]
         procs = [
             subprocess.Popen(
@@ -224,10 +228,11 @@ def launch(kernel: str, device, entry: str, *args) -> None:
     """Call the C entry point ``entry`` with ``args`` and the current
     stream of ``device``, with ``device`` made the current CUDA device
     for the call, then :func:`check` the returned code (which counts the
-    launch of ``kernel``)."""
-    with torch.cuda.device(device):
-        code = getattr(lib(), entry)(*args, stream_handle(device))
-    check(code, kernel)
+    launch of ``kernel``), all in the span ``tempo.kernel.<kernel>``."""
+    with profiling.annotate(f"tempo.kernel.{kernel}"):
+        with torch.cuda.device(device):
+            code = getattr(lib(), entry)(*args, stream_handle(device))
+        check(code, kernel)
 
 
 def ptr(t) -> int:

@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import logging
 import os
-import time
 from typing import Dict, List, Optional
 
 from tempo_tpu_torch.plan import cache, hints, ir, optimizer
@@ -56,10 +55,8 @@ def execute(root: ir.Node):
     key = cache_key(root, snap)
 
     def build():
-        t0 = time.perf_counter()
         with cost.pinned(snap):
             exe = Executable(optimizer.optimize(root))
-        exe.build_seconds = time.perf_counter() - t0
         # run() binds the caller's payloads positionally, so the
         # build-time frames on the optimized copy are dead weight —
         # drop them or the process-global cache pins up to max_size()
@@ -84,8 +81,6 @@ class Executable:
 
     def __init__(self, plan: ir.Node):
         self.plan = plan
-        self.build_seconds = 0.0
-        self.runs = 0
 
     def release(self) -> None:
         """Free the CUDA graphs (their pools and static tensors) the
@@ -114,7 +109,6 @@ class Executable:
             raise ValueError(
                 f"plan expects {len(sources)} source frame(s); "
                 f"got {len(payloads)}")
-        self.runs += 1
         env: Dict[int, object] = {}
         spec = plan_ckpt.active()
         # barrier nodes only exist in plans optimized under an active

@@ -7,7 +7,13 @@ Counterpart of ``tempo_tpu/profiling.py`` (``trace``, ``annotate``,
 ``tempo_tpu.resilience.max_merged_lanes``.  ``trace`` records the host
 and, with a card present, the card's kernels and copies through
 ``torch.profiler`` into a Chrome trace; ``annotate`` names a span in it
-(the library places none of its own, as the reference places none).
+and is the port's one way to open a span.  The port places its own at
+its layer boundaries, named ``tempo.<layer>.<op>[.<phase>]``: the mesh
+frame's ops (``tempo.dist.asof_join``, ``.range_stats``, ``.ema``,
+``.collect`` and their phases, ``dist.py``) and each kernel launch and
+build (``tempo.kernel.<kernel>``, ``tempo.kernel.build``,
+``ops/cuda_lib.py``).  They land in the same trace as the card's
+records, on its clock; with no profiler active they cost one check.
 ``pick_join_engine`` honours the planner's hoisted hint
 (``plan/hints.py``) and, with the cost model on, takes the cost
 argmin (``plan/cost.py``), which reproduces the rule under the default
@@ -108,11 +114,21 @@ def trace(log_dir: str, create_perfetto_link: bool = False):
             log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
+#: what :func:`annotate` gives while no profiler records this thread
+_NO_SPAN = contextlib.nullcontext()
+
+
 def annotate(name: str):
     """Named span inside a :func:`trace` block (on the host timeline,
     with the kernels it launches beneath it):
-    ``with profiling.annotate("asof-join"): ...``"""
-    return torch.profiler.record_function(name)
+    ``with profiling.annotate("asof-join"): ...``.  While a profiler
+    records this thread it is ``torch.profiler.record_function(name)``;
+    otherwise one shared no-op context, so a span costs the check alone
+    (``record_function`` costs its enter and exit even with nothing
+    recording)."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def max_merged_lanes() -> int:
